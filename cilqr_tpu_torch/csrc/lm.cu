@@ -1,9 +1,15 @@
-// The whole Levenberg-Marquardt CILQR loop per scenario, in one kernel.
+// The whole Levenberg-Marquardt CILQR loop per scenario, in one kernel (K1),
+// and one LM iteration per scenario (K3).
 //
-// Replaces the TPU kernel cilqr_tpu/ops/lm_pallas.py `_opt_kernel` (:682),
-// launched by `_fused_optimize_call` (:860) from `fused_optimize` (:923),
-// with its subroutines `_gen_sample_table` (:249), `_make_closest_point`
-// (:263), `_run_iteration` (:322) and riccati_pallas `_fwd_kernel` (:225).
+// K1 replaces the TPU kernel cilqr_tpu/ops/lm_pallas.py `_opt_kernel`
+// (:682), launched by `_fused_optimize_call` (:860) from `fused_optimize`
+// (:923), with its subroutines `_gen_sample_table` (:249),
+// `_make_closest_point` (:263), `_run_iteration` (:322) and riccati_pallas
+// `_fwd_kernel` (:225).  K3 replaces `_iter_kernel` (:663), launched by
+// `fused_iteration` (:841): the same `_run_iteration` once, on a given
+// trajectory and lambda, with the sample table read from the local plans
+// and, in the hybrid mode for one uncertainty map per scenario, external
+// (e, gx, gy) sample planes instead of the in-kernel map sampler.
 // Per scenario: the initial rollout of U0 from x0, then per LM iteration
 // the closest-point tournament + exact 3-candidate refine, tracking /
 // control / obstacle / uncertainty barrier derivatives, the acceptance cost
@@ -17,6 +23,9 @@
 // tables exceed the 50 MB L2.  The arithmetic (~4 flops per sample read)
 // is far below the card's rate.  At B=32768 only ~8 warps per SM are
 // resident (one thread per scenario), too few to hide the memory latency.
+//
+// K3 reads and writes the same per-scenario arrays once per launch; the
+// host loop (lm_cuda.fused_optimize with a sampler) does accept/reject.
 //
 // Design: one thread per scenario, b = blockIdx.x * blockDim.x + threadIdx.x,
 // masked to b < B.  A scenario's live state (sample table S x 3, X/U, the
@@ -85,6 +94,7 @@ struct Ctx {
   const float* obs;   // [M*6][N]
   const float* map;   // [H][W]
   const float* scl;   // [16]
+  const float* uext;  // [N][3][B] external (e, gx, gy) planes (K3; null in K1)
 };
 
 // Tournament argmin over the expanded local-frame distance (first minimum
@@ -173,7 +183,9 @@ struct StepDerivs {
 };
 
 // Cost derivatives and the J term at step j of trajectory (X, U)
-// (costs.all_cost_derivs_and_J for one step).
+// (costs.all_cost_derivs_and_J for one step).  kExt: the uncertainty sample
+// comes from the external planes; K1 compiles that branch out.
+template <bool kExt>
 __device__ StepDerivs step_derivs(const Ctx& cx, const float* X, const float* U, int j) {
   const LMConfig& c = cx.c;
   const int B = c.B, b = cx.b, N = c.N;
@@ -219,9 +231,15 @@ __device__ StepDerivs step_derivs(const Ctx& cx, const float* X, const float* U,
       }
     }
   }
-  if (c.has_unc) {
+  if (kExt || c.has_unc) {
     float e, gx, gy;
-    unc_sample(cx, x0, x1, e, gx, gy);
+    if (kExt) {
+      e = cx.uext[at(j, 0, 3, B, b)];
+      gx = cx.uext[at(j, 1, 3, B, b)];
+      gy = cx.uext[at(j, 2, 3, B, b)];
+    } else {
+      unc_sample(cx, x0, x1, e, gx, gy);
+    }
     const float s1 = c.s1u * e, s2 = c.s2u * e;
     o.lx[0] += s1 * gx;
     o.lx[1] += s1 * gy;
@@ -251,6 +269,7 @@ __device__ StepDerivs step_derivs(const Ctx& cx, const float* X, const float* U,
 
 // One LM iteration on (X, U): backward pass with derivatives built per step
 // (k, K into scratch), then the rollout into (Xp, Up).  Returns J of (X, U).
+template <bool kExt>
 __device__ float run_iteration(const Ctx& cx, const float* X, const float* U, float lamb,
                                float* Xp, float* Up, float* k, float* K) {
   const LMConfig& c = cx.c;
@@ -258,7 +277,7 @@ __device__ float run_iteration(const Ctx& cx, const float* X, const float* U, fl
 
   // V seeded from the running cost at step N-1, with a zero yaw row and
   // column; that step re-enters the recursion at j = N-1 (iLQR.cpp:108-113)
-  const StepDerivs seed = step_derivs(cx, X, U, N - 1);
+  const StepDerivs seed = step_derivs<kExt>(cx, X, U, N - 1);
   float Vx[4] = {seed.lx[0], seed.lx[1], seed.lx[2], 0.0f};
   float Vxx[16] = {seed.lxx[0], seed.lxx[1], 0.0f, 0.0f,
                    seed.lxx[1], seed.lxx[2], 0.0f, 0.0f,
@@ -266,7 +285,7 @@ __device__ float run_iteration(const Ctx& cx, const float* X, const float* U, fl
                    0.0f, 0.0f, 0.0f, 0.0f};
   float Jacc = 0.0f;
   for (int j = N - 1; j >= 0; --j) {
-    const StepDerivs d = step_derivs(cx, X, U, j);
+    const StepDerivs d = step_derivs<kExt>(cx, X, U, j);
     Jacc = Jacc + d.J;
     const float lx[4] = {d.lx[0], d.lx[1], d.lx[2], 0.0f};
     const float lxx[16] = {d.lxx[0], d.lxx[1], 0.0f, 0.0f,
@@ -311,6 +330,26 @@ __device__ float run_iteration(const Ctx& cx, const float* X, const float* U, fl
   return Jacc;
 }
 
+// Scenario b's fit payload [coeffs, x_mid, x_scale, samp_frame] ([C][B]).
+__device__ __forceinline__ Fit read_fit(const LMConfig& cfg, const float* fit, int b) {
+  const int B = cfg.B, nc = cfg.ncoef;
+  Fit f;
+  f.ncoef = nc;
+  for (int i = 0; i < nc; ++i) f.cs[i] = fit[(size_t)i * B + b];
+  const float* v = fit + (size_t)nc * B + b;
+  f.x_mid = v[0];
+  f.inv_xscale = 1.0f / v[(size_t)1 * B];
+  f.x0r = v[(size_t)2 * B];
+  f.dr = v[(size_t)3 * B];
+  f.ox = v[(size_t)4 * B];
+  f.oy = v[(size_t)5 * B];
+  f.cph = v[(size_t)6 * B];
+  f.sph = v[(size_t)7 * B];
+  f.qx = v[(size_t)8 * B];
+  f.qy = v[(size_t)9 * B];
+  return f;
+}
+
 __global__ void lm_opt_kernel(LMConfig cfg,
                               const float* __restrict__ fit,  // [ncoef+10][B]
                               const float* __restrict__ x0,   // [4][B] start states
@@ -329,23 +368,10 @@ __global__ void lm_opt_kernel(LMConfig cfg,
                               float* __restrict__ k,          // [N][2][B] scratch
                               float* __restrict__ K) {        // [N][8][B] scratch
   const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  const int B = cfg.B, N = cfg.N, S = cfg.S, nc = cfg.ncoef;
+  const int B = cfg.B, N = cfg.N, S = cfg.S;
   if (b >= B) return;
 
-  Fit f;
-  f.ncoef = nc;
-  for (int i = 0; i < nc; ++i) f.cs[i] = fit[(size_t)i * B + b];
-  const float* v = fit + (size_t)nc * B + b;
-  f.x_mid = v[0];
-  f.inv_xscale = 1.0f / v[(size_t)1 * B];
-  f.x0r = v[(size_t)2 * B];
-  f.dr = v[(size_t)3 * B];
-  f.ox = v[(size_t)4 * B];
-  f.oy = v[(size_t)5 * B];
-  f.cph = v[(size_t)6 * B];
-  f.sph = v[(size_t)7 * B];
-  f.qx = v[(size_t)8 * B];
-  f.qy = v[(size_t)9 * B];
+  const Fit f = read_fit(cfg, fit, b);
 
   // regenerate the local sample table [sxl, syl, r] (Constraints.cpp:28-42
   // + reference_path._local_channels)
@@ -381,14 +407,14 @@ __global__ void lm_opt_kernel(LMConfig cfg,
     }
   }
 
-  const Ctx cx{cfg, f, b, sxy, obs, map, scl};
+  const Ctx cx{cfg, f, b, sxy, obs, map, scl, nullptr};
   // LM bookkeeping (iLQR.cpp:211-239), in the order accept -> trajectory
   // merge -> lambda -> stop
   float J_old = FLT_MAX, lamb = cfg.lamb_init;
   int it = 0;
   bool done = false;
   for (int iter = 0; iter < cfg.max_iterations && !done; ++iter) {
-    const float J_new = run_iteration(cx, X, U, lamb, Xp, Up, k, K);
+    const float J_new = run_iteration<false>(cx, X, U, lamb, Xp, Up, k, K);
     const bool accept = J_new < J_old;
     if (accept) {
       for (int j = 0; j <= N; ++j)
@@ -407,6 +433,29 @@ __global__ void lm_opt_kernel(LMConfig cfg,
   it_out[b] = it;
 }
 
+// One LM iteration on (X, U) at lambda per scenario (K3): J of (X, U) and
+// the proposal (Xn, Un), the uncertainty sample taken from the external
+// planes.  The sample table comes from the local plans.
+__global__ void lm_iter_kernel(LMConfig cfg,
+                               const float* __restrict__ fit,   // [ncoef+10][B]
+                               const float* __restrict__ sxy,   // [S][3][B]
+                               const float* __restrict__ X,     // [N+1][4][B]
+                               const float* __restrict__ U,     // [N][2][B]
+                               const float* __restrict__ lamb,  // [B]
+                               const float* __restrict__ uext,  // [N][3][B]
+                               const float* __restrict__ obs,   // [M*6][N]
+                               float* __restrict__ Xn,          // [N+1][4][B]
+                               float* __restrict__ Un,          // [N][2][B]
+                               float* __restrict__ J,           // [B]
+                               float* __restrict__ k,           // [N][2][B] gains
+                               float* __restrict__ K) {         // [N][8][B] gains
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= cfg.B) return;
+  const Fit f = read_fit(cfg, fit, b);
+  const Ctx cx{cfg, f, b, sxy, obs, nullptr, nullptr, uext};
+  J[b] = run_iteration<true>(cx, X, U, lamb[b], Xn, Un, k, K);
+}
+
 }  // namespace
 
 extern "C" int cilqr_lm_config_size() { return (int)sizeof(LMConfig); }
@@ -421,5 +470,18 @@ extern "C" int cilqr_lm_opt(const LMConfig* cfg, const float* fit, const float* 
   const int blocks = (cfg->B + threads - 1) / threads;
   lm_opt_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
       *cfg, fit, x0, U0, obs, map, scl, X, U, J, lamb, it, sxy, Xp, Up, k, K);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int cilqr_lm_iter(const LMConfig* cfg, const float* fit, const float* sxy,
+                             const float* X, const float* U, const float* lamb,
+                             const float* uext, const float* obs, float* Xn, float* Un,
+                             float* J, float* k, float* K, void* stream) {
+  if (cfg->ncoef > kMaxCoef || cfg->has_unc || uext == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const int threads = 128;
+  const int blocks = (cfg->B + threads - 1) / threads;
+  lm_iter_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
+      *cfg, fit, sxy, X, U, lamb, uext, obs, Xn, Un, J, k, K);
   return (int)cudaGetLastError();
 }

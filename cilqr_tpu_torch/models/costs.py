@@ -89,17 +89,23 @@ def state_cost_derivs(
     obstacles: Optional[obstacles_mod.Obstacles] = None,
     unc_map: Optional[uncertainty_mod.UncertaintyMap] = None,
     cp=None,
+    unc_planes=None,
 ):
     """Full l_x (..., N, 4), l_xx (..., N, 4, 4): tracking + obstacle
     barriers + uncertainty-map barrier (Constraints.cpp:145-227).  ``X`` is
-    the first N states of the trajectory (Constraints.cpp:161)."""
+    the first N states of the trajectory (Constraints.cpp:161).
+
+    Obstacles and the map are shared, or carry a leading scenario axis
+    (obstacles.pos (B, M, N, 4), map values (B, H, W)) for X (B, N, 4).
+    ``unc_planes`` (..., N, 3) replaces the map's sample (the hybrid path
+    samples the per-scenario maps outside the kernel)."""
     l_x, l_xx = tracking_cost_derivs(p, plan, X, cp=cp)
     if obstacles is not None:
         ovx, omx = obstacles_mod.obstacle_cost_derivs(p, obstacles, X)
         l_x = l_x + p.w_obstacle * ovx
         l_xx = l_xx + p.w_obstacle * omx
-    if unc_map is not None:
-        _, uvx, umx = uncertainty_mod.uncertainty_cost(p, unc_map, X)
+    if unc_map is not None or unc_planes is not None:
+        _, uvx, umx = uncertainty_mod.uncertainty_cost(p, unc_map, X, unc_planes)
         l_x = l_x + p.w_uncertainty * uvx
         l_xx = l_xx + p.w_uncertainty * umx
     return l_x, l_xx
@@ -137,13 +143,15 @@ def all_cost_derivs(p: SolverParams, plan: LocalPlan, X, U, obstacles=None,
 
 
 def all_cost_derivs_and_J(p: SolverParams, plan: LocalPlan, X, U, obstacles=None,
-                          unc_map=None):
+                          unc_map=None, unc_planes=None):
     """(CostDerivs, J): one closest-point pass serves both the tracking
-    derivatives and the acceptance cost, since both evaluate at X[0..N-1]."""
+    derivatives and the acceptance cost, since both evaluate at X[0..N-1].
+    World arguments as in ``state_cost_derivs``."""
     N = U.shape[-2]
     Xh = X[..., :N, :]
     cp = find_closest_points(plan, Xh)
-    l_x, l_xx = state_cost_derivs(p, plan, Xh, obstacles, unc_map, cp=cp)
+    l_x, l_xx = state_cost_derivs(p, plan, Xh, obstacles, unc_map, cp=cp,
+                                  unc_planes=unc_planes)
     l_u, l_uu = control_cost_derivs(p, X, U)
     l_ux = torch.zeros(U.shape[:-1] + (2, 4), dtype=X.dtype, device=X.device)
     J = total_cost_J(p, plan, X, U, cp=cp)

@@ -55,16 +55,18 @@ def make_static_obstacles(p: SolverParams, centers, sizes, yaws, speeds=None,
 def obstacle_cost_derivs(p: SolverParams, obs: Obstacles, X: torch.Tensor):
     """Summed obstacle barrier gradient/Hessian (Constraints.cpp:180-187).
 
-    X: (..., N, 4) states for timesteps 0..N-1.  Returns (vx (..., N, 4),
-    mx (..., N, 4, 4)).  Per (obstacle j, step i), ``Obstacle.cpp:39-112``:
+    X: (..., N, 4) states for timesteps 0..N-1; the obstacles are shared or
+    carry the same leading batch (pos (B, M, N, 4) for X (B, N, 4)).
+    Returns (vx (..., N, 4), mx (..., N, 4, 4)).  Per (obstacle j, step i),
+    ``Obstacle.cpp:39-112``:
         a = len/2 + |v_o cos(th_o)| t_safe + s_safe_a + ego_rad
         b = wid/2 + |v_o sin(th_o)| t_safe + s_safe_b + ego_rad + 1
     c = 1 - d^T P d with d the ego front/rear disc center in the obstacle
     frame; barrier q1*exp(q2*c); the gradient fills only the x/y slots.
     """
     N = X.shape[-2]
-    dims = obs.dims[:, :N]  # (M, N, 2)
-    pos = obs.pos[:, :N]    # (M, N, 4)
+    dims = obs.dims[..., :N, :]  # (..., M, N, 2)
+    pos = obs.pos[..., :N, :]    # (..., M, N, 4)
 
     ov = pos[..., 2]
     oth = pos[..., 3]
@@ -98,7 +100,7 @@ def obstacle_cost_derivs(p: SolverParams, obs: Obstacles, X: torch.Tensor):
     fvx, fmx = disc(+1.0, p.ego_front, p.q1_front, p.q2_front)
     rvx, rmx = disc(-1.0, p.ego_rear, p.q1_rear, p.q2_rear)
 
-    m = obs.mask[:, None, None]  # (M, 1, 1)
+    m = obs.mask[..., None, None]  # (..., M, 1, 1)
     vx2 = ((fvx + rvx) * m).sum(dim=-3)            # (..., N, 2)
     mx2 = ((fmx + rmx) * m[..., None]).sum(dim=-4)  # (..., N, 2, 2)
 

@@ -101,18 +101,22 @@ def forward_pass(p: SolverParams, X: torch.Tensor, U: torch.Tensor, k: torch.Ten
 
 
 def optimize(p: SolverParams, plan: LocalPlan, x0: torch.Tensor, U_init: torch.Tensor,
-             obstacles=None, unc_map=None, backward_forward=None):
+             obstacles=None, unc_map=None, iteration=None):
     """Levenberg-Marquardt solve (iLQR.cpp:201-245) from x0 (..., 4) and
     U_init (..., N, 2), with per-lane masks: a lane that has stopped keeps
     its state, so every lane gets the result it would get alone.
 
-    backward_forward(d, X, U, lamb) -> (X_new, U_new) defaults to
-    ``backward_from_derivs`` + ``forward_pass``; the batched drivers pass a
-    kernel wrapper.  Returns (X, U, iterations, J, lamb)."""
-    if backward_forward is None:
-        def backward_forward(d, X, U, lamb):
+    iteration(X, U, lamb) -> (X_new, U_new, J) is one LM iteration: by
+    default the cost derivatives and J at (X, U) on (plan, obstacles,
+    unc_map), the backward recursion and the rollout, in plain PyTorch; the
+    batched paths pass their kernels' iteration instead.  The loop ends
+    when every lane has stopped, which reads the done mask on the host once
+    per iteration.  Returns (X, U, iterations, J, lamb)."""
+    if iteration is None:
+        def iteration(X, U, lamb):
+            d, J = costs_mod.all_cost_derivs_and_J(p, plan, X, U, obstacles, unc_map)
             k, K = backward_from_derivs(p, d, X, U, lamb)
-            return forward_pass(p, X, U, k, K)
+            return (*forward_pass(p, X, U, k, K), J)
 
     X, U = dynamics.rollout(p, x0, U_init), U_init
     batch = U_init.shape[:-2]
@@ -129,8 +133,7 @@ def optimize(p: SolverParams, plan: LocalPlan, x0: torch.Tensor, U_init: torch.T
     for _ in range(p.max_iterations):
         if bool(done.all()):
             break
-        d, J_new = costs_mod.all_cost_derivs_and_J(p, plan, X, U, obstacles, unc_map)
-        X_new, U_new = backward_forward(d, X, U, lamb)
+        X_new, U_new, J_new = iteration(X, U, lamb)
 
         accept = J_new < J_old
         take = (accept & ~done)[..., None, None]
@@ -151,6 +154,8 @@ def run_step(p: SolverParams, plan_xy: torch.Tensor, plan_n, ego_state: torch.Te
 
     plan_xy: (P, 2) padded global plan; plan_n: valid count; ego_state
     (..., 4) with noise already injected; U_warm (..., N, 2) warm start.
+    ``unc_map`` is one shared map or, for ego_state (B, 4), one map per
+    scenario (values (B, H, W), geometry and frame leaves with leading B).
     """
     plan = get_local_plan(p, plan_xy, plan_n, ego_state)
     X, U, it, J, lamb = optimize(p, plan, ego_state, U_warm, obstacles, unc_map)

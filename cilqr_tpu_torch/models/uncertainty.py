@@ -87,12 +87,21 @@ def uncertainty_sample_batched(p: SolverParams, m: UncertaintyMap, Xs: torch.Ten
     return _barrier_sample(p, u, grad_local, inside, cy, sy)
 
 
-def uncertainty_cost(p: SolverParams, m: UncertaintyMap, X: torch.Tensor):
+def uncertainty_cost(p: SolverParams, m: UncertaintyMap | None, X: torch.Tensor,
+                     planes: torch.Tensor | None = None):
     """Barrier (e, vx, mx) at states X (..., 4): (...,), (..., 4), (..., 4, 4).
 
-    Unweighted: the caller applies w_uncertainty (Constraints.cpp:199-200).
+    The raw sample comes from the map (one shared map, or one per scenario
+    when m.values is (B, H, W) and X is (B, N, 4)) or, given ``planes``
+    (..., 3) = [e, gx, gy], from samples taken outside.  Unweighted: the
+    caller applies w_uncertainty (Constraints.cpp:199-200).
     """
-    e, gx, gy = uncertainty_sample(p, m, X)
+    if planes is not None:
+        e, gx, gy = planes.unbind(-1)
+    elif m.values.ndim == 3:
+        e, gx, gy = uncertainty_sample_batched(p, m, X)
+    else:
+        e, gx, gy = uncertainty_sample(p, m, X)
     g = torch.stack([gx, gy], dim=-1)
     vx2 = (p.q2_uncertainty * e)[..., None] * g
     mx2 = (p.q2_uncertainty ** 2 * e)[..., None, None] * (g[..., :, None] * g[..., None, :])

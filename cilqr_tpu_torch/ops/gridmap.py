@@ -36,15 +36,17 @@ def make_geom(center_xy, resolution: float, rows: int, cols: int,
 
 
 def _first(geom: GridGeom) -> torch.Tensor:
-    return geom.center + 0.5 * geom.length - 0.5 * geom.resolution
+    return geom.center + 0.5 * geom.length - 0.5 * geom.resolution[..., None]
 
 
 def cell_positions(geom: GridGeom, rows: int, cols: int):
-    """(rows,), (cols,) cell-center coordinates along x and y."""
+    """(..., rows), (..., cols) cell-center coordinates along x and y; the
+    leading dims are those of a geometry with one grid per scenario."""
     first = _first(geom)
+    res = geom.resolution[..., None]
     ar = lambda n: torch.arange(n, dtype=geom.center.dtype, device=geom.center.device)
-    xs = first[0] - geom.resolution * ar(rows)
-    ys = first[1] - geom.resolution * ar(cols)
+    xs = first[..., 0, None] - res * ar(rows)
+    ys = first[..., 1, None] - res * ar(cols)
     return xs, ys
 
 

@@ -1,10 +1,16 @@
-"""The whole LM solve per scenario in one CUDA kernel: kernel K1.
+"""The LM solve per scenario in CUDA: kernels K1 (whole loop) and K3 (one
+iteration).
 
-Port of ``cilqr_tpu/ops/lm_pallas.py`` (``_opt_kernel`` via
-``fused_optimize``, the in-kernel-loop form with a shared world).  The
-kernel (``csrc/lm.cu``) regenerates each scenario's closest-point sample
-table from its fit payload, then runs every LM iteration (derivatives, J,
-backward Riccati, rollout, accept/reject, lambda, stop) per thread.
+Port of ``cilqr_tpu/ops/lm_pallas.py``.  K1 (``_opt_kernel`` via
+``fused_optimize``, the in-kernel-loop form with a shared world)
+regenerates each scenario's closest-point sample table from its fit
+payload, then runs every LM iteration (derivatives, J, backward Riccati,
+rollout, accept/reject, lambda, stop) per thread.  K3 (``_iter_kernel`` via
+``fused_iteration``) runs one iteration on a given trajectory; with
+``unc_sampler`` (one uncertainty map per scenario, the Monte-Carlo and
+full-stack form) ``fused_optimize`` drives it from the host LM loop
+(``solver.optimize``), sampling each scenario's map at the current
+trajectory before every launch.  Both are in ``csrc/lm.cu``.
 
 Shared-world payloads are prepared once per solve: the obstacle quadratic
 forms (``prep_obstacles``), the map and its frame scalars (``prep_unc_map``;
@@ -12,8 +18,9 @@ the kernel reads the four corners of the (H, W) map directly).  The initial
 rollout of U_init from x0 runs inside the kernel (the JAX code does it
 outside, with ``dynamics.rollout``; the plain version here still does).
 
-``fused_optimize`` takes the plain version (``fused_optimize_plain``) for
-tensors on the CPU; for CUDA tensors it launches the kernel or raises.
+``fused_optimize`` and ``fused_iteration`` take their plain versions
+(``fused_optimize_plain``, ``fused_iteration_plain``) for tensors on the
+CPU; for CUDA tensors they launch the kernel or raise.
 """
 
 from __future__ import annotations
@@ -24,10 +31,11 @@ from typing import NamedTuple
 import torch
 
 from cilqr_tpu.utils.params import SolverParams
-from cilqr_tpu_torch.models import solver
+from cilqr_tpu_torch.models import costs, solver
 from cilqr_tpu_torch.ops import riccati_cuda
 
-LAUNCHES = 0  # kernel launches made by this module's wrappers
+LAUNCHES = 0  # K1 launches made by fused_optimize
+ITER_LAUNCHES = 0  # K3 launches made by fused_iteration
 
 
 class WorldPrep(NamedTuple):
@@ -41,6 +49,7 @@ class WorldPrep(NamedTuple):
     scl:    (16,) map-frame scalars [origin_x, origin_y, cos_yaw, sin_yaw,
             first_x, first_y, 1/res, lo_x, hi_x, lo_y, hi_y, 0...].
     has_obs / has_unc: whether the kernel evaluates each term.
+    obstacles / unc_map: the world as given (the plain versions use it).
     """
 
     obs: torch.Tensor
@@ -48,6 +57,8 @@ class WorldPrep(NamedTuple):
     scl: torch.Tensor
     has_obs: bool
     has_unc: bool
+    obstacles: object
+    unc_map: object
 
 
 def prep_obstacles(p: SolverParams, obs, dtype=torch.float32, device=None) -> torch.Tensor:
@@ -95,7 +106,8 @@ def prep_unc_map(m, dtype=torch.float32, device=None):
 def prep_world(p: SolverParams, obstacles, unc_map, dtype=torch.float32, device=None) -> WorldPrep:
     obs = prep_obstacles(p, obstacles, dtype, device)
     values, scl = prep_unc_map(unc_map, dtype, device)
-    return WorldPrep(obs, values, scl, obstacles is not None, unc_map is not None)
+    return WorldPrep(obs, values, scl, obstacles is not None, unc_map is not None,
+                     obstacles, unc_map)
 
 
 def _fit_payload(plans) -> torch.Tensor:
@@ -107,12 +119,43 @@ def _fit_payload(plans) -> torch.Tensor:
     )
 
 
-def fused_optimize_plain(p: SolverParams, plans, x0s, U_init, obstacles=None, unc_map=None):
-    """Plain version of the kernel: ``solver.optimize``, the batched LM loop
-    with per-lane masks on ``costs.all_cost_derivs_and_J`` and the backward
-    recursion + rollout of ``riccati_cuda.backward_forward_plain``.
+def fused_iteration_plain(p: SolverParams, world: WorldPrep, plans, X, U, lamb, uext=None):
+    """Plain version of K3: ``costs.all_cost_derivs_and_J`` at (X, U) (the
+    uncertainty sample from ``uext`` (B, N, 3) when given), then the
+    backward recursion and the rollout.  Returns (X_new, U_new, J, k, K)."""
+    d, J = costs.all_cost_derivs_and_J(p, plans, X, U, world.obstacles, world.unc_map,
+                                       unc_planes=uext)
+    k, K = solver.backward_from_derivs(p, d, X, U, lamb)
+    X_new, U_new = solver.forward_pass(p, X, U, k, K)
+    return X_new, U_new, J, k, K
+
+
+def _hybrid_iteration(p: SolverParams, world: WorldPrep, plans, unc_sampler, step):
+    """(X, U, lamb) -> (X_new, U_new, J) of step(...) on the planes
+    unc_sampler(X[:, :N]) (B, N, 3)."""
+    def iteration(X, U, lamb):
+        return step(p, world, plans, X, U, lamb, unc_sampler(X[:, :p.horizon]))[:3]
+
+    return iteration
+
+
+def _check_sampler(unc_sampler, unc_map) -> None:
+    if unc_sampler is not None and unc_map is not None:
+        raise ValueError("unc_sampler and unc_map are mutually exclusive")
+
+
+def fused_optimize_plain(p: SolverParams, plans, x0s, U_init, obstacles=None, unc_map=None,
+                         unc_sampler=None):
+    """Plain version of ``fused_optimize``: ``solver.optimize``, the batched
+    LM loop with per-lane masks, on the plain iteration (with
+    ``unc_sampler``: on ``fused_iteration_plain`` fed by the sampler).
     Returns (X, U, iterations, J, lamb)."""
-    return solver.optimize(p, plans, x0s, U_init, obstacles, unc_map)
+    _check_sampler(unc_sampler, unc_map)
+    if unc_sampler is None:
+        return solver.optimize(p, plans, x0s, U_init, obstacles, unc_map)
+    world = prep_world(p, obstacles, None, x0s.dtype, x0s.device)
+    return solver.optimize(p, plans, x0s, U_init, iteration=_hybrid_iteration(
+        p, world, plans, unc_sampler, fused_iteration_plain))
 
 
 class _LMConfig(ctypes.Structure):
@@ -157,6 +200,26 @@ def _config(p: SolverParams, B: int, M: int, H: int, W: int, has_obs: bool,
     )
 
 
+def _check_world(world: WorldPrep, N: int) -> tuple:
+    """(M, H, W) of a world payload, after checking it for the kernels."""
+    M = world.obs.shape[0] // 6
+    H, W = world.values.shape
+    if world.has_obs:
+        riccati_cuda.check_cuda_f32("obstacle payload", world.obs, (M * 6, N))
+    if world.has_unc:
+        riccati_cuda.check_cuda_f32("uncertainty map", world.values, (H, W))
+        if H < 2 or W < 2:
+            raise ValueError(f"uncertainty map must be at least 2x2, got {(H, W)}")
+    return M, H, W
+
+
+def _load(build):
+    lib = build.load_library()
+    if lib.cilqr_lm_config_size() != ctypes.sizeof(_LMConfig):
+        raise RuntimeError("LMConfig layout differs between Python and CUDA")
+    return lib
+
+
 def _launch(p: SolverParams, plans, x0s, U_init, obstacles, unc_map):
     global LAUNCHES
     from cilqr_tpu_torch.utils import build
@@ -173,18 +236,8 @@ def _launch(p: SolverParams, plans, x0s, U_init, obstacles, unc_map):
         riccati_cuda.check_cuda_f32(name, t, shape)
     dev = x0s.device
     world = prep_world(p, obstacles, unc_map, torch.float32, dev)
-    M = world.obs.shape[0] // 6
-    H, W = world.values.shape
-    if world.has_obs:
-        riccati_cuda.check_cuda_f32("obstacle payload", world.obs, (M * 6, N))
-    if world.has_unc:
-        riccati_cuda.check_cuda_f32("uncertainty map", world.values, (H, W))
-        if H < 2 or W < 2:
-            raise ValueError(f"uncertainty map must be at least 2x2, got {(H, W)}")
-
-    lib = build.load_library()
-    if lib.cilqr_lm_config_size() != ctypes.sizeof(_LMConfig):
-        raise RuntimeError("LMConfig layout differs between Python and CUDA")
+    M, H, W = _check_world(world, N)
+    lib = _load(build)
     fit_t = fit.t().contiguous()  # (C, B)
     x0_t = x0s.t().contiguous()   # (4, B)
     U0s = riccati_cuda.to_scenario_minor(U_init)
@@ -214,10 +267,72 @@ def _launch(p: SolverParams, plans, x0s, U_init, obstacles, unc_map):
             riccati_cuda.from_scenario_minor(U, (2,)), it, J, lamb)
 
 
-def fused_optimize(p: SolverParams, plans, x0s, U_init, obstacles=None, unc_map=None):
-    """The LM loop (iLQR.cpp:211-239, per-lane masks) over a (B, ...) batch
-    with a shared world.  Same signature and result as
-    ``solver_batched.batched_optimize``: (X, U, iterations, J, lamb)."""
+def _launch_iteration(p: SolverParams, world: WorldPrep, plans, X, U, lamb, uext):
+    global ITER_LAUNCHES
+    from cilqr_tpu_torch.utils import build
+
+    N, S = p.horizon, p.n_closest_samples
+    B = X.shape[0]
+    if B < 1:
+        raise ValueError("empty batch")
+    if world.has_unc:
+        raise ValueError("K3 takes its uncertainty sample from uext; the world must hold no map")
+    fit = _fit_payload(plans)
+    sxy = torch.stack([plans.sample_xl, plans.sample_yl, plans.sample_r], dim=-1)
+    for name, t, shape in (
+        ("X", X, (B, N + 1, 4)), ("U", U, (B, N, 2)), ("lamb", lamb, (B,)),
+        ("fit payload", fit, (B, p.poly_order + 11)), ("sample table", sxy, (B, S, 3)),
+        ("uext", uext, (B, N, 3)),
+    ):
+        riccati_cuda.check_cuda_f32(name, t, shape)
+    M, H, W = _check_world(world, N)
+    lib = _load(build)
+    ins = [fit.t().contiguous(), riccati_cuda.to_scenario_minor(sxy),
+           riccati_cuda.to_scenario_minor(X), riccati_cuda.to_scenario_minor(U),
+           lamb.contiguous(), riccati_cuda.to_scenario_minor(uext), world.obs.contiguous()]
+    f32 = dict(dtype=torch.float32, device=X.device)
+    outs = [torch.empty((N + 1, 4, B), **f32), torch.empty((N, 2, B), **f32),
+            torch.empty((B,), **f32), torch.empty((N, 2, B), **f32),
+            torch.empty((N, 8, B), **f32)]
+    cfg = _config(p, B, M, H, W, world.has_obs, False)
+    stream = torch.cuda.current_stream(X.device).cuda_stream
+    rc = lib.cilqr_lm_iter(ctypes.byref(cfg), *(t.data_ptr() for t in ins + outs), stream)
+    build.check(lib, rc, "LM iteration kernel launch")
+    ITER_LAUNCHES += 1
+    Xn, Un, J, k, K = outs
+    return (riccati_cuda.from_scenario_minor(Xn, (4,)), riccati_cuda.from_scenario_minor(Un, (2,)),
+            J, riccati_cuda.from_scenario_minor(k, (2,)),
+            riccati_cuda.from_scenario_minor(K, (2, 4)))
+
+
+def fused_iteration(p: SolverParams, world: WorldPrep, plans, X, U, lamb, uext):
+    """One LM iteration per scenario (``lm_pallas.fused_iteration`` with
+    external planes): J of (X (B, N+1, 4), U (B, N, 2)) and the proposal
+    after the backward pass at lamb (B,) and the rollout.  ``world`` from
+    ``prep_world``, holding no map; ``uext`` (B, N, 3) the [e, gx, gy]
+    uncertainty planes.  Returns (X_new, U_new, J) and, after them, the
+    gains of the backward pass (k (B, N, 2), K (B, N, 2, 4))."""
+    if X.device.type == "cpu":
+        return fused_iteration_plain(p, world, plans, X, U, lamb, uext)
+    return _launch_iteration(p, world, plans, X, U, lamb, uext)
+
+
+def fused_optimize(p: SolverParams, plans, x0s, U_init, obstacles=None, unc_map=None,
+                   unc_sampler=None):
+    """The LM loop (iLQR.cpp:211-239, per-lane masks) over a (B, ...) batch.
+    Same signature and result as ``solver_batched.batched_optimize``:
+    (X, U, iterations, J, lamb).
+
+    Without ``unc_sampler``: the world is shared and K1 runs the whole loop.
+    With it (per-scenario uncertainty maps): a callable (B, N, >=2) states ->
+    (B, N, 3) planes [e, gx, gy]; the host loop ``solver.optimize`` calls it
+    on each iteration's trajectory and launches K3 on its planes, once per
+    iteration.  ``unc_sampler`` and ``unc_map`` are mutually exclusive."""
+    _check_sampler(unc_sampler, unc_map)
+    if unc_sampler is not None:
+        world = prep_world(p, obstacles, None, torch.float32, x0s.device)
+        return solver.optimize(p, plans, x0s, U_init, iteration=_hybrid_iteration(
+            p, world, plans, unc_sampler, fused_iteration))
     if x0s.device.type == "cpu":
         return fused_optimize_plain(p, plans, x0s, U_init, obstacles, unc_map)
     return _launch(p, plans, x0s, U_init, obstacles, unc_map)

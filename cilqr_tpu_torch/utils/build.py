@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels at first use.
 
-``nvcc`` compiles every ``cilqr_tpu_torch/csrc/*.cu`` for Hopper (sm_90a)
-into one shared library with a plain C interface, which ``ctypes`` loads.
+``nvcc`` compiles every ``cilqr_tpu_torch/csrc/*.cu`` for Hopper (sm_90a),
+one process per source, all started together, and links the objects into
+one shared library with a plain C interface, which ``ctypes`` loads.
 The library goes to ``build/cilqr_tpu_torch/libcilqr_kernels.so`` at the
 repository root and is rebuilt when the hash of the sources changes.  Only
 the sources in the package are used.  A failed build raises with nvcc's
@@ -23,7 +24,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cilqr_tpu_torch"
 LIB_NAME = "libcilqr_kernels.so"
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-Xptxas", "-v",
 ]
 
 
@@ -63,17 +64,28 @@ def build() -> Path:
     stamp = BUILD_DIR / "sources.sha256"
     if lib.exists() and stamp.exists() and stamp.read_text() == digest:
         return lib
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-           *[str(s) for s in sources()]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    (BUILD_DIR / "build.log").write_text(proc.stdout + proc.stderr)
-    if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-    os.replace(tmp, lib)
+    nvcc = nvcc_path()
+    tmp = BUILD_DIR / f"tmp.{os.getpid()}"
+    tmp.mkdir(parents=True, exist_ok=True)
+    # one nvcc per source, all started together, then one link
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-I", str(CSRC), "-c", "-o",
+                               str(tmp / f"{src.stem}.o"), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src in sources()]
+    log = "".join(proc.communicate()[0] for proc in procs)
+    failed = any(proc.returncode for proc in procs)
+    if not failed:
+        link = subprocess.run([nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp / LIB_NAME),
+                               *map(str, sorted(tmp.glob("*.o")))],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        log += link.stdout
+        failed = link.returncode != 0
+    (BUILD_DIR / "build.log").write_text(log)
+    if not failed:
+        os.replace(tmp / LIB_NAME, lib)
+    shutil.rmtree(tmp)
+    if failed:
+        raise RuntimeError(f"nvcc failed:\n{log}")
     stamp.write_text(digest)
     return lib
 
@@ -88,6 +100,11 @@ def load_library() -> ctypes.CDLL:
     lib.cilqr_riccati.restype = i
     lib.cilqr_lm_opt.argtypes = [p] * 17 + [p]
     lib.cilqr_lm_opt.restype = i
+    lib.cilqr_lm_iter.argtypes = [p] * 13 + [p]
+    lib.cilqr_lm_iter.restype = i
+    f, d = ctypes.c_float, ctypes.c_double
+    lib.cilqr_propagate.argtypes = [i, i, i, f, d, f, p, ctypes.c_longlong] + [p] * 7 + [p]
+    lib.cilqr_propagate.restype = i
     lib.cilqr_riccati_config_size.argtypes = []
     lib.cilqr_riccati_config_size.restype = i
     lib.cilqr_lm_config_size.argtypes = []

@@ -3,8 +3,10 @@
 Each ``*_from_numpy`` takes any object with the JAX NamedTuple's field names
 (the JAX value itself, or the same fields as numpy arrays) and returns the
 port's NamedTuple of tensors on ``device`` in ``dtype``.
-``solve_result_to_numpy`` goes the other way.  ``SolverParams`` needs no
-conversion: both packages use the same frozen dataclass.
+``solve_result_to_numpy`` goes the other way.  ``SolverParams`` and
+``CostmapParams`` need no conversion: both packages use the same frozen
+dataclasses.  The Monte-Carlo inputs are a prior (``tensor_from_numpy``),
+a geometry, an ``MCSample`` and a ``BandPlan``.
 """
 
 from __future__ import annotations
@@ -17,14 +19,16 @@ from cilqr_tpu_torch.models.reference_path import LocalPlan
 from cilqr_tpu_torch.models.solver import SolveResult
 from cilqr_tpu_torch.models.uncertainty import UncertaintyMap
 from cilqr_tpu_torch.ops.gridmap import GridGeom
+from cilqr_tpu_torch.ops.uncertainty_cuda import BandPlan
+from cilqr_tpu_torch.parallel.monte_carlo import MCSample
 
 
-def _tensor(a, dtype, device):
+def tensor_from_numpy(a, device=None, dtype=torch.float32) -> torch.Tensor:
     return torch.as_tensor(np.array(a), device=device).to(dtype)
 
 
 def _convert(cls, src, dtype, device):
-    return cls(*(_tensor(getattr(src, f), dtype, device) for f in cls._fields))
+    return cls(*(tensor_from_numpy(getattr(src, f), device, dtype) for f in cls._fields))
 
 
 def local_plan_from_numpy(plan, device=None, dtype=torch.float32) -> LocalPlan:
@@ -41,11 +45,20 @@ def grid_geom_from_numpy(geom, device=None, dtype=torch.float32) -> GridGeom:
 
 def unc_map_from_numpy(m, device=None, dtype=torch.float32) -> UncertaintyMap:
     return UncertaintyMap(
-        _tensor(m.values, dtype, device),
+        tensor_from_numpy(m.values, device, dtype),
         grid_geom_from_numpy(m.geom, device, dtype),
-        _tensor(m.origin_xy, dtype, device),
-        _tensor(m.origin_yaw, dtype, device),
+        tensor_from_numpy(m.origin_xy, device, dtype),
+        tensor_from_numpy(m.origin_yaw, device, dtype),
     )
+
+
+def mc_sample_from_numpy(s, device=None, dtype=torch.float32) -> MCSample:
+    return _convert(MCSample, s, dtype, device)
+
+
+def band_plan_from_numpy(plan) -> BandPlan:
+    """The port's BandPlan with the fields of the JAX one (plain tuples)."""
+    return BandPlan(*(getattr(plan, f) for f in BandPlan._fields))
 
 
 def solve_result_to_numpy(res: SolveResult) -> SolveResult:

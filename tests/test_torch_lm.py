@@ -5,7 +5,10 @@ the port's cost stack; it is held against ``jax.vmap(solver.run_step)`` in
 float64 (the comparison tests/test_lm_pallas.py uses for the TPU kernel):
 identical iteration counts, U and X within 1e-6, J within 1e-9 relative —
 float64 rounding of different summation orders, amplified along the horizon.
-The world payloads are held against ``lm_pallas``'s own.
+The world payloads are held against ``lm_pallas``'s own.  One LM iteration
+with external uncertainty planes (kernel K3's plain version) is held to the
+same iteration composed from the JAX cost stack, backward pass and rollout
+at 1e-10 of scale.
 """
 
 import ctypes
@@ -19,12 +22,13 @@ import numpy as np
 import pytest
 import torch
 
-from cilqr_tpu.models import obstacles as jobs, reference_path as jrp, solver as jsolver
-from cilqr_tpu.models import uncertainty as junc
+from cilqr_tpu.models import costs as jcosts, obstacles as jobs, reference_path as jrp
+from cilqr_tpu.models import solver as jsolver, uncertainty as junc
 from cilqr_tpu.ops import lm_pallas
-from cilqr_tpu_torch.models import obstacles as tobs, reference_path as trp
-from cilqr_tpu_torch.models import uncertainty as tunc
+from cilqr_tpu_torch.models import dynamics as tdyn, obstacles as tobs, reference_path as trp
+from cilqr_tpu_torch.models import solver_batched as tsb, uncertainty as tunc
 from cilqr_tpu_torch.ops import lm_cuda
+from cilqr_tpu_torch.parallel import monte_carlo as tmc
 
 CSRC = Path(lm_cuda.__file__).resolve().parent.parent / "csrc"
 
@@ -183,3 +187,113 @@ def test_kernel_matches_plain_on_card(params, global_plan):
     assert float((got[2] == want[2]).float().mean()) >= 0.99
     assert int((got[2] - want[2]).abs().max()) <= 1
     assert bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all())
+
+
+def _iteration_inputs(p, global_plan, B, seed, jdtype, tdtype):
+    """B scenarios at the initial rollout with random lambdas, shared
+    obstacles and one random 48x32 map per scenario, in both packages."""
+    jo, ju, to, tu = _world(p, jdtype, tdtype)
+    jplan, jn, jeg, jU, tplan, tn, teg, tU = _batch(p, global_plan, B, seed, jdtype, tdtype)
+    rng = np.random.default_rng(seed)
+    vals = rng.uniform(0.0, 100.0, (B, 48, 32))
+    lamb = rng.uniform(0.1, 10.0, B)
+    tmaps = tmc.per_scenario_map(torch.tensor(vals, dtype=tdtype), tu.geom, tu.origin_xy,
+                                 tu.origin_yaw)
+    plans = trp.get_local_plan(p, tplan, tn, teg)
+    X = tdyn.rollout(p, teg, tU)
+    planes = tsb.map_sampler(p, tmaps)(X[:, :p.horizon])
+    jaxin = (jplan, jn, jeg, jU, jo, ju, jnp.asarray(vals, jdtype), jnp.asarray(lamb, jdtype))
+    return jaxin, (plans, X, tU, torch.tensor(lamb, dtype=tdtype), to, tmaps, planes)
+
+
+def test_fused_iteration_plain_with_planes_matches_jax(params, global_plan):
+    """K3's plain version on external (e, gx, gy) planes sampled from each
+    scenario's map vs JAX: all_cost_derivs_and_J on that map, the backward
+    recursion and the rollout, vmapped, float64."""
+    p = _p(params)
+    (jplan, jn, jeg, jU, jo, ju, jvals, jlamb), (plans, X, U, lamb, to, tmaps, planes) = (
+        _iteration_inputs(p, global_plan, 16, 13, jnp.float64, torch.float64))
+
+    def one(e, X1, U1, l1, v):
+        plan = jrp.get_local_plan(p, jplan, jn, e)
+        m = junc.UncertaintyMap(v, ju.geom, ju.origin_xy, ju.origin_yaw)
+        d, J = jcosts.all_cost_derivs_and_J(p, plan, X1, U1, jo, m)
+        k, K = jsolver.backward_from_derivs(p, d, X1, U1, l1)
+        return (*jsolver.forward_pass(p, X1, U1, k, K), J)
+
+    want = jax.jit(jax.vmap(one))(jeg, jnp.asarray(X.numpy()), jU, jlamb, jvals)
+    world = lm_cuda.prep_world(p, to, None, torch.float64)
+    got = lm_cuda.fused_iteration(p, world, plans, X, U, lamb, planes)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
+                                   atol=1e-10 * max(1.0, float(np.abs(np.asarray(w)).max())))
+    # the planes give what the per-scenario map gives to the cost stack
+    on_map = lm_cuda.fused_iteration_plain(p, world._replace(unc_map=tmaps), plans, X, U, lamb)
+    for g, w in zip(got, on_map):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_hybrid_loop_needs_exactly_one_map_source(params, global_plan):
+    p = _p(params)
+    _, (plans, X, U, lamb, to, tmaps, planes) = _iteration_inputs(
+        p, global_plan, 4, 3, jnp.float64, torch.float64)
+    sampler = tsb.map_sampler(p, tmaps)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        lm_cuda.fused_optimize(p, plans, X[:, 0], U, to, tmaps, unc_sampler=sampler)
+    before = lm_cuda.ITER_LAUNCHES
+    res = lm_cuda.fused_optimize(p, plans, X[:, 0], U, to, unc_sampler=sampler)
+    assert lm_cuda.ITER_LAUNCHES == before  # CPU tensors: the plain iteration
+    want = lm_cuda.fused_optimize_plain(p, plans, X[:, 0], U, to, unc_sampler=sampler)
+    for a, b in zip(res, want):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.slow
+def test_iteration_plain_matches_pallas_kernel_interpret(params, global_plan):
+    """Against the TPU kernel (lm_pallas.fused_iteration, external planes) in
+    the Pallas interpreter, float32, one 1024-scenario tile, at the bars of
+    tests/test_lm_pallas.py."""
+    from cilqr_tpu.ops.riccati_pallas import TILE, _from_tiles, _to_tiles
+
+    p = _p(params, horizon=4)
+    B = TILE
+    (jplan, jn, jeg, _, jo, _, _, _), (plans, X, U, lamb, to, _, planes) = _iteration_inputs(
+        p, global_plan, B, 29, jnp.float32, torch.float32)
+    jp = jax.vmap(lambda e: jrp.get_local_plan(p, jplan, jn, e))(jeg)
+    f32 = lambda t: jnp.asarray(t.numpy(), jnp.float32)
+    sxy = jnp.stack([jp.sample_xl, jp.sample_yl, jp.sample_r], axis=-1)
+    Xn_t, Un_t, J_t = lm_pallas.fused_iteration(
+        p, lm_pallas.prep_world(p, jo, None), _to_tiles(lm_pallas._fit_payload(jp)[:, :, None], B),
+        _to_tiles(sxy, B), _to_tiles(f32(X), B), _to_tiles(f32(U), B),
+        _to_tiles(f32(lamb)[:, None], B)[:, 0], _to_tiles(f32(planes), B), interpret=True)
+    world = lm_cuda.prep_world(p, to, None)
+    got = lm_cuda.fused_iteration_plain(p, world, plans, X, U, lamb, planes)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(_from_tiles(Un_t, B, (2,))),
+                               rtol=2e-3, atol=2e-3)
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(_from_tiles(Xn_t, B, (4,))),
+                               rtol=2e-3, atol=2e-2)
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(J_t).reshape(B), rtol=1e-4)
+    assert got[3].shape == (B, p.horizon, 2) and got[4].shape == (B, p.horizon, 2, 4)
+
+
+@pytest.mark.cuda
+@pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA device")
+def test_iteration_kernel_matches_plain_on_card(params, global_plan):
+    """K3 vs its plain version on the card, float32, N=50, external planes:
+    the gains within 1e-4 relative + 1e-5 absolute (chip_smoke.py phase 9
+    adds the rollout step by step and the whole hybrid loop)."""
+    p = dataclasses.replace(params, horizon=50)
+    _, (plans, X, U, lamb, to, _, planes) = _iteration_inputs(
+        p, global_plan, 256, 17, jnp.float32, torch.float32)
+    dev = torch.device("cuda")
+    plans = type(plans)(*(t.to(dev) for t in plans))
+    X, U, lamb, planes = X.to(dev), U.to(dev), lamb.to(dev), planes.to(dev)
+    world = lm_cuda.prep_world(p, tobs.Obstacles(*(t.to(dev) for t in to)), None, device=dev)
+    before = lm_cuda.ITER_LAUNCHES
+    got = lm_cuda.fused_iteration(p, world, plans, X, U, lamb, planes)
+    torch.cuda.synchronize()
+    assert lm_cuda.ITER_LAUNCHES == before + 1
+    want = lm_cuda.fused_iteration_plain(p, world, plans, X, U, lamb, planes)
+    for g, w in zip(got[3:], want[3:]):
+        torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
+    torch.testing.assert_close(got[2], want[2], rtol=2e-5, atol=0)

@@ -184,7 +184,8 @@ def test_package_never_imports_jax():
 
 def test_unported_options_raise(small_world):
     p, _, (tplan, tn, ego, U0, to, tu) = small_world
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # world_batched=True is ported: it takes one map per scenario
+    with pytest.raises(ValueError, match="one map per scenario"):
         tsb.run_steps_batched(p, tplan, tn, ego[None], U0[None], to, tu, world_batched=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsolver.run_step(dataclasses.replace(p, backward_impl="pscan"), tplan, tn, ego, U0)
