@@ -11,7 +11,14 @@ that each went through its kernels:
                where a call's time goes;
   phases 8-10  the Monte-Carlo path ``monte_carlo(impl="fast")`` at B=8192,
                N=50 on the full 152x104 costmap (kernels K4 and K3), and
-               where its time goes.
+               where its time goes;
+  phases 11-13 the full-stack closed loop
+               ``closed_loop_full_stack_batched`` at B=8192, N=50, 5 cycles:
+               every cycle each scenario resamples a 256x256 global map into
+               its own 152x104 vehicle frame (kernel K5), propagates it (K4)
+               and replans (K3); also ``closed_loop_batched`` (K1 per cycle)
+               and a short run with the perception channel;
+  phase 14     the op-throughput probe ``utils.opbench`` (kernel K6).
 
 Every phase prints a line (the profiles one per batch size); any failure
 raises, so the exit code is nonzero.  The last line is one JSON object:
@@ -21,8 +28,10 @@ printing any result.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
+import math
 import re
 import subprocess
 import sys
@@ -42,6 +51,23 @@ K4_CHECK_B = 256
 K3_CHECK_B = 1024
 MC_REF_LANES = 64
 SIGMA_HI = (0.16, 0.16, 0.017)  # the JAX benchmark's sampling bound
+FS_B = 8192         # full-stack batch (the JAX benchmark's B)
+FS_CYCLES = 5
+FS_REF_LANES = 64
+FS_NUDGES = 4
+FS_CALM_IT_OFF = 12  # a calm lane's count may lie this far beyond its spread (counts are 1..20)
+K5_CHECK_B = 256
+K5_PLAIN_CHUNK = 1024  # the plain resample makes (chunk, 152, 104) int64 indices
+CL_CYCLES = 10      # closed_loop_batched: the JAX benchmark's 10 cycles at MAIN_B
+K6_CHECK_ROUNDS = 8
+# Published peaks of one H100 SXM: the bound of a kernel is the larger of
+# its bytes (each input read once, each output written once) over the
+# memory rate and its float32 operations over the rate outside the tensor
+# cores.
+MEM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+PEAK_TFLOPS = FP32_OPS_PER_S / 1e12
+NO_LIBRARY_CALL = None  # no single PyTorch call computes any of these kernels' functions
 
 
 def card_line() -> str:
@@ -197,7 +223,7 @@ def perturbed(egos: torch.Tensor, count: int) -> list:
 
 
 def check_lanes(label: str, got, want32, want64, nudged32, chaotic_it_off: int = 1,
-                by_spread: bool = False):
+                by_spread: bool = False, calm_it_off: int | None = None):
     """Hold a float32 solve result (X, U, it, J, lamb) per lane to a float32
     reference computed another way (want32) and to its float64 counterpart.
 
@@ -208,7 +234,15 @@ def check_lanes(label: str, got, want32, want64, nudged32, chaotic_it_off: int =
     both references, with want32's iteration count; on the chaotic lanes the
     counts differ from want32's by at most ``chaotic_it_off``, plus, with
     ``by_spread``, that lane's spread: the largest distance of a nudged or
-    float64 reference's count from want32's.
+    float64 reference's count from want32's.  With ``calm_it_off`` a calm
+    lane's count may differ by its spread plus that many, as long as nine
+    in ten calm lanes have equal counts.  The closed loop needs it: its
+    later cycles start warm, next to the optimum, where J_new - J_old is
+    float32 noise, and the LM-iteration kernel's J differs from the plain
+    version's by 5e-7 relative.  There the tests J_new < J_old (accept, and
+    stop since |dJ| < 1e-4; or reject, multiply lambda by 10 and go on
+    until lambda passes its cap) fall either way on a lane whose solution
+    agrees well within the bars.
     Returns (summary line, calm-lane mask, share of lanes with equal counts,
     max full-horizon |dU| against want32 on the calm lanes)."""
     chaotic = lane_deviation(want32, want64)["fail"]
@@ -224,19 +258,93 @@ def check_lanes(label: str, got, want32, want64, nudged32, chaotic_it_off: int =
     it_share = float(same.float().mean())
     off = (got[2] - want32[2]).abs()
     it_off = int(off.max())
+    calm_rule = ("" if calm_it_off is None
+                 else f", calm lanes held within their spread + {calm_it_off}")
     line = (f"chaotic lanes {int(chaotic.sum())} of {chaotic.numel()} | iterations equal on "
             f"{100 * it_share:.2f}% (max off {it_off}, calm lanes "
-            f"{100 * float(same[calm].float().mean()):.2f}%, chaotic lanes held within "
+            f"{100 * float(same[calm].float().mean()):.2f}%{calm_rule}, chaotic lanes held within "
             f"{'their spread + ' if by_spread else ''}{chaotic_it_off}, max spread "
             f"{int(spread.max())}) | calm lanes vs float32 plain: "
             f"{describe(dev32, calm)} | vs float64 plain: {describe(dev64, calm)}")
-    require(bool(same[calm].all()) and bool((off <= allowed).all()),
-            f"{label} iteration counts disagree: {line}")
+    calm_ok = same if calm_it_off is None else off <= spread + calm_it_off
+    bad = (calm & ~calm_ok) | (chaotic & (off > allowed))
+    if calm_it_off is not None:
+        require(float(same[calm].float().mean()) >= 0.9,
+                f"{label}: fewer than 9 in 10 calm lanes have equal iteration counts: {line}")
+    lanes = [(int(i), int(off[i]), int(spread[i]), bool(chaotic[i]))
+             for i in bad.nonzero().flatten()]
+    require(not lanes, f"{label} iteration counts disagree: {line} | (lane, off, spread, "
+            f"chaotic): {lanes}")
     require(not bool(dev32["fail"][calm].any()),
             f"{label}: a calm lane breaks the bars against the float32 plain version: {line}")
     require(not bool(dev64["fail"][calm].any()),
             f"{label}: a calm lane breaks the bars against the float64 plain version: {line}")
     return line, calm, it_share, float((got[1] - want32[1]).abs().amax(dim=(1, 2))[calm].max())
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: the larger of bytes over the
+    memory rate and float32 operations over the peak rate, and which."""
+    by_bytes, by_ops = n_bytes / MEM_BYTES_PER_S * 1e3, n_ops / FP32_OPS_PER_S * 1e3
+    return dict(bound_ms=max(by_bytes, by_ops), bound_by="bytes" if by_bytes >= by_ops
+                else "operations", library_ms=NO_LIBRARY_CALL)
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+# Float operations of the solver's algorithm per horizon step (adds,
+# multiplies, compares, and one each for exp, division, square root, sine
+# and cosine), counted from the plain version's dense arithmetic:
+RICCATI_STEP_OPS = 646  # Jacobians 20; Q_x 32, Q_u 16, V_xx fx 112, Q_xx 128, Q_ux 56,
+                        # Q_uu 88; the eigen-clamp inverse 40; k 8, K 32; V_x 26, V_xx 88
+ROLLOUT_STEP_OPS = 45   # K dx 16, the sum 4, one dynamics step with its clamps 25
+
+
+def lm_step_ops(S: int, M: int, unc_ops: int) -> int:
+    """One LM iteration's operations per horizon step: the closest-point
+    tournament over S samples (5 each) and its 3-candidate refine (26), the
+    tracking and control terms with four barriers (80), M obstacles of two
+    discs (70 each), the uncertainty term (50 from the map, 20 from given
+    planes), J (10), the Riccati step and the rollout step."""
+    return 5 * S + 26 + 80 + 70 * M + unc_ops + 10 + RICCATI_STEP_OPS + ROLLOUT_STEP_OPS
+
+
+def k4_bound(cp, prior_t: torch.Tensor, fields) -> dict:
+    """Bound of one propagation: prior and the four fields in, the maps out;
+    per cell 15 operations of set-up and 11 (the ellipse test 6, the weight
+    and its accumulation 5) per offset inside its own 95% ellipse, whose
+    cell count pi chi^2 sx sy sqrt(1 - rho^2) / res^2 comes from this run's
+    fields.  The offsets that a band's window visits outside the ellipse
+    are the implementation's scan, not work the function needs."""
+    sx_f, sy_f, rho_f, _ = fields
+    inside = float((math.pi * cp.chisquare_val ** 2 / cp.resolution ** 2 * sx_f.double()
+                    * sy_f.double() * torch.sqrt(1.0 - rho_f.double() ** 2)).sum())
+    ops = 15 * sx_f.numel() + 11 * inside
+    return bound(nbytes(prior_t, *fields) + sx_f.numel() * 4, ops)
+
+
+def pick(r) -> tuple:
+    """(X, U, iterations, J, lamb) of a SolveResult."""
+    return (r.X, r.U, r.iterations, r.J, r.lamb)
+
+
+@contextlib.contextmanager
+def plain_versions():
+    """Inside: the wrappers of K3, K4 and K5 run their plain versions on
+    the card (the launch functions are swapped; their arguments are the
+    plain versions').  Only the comparisons use it."""
+    from cilqr_tpu_torch.ops import lm_cuda, sample_cuda, uncertainty_cuda
+
+    saved = (lm_cuda._launch_iteration, uncertainty_cuda._launch, sample_cuda._launch)
+    lm_cuda._launch_iteration = lm_cuda.fused_iteration_plain
+    uncertainty_cuda._launch = uncertainty_cuda.propagate_banded_plain
+    sample_cuda._launch = sample_cuda.sample_prior_batched_plain
+    try:
+        yield
+    finally:
+        lm_cuda._launch_iteration, uncertainty_cuda._launch, sample_cuda._launch = saved
 
 
 def require(cond: bool, what: str) -> None:
@@ -248,13 +356,15 @@ def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is false; this "
                          "script needs an NVIDIA GPU")
-    from cilqr_tpu_torch import CostmapParams, SolverParams
+    from cilqr_tpu_torch import CostmapParams, NoiseParams, SolverParams
     from cilqr_tpu_torch.models import costs, dynamics, solver, solver_batched
     from cilqr_tpu_torch.models.reference_path import get_local_plan
-    from cilqr_tpu_torch.ops import gridmap, lm_cuda, riccati_cuda, uncertainty_cuda
+    from cilqr_tpu_torch.ops import costmap as costmap_mod
+    from cilqr_tpu_torch.ops import gridmap, lm_cuda, riccati_cuda, sample_cuda, uncertainty_cuda
     from cilqr_tpu_torch.parallel import monte_carlo as mc
+    from cilqr_tpu_torch.sim import perception, plant
     from cilqr_tpu_torch.sim.example_scenario import example_scenario
-    from cilqr_tpu_torch.utils import build
+    from cilqr_tpu_torch.utils import build, opbench
 
     dev = torch.device("cuda", 0)
     card = card_line()
@@ -275,7 +385,9 @@ def main() -> None:
           f"ptxas: {' | '.join(ptxas)}", flush=True)
 
     p = dataclasses.replace(SolverParams(), horizon=HORIZON)
-    plan, n, ego, U0, obstacles, unc = example_scenario(p, torch.float32, dev)
+    plan, n, ego, U0, obstacles, unc = example_scenario(p)  # on the card by default
+    require(all(t.device == dev for t in (plan, n, ego, U0, obstacles.pos, unc.values)),
+            "example_scenario left a tensor off the card")
 
     def scenario_batch(B: int, seed: int):
         rng = np.random.default_rng(seed)
@@ -333,13 +445,27 @@ def main() -> None:
     lamb_m = torch.ones(MAIN_B, dtype=torch.float32, device=dev)
     k2_ms = cuda_ms(lambda: riccati_cuda.backward_forward_batched(p, d_m, X_m, U0_m, lamb_m), 5)
     k2_plain_ms = cuda_ms(lambda: riccati_cuda.backward_forward_plain(p, d_m, X_m, U0_m, lamb_m), 3)
+    k2b_ms = cuda_ms(lambda: riccati_cuda.backward_batched(p, d_m, X_m, U0_m, lamb_m), 5)
+    k2b_plain_ms = cuda_ms(lambda: riccati_cuda.backward_plain(p, d_m, X_m, U0_m, lamb_m), 3)
+    # bound: the derivatives the recursion reads (l_ux is identically zero
+    # and is not read), X, U and lambda in; X_new and U_new out (backward
+    # only: k and K out); one Riccati step and one rollout step per (b, j)
+    k2_in = nbytes(d_m.l_x, d_m.l_xx, d_m.l_u, d_m.l_uu, X_m, U0_m, lamb_m)
+    k2_bound = bound(k2_in + nbytes(X_m, U0_m),
+                     MAIN_B * HORIZON * (RICCATI_STEP_OPS + ROLLOUT_STEP_OPS))
+    k2b_bound = bound(k2_in + MAIN_B * HORIZON * (2 + 8) * 4, MAIN_B * HORIZON * RICCATI_STEP_OPS)
     kernels["riccati"] = dict(
         name="riccati_backward_forward", route="cuda", source="cilqr_tpu_torch/csrc/riccati.cu",
         replaces="cilqr_tpu/ops/riccati_pallas.py:84", max_abs_err=k2_err,
-        ms=k2_ms, plain_ms=k2_plain_ms)
+        ms=k2_ms, plain_ms=k2_plain_ms, **k2_bound,
+        backward_only=dict(replaces="cilqr_tpu/ops/riccati_pallas.py:296", ms=k2b_ms,
+                           plain_ms=k2b_plain_ms, **k2b_bound))
     print(f"[3 K2 riccati] B={K2_CHECK_B} max|kernel-plain| {k2_err:.3e} (k/K bar 1e-4 rel + "
           f"1e-5 abs) | {' | '.join(roll)} | B={MAIN_B}: kernel {k2_ms:.3f} ms, "
-          f"plain {k2_plain_ms:.3f} ms", flush=True)
+          f"plain {k2_plain_ms:.3f} ms, bound {k2_bound['bound_ms']:.3f} ms by "
+          f"{k2_bound['bound_by']} | backward only: kernel {k2b_ms:.3f} ms, plain "
+          f"{k2b_plain_ms:.3f} ms, bound {k2b_bound['bound_ms']:.3f} ms by "
+          f"{k2b_bound['bound_by']}", flush=True)
     del d_m, X_m
 
     # 4. K1 against its plain version, full world, at the bars of the TPU
@@ -357,7 +483,7 @@ def main() -> None:
     torch.cuda.synchronize()
     require(lm_cuda.LAUNCHES == before + 1, "K1 launch counter did not move")
     want = lm_cuda.fused_optimize_plain(p, plans, egos, U0s, obstacles, unc)
-    plan64, n64, _, _, obstacles64, unc64 = example_scenario(p, torch.float64, dev)
+    plan64, n64, _, _, obstacles64, unc64 = example_scenario(p, torch.float64)
     egos64, U0s64 = egos.double(), U0s.double()
     want64 = lm_cuda.fused_optimize_plain(
         p, get_local_plan(p, plan64, n64, egos64), egos64, U0s64, obstacles64, unc64)
@@ -367,15 +493,30 @@ def main() -> None:
     print(f"[4 K1 lm] B={K1_CHECK_B} {k1_line}", flush=True)
     require(k1_it_share >= 0.99, "K1 iteration counts equal on fewer than 99% of lanes")
     plans_m = get_local_plan(p, plan, n, egos_m)
-    k1_ms = cuda_ms(lambda: lm_cuda.fused_optimize(p, plans_m, egos_m, U0_m, obstacles, unc), 3)
+    k1_ms, k1_out = timed(
+        lambda: lm_cuda.fused_optimize(p, plans_m, egos_m, U0_m, obstacles, unc), 3)
     k1_plain_ms = cuda_ms(
         lambda: lm_cuda.fused_optimize_plain(p, plans_m, egos_m, U0_m, obstacles, unc), 2)
+    # bound: fit payload, x0, U_init and the shared world in; X, U,
+    # iterations, J and lambda out; the iterations this run's lanes took,
+    # each of N steps, plus the sample table (30 per sample) and the initial
+    # rollout (25 per step) once per lane
+    S, M_obs = p.n_closest_samples, obstacles.mask.shape[0]
+    world_m = lm_cuda.prep_world(p, obstacles, unc, torch.float32, dev)
+    k1_bytes = (nbytes(lm_cuda._fit_payload(plans_m), egos_m, U0_m, world_m.obs, world_m.values,
+                       world_m.scl) + nbytes(*k1_out))
+    k1_ops = (float(k1_out[2].sum()) * HORIZON * lm_step_ops(S, M_obs, 50)
+              + MAIN_B * (30 * S + 25 * HORIZON))
+    k1_bound = bound(k1_bytes, k1_ops)
     kernels["lm"] = dict(
         name="lm_opt", route="cuda", source="cilqr_tpu_torch/csrc/lm.cu",
         replaces="cilqr_tpu/ops/lm_pallas.py:682", max_abs_err=k1_err,
         max_abs_err_of="full-horizon U against the float32 plain version, calm lanes",
-        ms=k1_ms, plain_ms=k1_plain_ms)
-    print(f"[4 K1 lm] B={MAIN_B}: kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms", flush=True)
+        ms=k1_ms, plain_ms=k1_plain_ms, **k1_bound)
+    print(f"[4 K1 lm] B={MAIN_B}: kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms, bound "
+          f"{k1_bound['bound_ms']:.3f} ms by {k1_bound['bound_by']} ({k1_ops:.3e} operations, "
+          f"{k1_bytes / 1e6:.1f} MB)", flush=True)
+    del k1_out
 
     # 5. the main path: run_steps_batched(impl="mega") at B=32768, N=50.  It
     # launches K1 once; K2's backward step and rollout run inside K1 as
@@ -401,7 +542,6 @@ def main() -> None:
     ref = solver.run_step(p, plan, n, egos_m[:R], U0_m[:R], obstacles, unc)
     ref64 = solver.run_step(p, plan64, n64, egos_m[:R].double(), U0_m[:R].double(),
                             obstacles64, unc64)
-    pick = lambda r: (r.X, r.U, r.iterations, r.J, r.lamb)
     nudged = [pick(solver.run_step(p, plan, n, e, U0_m[:R], obstacles, unc))
               for e in perturbed(egos_m[:R], NUDGES)]
     ref_line, *_ = check_lanes("main path vs solver.run_step",
@@ -522,15 +662,28 @@ def main() -> None:
         lambda: uncertainty_cuda.propagate_banded_plain(cp, prior, fields_m, bands, discs), 1)
     err_m, kept_m = k4_compare(f"B={MC_B}", got_m, want_m, prior, fields_m[3])
     k4_err = max(k4_err, err_b, err_1, err_m)
+
+    mc_k4_bound = k4_bound(cp, prior, fields_m)
+    # the single-map entry (one 152x104 map, full window, faithful rho)
+    fields_1 = uncertainty_cuda.prep_fields(cp, geom, origin_yaw, None, True, rows, cols)
+    k4a_ms = cuda_ms(lambda: uncertainty_cuda.propagate_banded(cp, prior, fields_1, full), 5)
+    k4a_plain_ms = cuda_ms(
+        lambda: uncertainty_cuda.propagate_banded_plain(cp, prior, fields_1, full), 1)
+    k4a_bound = k4_bound(cp, prior, fields_1)
     kernels["uncertainty"] = dict(
         name="propagate", route="cuda", source="cilqr_tpu_torch/csrc/uncertainty.cu",
         replaces="cilqr_tpu/ops/uncertainty_pallas.py:300",
         also_replaces=["cilqr_tpu/ops/uncertainty_pallas.py:199",
                        "cilqr_tpu/ops/uncertainty_pallas.py:283"],
-        max_abs_err=k4_err, ms=k4_ms, plain_ms=k4_plain_ms)
+        max_abs_err=k4_err, ms=k4_ms, plain_ms=k4_plain_ms, **mc_k4_bound,
+        single_map=dict(replaces="cilqr_tpu/ops/uncertainty_pallas.py:199", ms=k4a_ms,
+                        plain_ms=k4a_plain_ms, **k4a_bound))
     print(f"[8 K4 uncertainty] B={K4_CHECK_B} {line_mc} | {line_b} | {line_1} | {len(bands)} bands, "
           f"radii {[R for (_, _, R) in bands]} | B={MC_B}: max|kernel-plain| {err_m:.3e}, kept-prior "
-          f"cells {kept_m}, kernel {k4_ms:.3f} ms, plain {k4_plain_ms:.3f} ms", flush=True)
+          f"cells {kept_m}, kernel {k4_ms:.3f} ms, plain {k4_plain_ms:.3f} ms, bound "
+          f"{mc_k4_bound['bound_ms']:.3f} ms by {mc_k4_bound['bound_by']} | one map, full "
+          f"window: kernel {k4a_ms:.3f} ms, plain {k4a_plain_ms:.3f} ms, bound "
+          f"{k4a_bound['bound_ms']:.5f} ms by {k4a_bound['bound_by']}", flush=True)
     del fields_m, priors, got_m, want_m
 
     # 9. K3 against its plain version: one iteration with external planes
@@ -607,18 +760,25 @@ def main() -> None:
     k3_plain_ms, wantM = timed(
         lambda: lm_cuda.fused_iteration_plain(p, world, plansM, XM, UM, lambM, uextM), 2)
     k3_err_m, roll_m, j_rel_m = k3_compare(XM, UM, gotM, wantM)
+    # bound: fit payload, sample table, X, U, lambda, planes and obstacle
+    # payload in; X_new, U_new, J, k and K out; one iteration of N steps
+    k3_bound = bound(
+        nbytes(lm_cuda._fit_payload(plansM), plansM.sample_xl, plansM.sample_yl, plansM.sample_r,
+               XM, UM, lambM, uextM, world.obs) + nbytes(*gotM),
+        MC_B * HORIZON * lm_step_ops(p.n_closest_samples, obstacles.mask.shape[0], 20))
     kernels["lm_iter"] = dict(
         name="lm_iter", route="cuda", source="cilqr_tpu_torch/csrc/lm.cu",
         replaces="cilqr_tpu/ops/lm_pallas.py:663", max_abs_err=max(k3_err, k3_err_m),
         max_abs_err_of="one iteration's gains k, K against the float32 plain version",
-        ms=k3_ms, plain_ms=k3_plain_ms)
+        ms=k3_ms, plain_ms=k3_plain_ms, **k3_bound)
     print(f"[9 K3 lm_iter] B={K3_CHECK_B} one iteration: max|kernel-plain| k/K {k3_err:.3e} "
           f"(bar 1e-4 rel + 1e-5 abs) | per step " + ", ".join(f"{nm} {e:.3e}" for nm, e in roll3)
           + f" | J rel {j_rel:.3e} | hybrid loop ({hybrid_launches} K3 launches): {k3_line} "
           f"(max full-horizon |dU| on calm lanes {k3_loop_err:.3e}) | B={MC_B} one iteration: "
           f"max|kernel-plain| k/K {k3_err_m:.3e}, per step "
           + ", ".join(f"{nm} {e:.3e}" for nm, e in roll_m)
-          + f", J rel {j_rel_m:.3e}, kernel {k3_ms:.3f} ms, plain {k3_plain_ms:.3f} ms", flush=True)
+          + f", J rel {j_rel_m:.3e}, kernel {k3_ms:.3f} ms, plain {k3_plain_ms:.3f} ms, bound "
+          f"{k3_bound['bound_ms']:.3f} ms by {k3_bound['bound_by']}", flush=True)
     del umapsM, egosM, plansM, XM, uextM, gotM, wantM
 
     # 10. the Monte-Carlo path: monte_carlo(impl="fast") at B=8192, N=50.  It
@@ -672,6 +832,379 @@ def main() -> None:
         lambda: mc_fast(samples), reps=2, kernels={"K4": "propagate_kernel", "K3": "lm_iter_kernel"},
         annotation="uncertainty_sample_batched"), flush=True)
 
+    del res, samples, prior, prior64
+
+    # The full-stack path (cilqr_tpu/benchmark.py:424-449 at full size):
+    # CostmapParams() (152x104 cells at 0.2 m, window radius 12), a 256x256
+    # float32 global map at 0.5 m centred at (110, -300), the example
+    # world's plan and two obstacles (also rasterized into every costmap and
+    # checked for collisions), B=8192 egos ego + N(0, 0.3), NoiseParams(),
+    # 5 cycles, the band plan of the configured sigmas over the route's
+    # corridor bounds.
+    cpf = CostmapParams()
+    noise = NoiseParams()
+    fs_rows, fs_cols = cpf.rows, cpf.cols
+
+    def fs_world(dtype):
+        return (gridmap.make_geom([110.0, -300.0], 0.5, 256, 256, dtype),
+                torch.tensor([[115.0, -305.0, 0.0], [130.0, -304.0, 0.2]], dtype=dtype, device=dev),
+                torch.tensor([3.63, 1.84], dtype=dtype, device=dev),
+                torch.ones(2, dtype=dtype, device=dev))
+
+    ggeom, obs_xyyaw, obs_size, obs_mask = fs_world(torch.float32)
+    ggeom64, obs_xyyaw64, obs_size64, obs_mask64 = fs_world(torch.float64)
+    require(ggeom.center.device == dev, "make_geom left the geometry off the card")
+    gmap_np = np.random.default_rng(8).uniform(0.0, 100.0, (256, 256))
+    gmap = torch.tensor(gmap_np, dtype=torch.float32, device=dev)
+    gmap_zero = torch.zeros_like(gmap)  # the benchmark's global map
+    xr, yr = costmap_mod.corridor_center_bounds(cpf, plan, n)
+    fs_band = uncertainty_cuda.make_band_plan_bounds(
+        cpf, fs_rows, fs_cols, xr, yr, (cpf.sigma_x, cpf.sigma_y, cpf.sigma_theta))
+    x0s = torch.tensor(ego.cpu().numpy()[None, :]
+                       + np.random.default_rng(9).normal(0, 0.3, (FS_B, 4)),
+                       dtype=torch.float32, device=dev)
+
+    # 11. K5 against its plain version: a pure gather, equal on every cell.
+    # Poses inside the global map, across its border and wholly outside it,
+    # yaws in all four quadrants and at 0, +-pi/2 and +-pi.
+    def k5_poses(B: int, seed: int):
+        rng = np.random.default_rng(seed)
+        xy = np.stack([rng.uniform(30.0, 190.0, B), rng.uniform(-380.0, -220.0, B)], axis=1)
+        yaw = rng.uniform(-math.pi, math.pi, B)
+        yaw[:8] = [0.0, math.pi / 2, -math.pi / 2, math.pi, -math.pi, 0.3, 2.0, -2.5]
+        # wholly outside: beyond each corner (every cell reads that corner
+        # cell) and beyond one edge (every cell reads the border row / column)
+        xy[8:14] = [[1e4, 1e4], [-1e4, -1e4], [1e4, -1e4], [-1e4, 1e4], [1e4, -300.0], [110.0, 1e5]]
+        centers = np.stack([rng.uniform(5.0, 20.0, B), rng.uniform(-3.0, 3.0, B)], axis=1)
+        t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
+        return costmap_mod.vehicle_geom(cpf, t(centers)), t(xy), t(yaw)
+
+    def k5_plain(geoms, xy, yaw):
+        """The plain version over chunks of the scenario axis (whole, its
+        int64 indices alone take 2 GB at B=8192)."""
+        return torch.cat([sample_cuda.sample_prior_batched_plain(
+            type(geoms)(*(t[c:c + K5_PLAIN_CHUNK] for t in geoms)), fs_rows, fs_cols, gmap, ggeom,
+            xy[c:c + K5_PLAIN_CHUNK], yaw[c:c + K5_PLAIN_CHUNK])
+            for c in range(0, xy.shape[0], K5_PLAIN_CHUNK)])
+
+    geoms5, xy5, yaw5 = k5_poses(K5_CHECK_B, seed=10)
+    before = sample_cuda.LAUNCHES
+    got5 = sample_cuda.sample_prior_batched(geoms5, fs_rows, fs_cols, gmap, ggeom, xy5, yaw5)
+    torch.cuda.synchronize()
+    require(sample_cuda.LAUNCHES == before + 1, "K5 launch counter did not move")
+    want5 = k5_plain(geoms5, xy5, yaw5)
+    k5_diff = int((got5 != want5).sum())
+    edge = int(((got5 == gmap[0, 0]) | (got5 == gmap[-1, -1]) | (got5 == gmap[0, -1])
+                | (got5 == gmap[-1, 0])).all(dim=(1, 2)).sum())
+    require(k5_diff == 0, f"K5: {k5_diff} of {got5.numel()} cells differ from the plain version")
+    require(edge >= 4, "K5: the poses wholly outside the map did not read its corner cells")
+    geomsM5, xyM5, yawM5 = k5_poses(FS_B, seed=11)
+    k5_ms, gotM5 = timed(lambda: sample_cuda.sample_prior_batched(
+        geomsM5, fs_rows, fs_cols, gmap, ggeom, xyM5, yawM5), 5)
+    k5_plain_ms, wantM5 = timed(lambda: k5_plain(geomsM5, xyM5, yawM5), 1)
+    k5_diff_m = int((gotM5 != wantM5).sum())
+    require(k5_diff_m == 0, f"K5 B={FS_B}: {k5_diff_m} cells differ from the plain version")
+    # bound: the map and 8 scalars per scenario in, B x 152 x 104 floats out;
+    # 20 operations per cell
+    k5_bound = bound(nbytes(gmap) + FS_B * 32 + nbytes(gotM5), 20 * gotM5.numel())
+    kernels["sample"] = dict(
+        name="sample_prior", route="cuda", source="cilqr_tpu_torch/csrc/sample.cu",
+        replaces="cilqr_tpu/ops/sample_pallas.py:236",
+        also_replaces=["cilqr_tpu/ops/sample_pallas.py:165", "cilqr_tpu/ops/sample_pallas.py:174"],
+        max_abs_err=float((gotM5 - wantM5).abs().max()), ms=k5_ms, plain_ms=k5_plain_ms,
+        **k5_bound)
+    print(f"[11 K5 sample] B={K5_CHECK_B}: {k5_diff} of {got5.numel()} cells differ from the plain "
+          f"version ({edge} poses read only corner cells) | B={FS_B}: {k5_diff_m} of "
+          f"{gotM5.numel()} differ, kernel {k5_ms:.3f} ms, plain (chunks of {K5_PLAIN_CHUNK}) "
+          f"{k5_plain_ms:.3f} ms, bound {k5_bound['bound_ms']:.3f} ms by {k5_bound['bound_by']}",
+          flush=True)
+    del got5, want5, gotM5, wantM5, geomsM5
+
+    # 12. the costmap build at B=8192: K5 once, K4 once (per-scenario priors,
+    # frames and yaws).  Against the same build on the plain versions: the
+    # vehicle map (a gather and two overrides) exactly, the uncertainty map
+    # at K4's bar; lane 0 against the single-scenario build in float64.
+    def fs_build(states, **kw):
+        return costmap_mod.build_local_costmap_batched(
+            cpf, gmap, ggeom, plan, n, states, obs_xyyaw[:, :2], obs_size.expand(2, 2),
+            obs_xyyaw[:, 2], obs_mask, band_plan=fs_band, **kw)
+
+    sample_cuda.LAUNCHES = uncertainty_cuda.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    cm = fs_build(x0s)
+    torch.cuda.synchronize()
+    build_launches = {"sample": sample_cuda.LAUNCHES, "uncertainty": uncertainty_cuda.LAUNCHES}
+    build_peak = torch.cuda.max_memory_allocated() / 1e9
+    require(build_launches == {"sample": 1, "uncertainty": 1},
+            f"costmap build launches {build_launches}, expected K5 once and K4 once")
+    with plain_versions():
+        cm_plain = fs_build(x0s)
+    require(build_launches == {"sample": sample_cuda.LAUNCHES,
+                               "uncertainty": uncertainty_cuda.LAUNCHES},
+            "the plain build launched a kernel")
+    require(torch.equal(cm.vehicle_map, cm_plain.vehicle_map),
+            "costmap build: the vehicle map differs from the plain build")
+    err12, excess12 = max_excess(cm.uncertainty_map, cm_plain.uncertainty_map, rtol=2e-5, atol=2e-4)
+    require(excess12 <= 0.0, f"costmap build: uncertainty map off by {err12:.3e}, beyond 2e-5 rel "
+            "+ 2e-4 abs")
+    require(float(cm.uncertainty_map.min()) >= 0.0 and float(cm.uncertainty_map.max()) <= 100.0,
+            "costmap build: uncertainty map outside [0, 100]")
+    bbox_cells = int((cm.bounding_box_map[0] > 0).sum())
+    require(bbox_cells > 0, "costmap build: no obstacle cell in lane 0")
+    cm64 = costmap_mod.build_local_costmap(
+        cpf, gmap.double(), ggeom64, plan64, n64, x0s[0].double(), obs_xyyaw64[:, :2],
+        obs_size64.expand(2, 2), obs_xyyaw64[:, 2], obs_mask64)
+    # float32 and float64 put a few cells of the rotated gather on the other
+    # side of a floor; elsewhere the layers agree
+    same_cells = float((cm.vehicle_map[0].double() == cm64.vehicle_map).double().mean())
+    require(same_cells >= 0.99, f"costmap build: lane 0 shares {100 * same_cells:.2f}% of its "
+            "vehicle map with the float64 build")
+    same = cm.vehicle_map[0].double() == cm64.vehicle_map
+    k_dev = float((cm.uncertainty_map[0].double() - cm64.uncertainty_map).abs().mean())
+    p_dev = float((cm_plain.uncertainty_map[0].double() - cm64.uncertainty_map).abs().mean())
+    require(k_dev <= 2.0 * p_dev + 1e-4, f"costmap build: lane 0 mean |kernel - float64| "
+            f"{k_dev:.3e}, float32 plain {p_dev:.3e}")
+    build_ms = cuda_ms(lambda: fs_build(x0s), 2)
+    k4_fs_ms = cuda_ms(lambda: uncertainty_cuda.propagate_uncertainty_banded(
+        cpf, cm.vehicle_map, cm.geom, cm.origin_yaw, None, fs_band), 2)
+    fields_fs = uncertainty_cuda.prep_fields(cpf, cm.geom, cm.origin_yaw, None, False, fs_rows,
+                                             fs_cols)
+    fs_k4_bound = k4_bound(cpf, cm.vehicle_map, fields_fs)
+    kernels["uncertainty"]["full_stack"] = dict(
+        ms_with_fields=k4_fs_ms, max_abs_err=err12, **fs_k4_bound)
+    print(f"[12 costmap build] B={FS_B}: launches {build_launches} | vehicle map equal to the plain "
+          f"build on every cell | uncertainty map max|kernel-plain| {err12:.3e} (bar 2e-5 rel + "
+          f"2e-4 abs) | lane 0 vs float64 build_local_costmap: {100 * same_cells:.2f}% of vehicle-"
+          f"map cells equal, mean |uncertainty - float64| kernel {k_dev:.3e} plain {p_dev:.3e} | "
+          f"{bbox_cells} obstacle cells in lane 0 | {len(fs_band.bands)} bands, radii "
+          f"{[R for (_, _, R) in fs_band.bands]} | build {build_ms:.3f} ms, of which fields + K4 "
+          f"{k4_fs_ms:.3f} ms (K4 bound {fs_k4_bound['bound_ms']:.3f} ms by "
+          f"{fs_k4_bound['bound_by']}), peak memory {build_peak:.2f} GB", flush=True)
+    del cm, cm_plain, cm64, fields_fs, same
+
+    # 13. the full-stack path: closed_loop_full_stack_batched at B=8192,
+    # 5 cycles.  Per cycle it launches K5 once, K4 once and K3 once per LM
+    # iteration of the slowest lane; never K1 or K2.
+    fs_draws = torch.randn((FS_CYCLES, FS_B, 3), dtype=torch.float32, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(12))
+
+    def full_stack(gm, states, draws, dtype=torch.float32, **kw):
+        if dtype == torch.float64:
+            world = (gm.double(), ggeom64, plan64, n64)
+            obs = dict(obstacles=obstacles64, obs_xyyaw=obs_xyyaw64, obs_size=obs_size64,
+                       obs_mask=obs_mask64)
+        else:
+            world = (gm, ggeom, plan, n)
+            obs = dict(obstacles=obstacles, obs_xyyaw=obs_xyyaw, obs_size=obs_size,
+                       obs_mask=obs_mask)
+        return plant.closed_loop_full_stack_batched(
+            p, cpf, noise, *world, states.to(dtype), None, draws.shape[0], band_plan=fs_band,
+            global_res=0.5, noise_draws=draws, **obs, **kw)
+
+    def zero_counts():
+        lm_cuda.LAUNCHES = lm_cuda.ITER_LAUNCHES = 0
+        riccati_cuda.LAUNCHES = uncertainty_cuda.LAUNCHES = sample_cuda.LAUNCHES = 0
+
+    def read_counts():
+        return {"sample": sample_cuda.LAUNCHES, "uncertainty": uncertainty_cuda.LAUNCHES,
+                "lm_iter": lm_cuda.ITER_LAUNCHES, "lm": lm_cuda.LAUNCHES,
+                "riccati": riccati_cuda.LAUNCHES}
+
+    fs_lines = []
+    for label, gm in (("all-zero map", gmap_zero), ("random map", gmap)):
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        xf, rec = full_stack(gm, x0s, fs_draws)
+        torch.cuda.synchronize()
+        fs_launches = read_counts()
+        fs_peak = torch.cuda.max_memory_allocated() / 1e9
+        it_max = [int(v) for v in rec["iterations"].amax(dim=1)]
+        require(fs_launches == {"sample": FS_CYCLES, "uncertainty": FS_CYCLES,
+                                "lm_iter": sum(it_max), "lm": 0, "riccati": 0},
+                f"full-stack launches {fs_launches} on the {label}, expected K5 and K4 once per "
+                f"cycle, K3 {it_max} per cycle, K1 and K2 never")
+        require(all(bool(torch.isfinite(v.float()).all()) for v in rec.values())
+                and bool(torch.isfinite(xf).all()), f"non-finite record on the {label}")
+        require(tuple(rec["start_pos"].shape) == (FS_CYCLES, FS_B, 4)
+                and tuple(rec["J"].shape) == (FS_CYCLES, FS_B) and tuple(xf.shape) == (FS_B, 4),
+                "full-stack record shapes")
+        require(1 <= int(rec["iterations"].min()) and max(it_max) <= p.max_iterations,
+                f"iterations outside [1, {p.max_iterations}] on the {label}")
+        require(float(rec["uncertainty_max"].min()) >= 0.0
+                and float(rec["uncertainty_max"].max()) <= 100.0,
+                f"uncertainty_max outside [0, 100] on the {label}")
+        progress = float((xf[:, 0] - x0s[:, 0]).mean())
+        require(progress > 0.5, f"the egos did not advance on the {label}: {progress:.3f} m")
+        fs_ms = cuda_ms(lambda: full_stack(gm, x0s, fs_draws), 2)
+        mean_it = [round(float(v), 2) for v in rec["iterations"].float().mean(dim=1)]
+        fs_lines.append(
+            f"{label}: launches {fs_launches} (K3 per cycle {it_max}) | mean iterations per cycle "
+            f"{mean_it} | uncertainty_max up to {float(rec['uncertainty_max'].max()):.1f} | "
+            f"collisions {int(rec['collided'].sum())} | mean advance {progress:.2f} m | "
+            f"{fs_ms:.3f} ms/call = {FS_CYCLES * FS_B / fs_ms * 1e3:.0f} cycles/s | peak memory "
+            f"{fs_peak:.2f} GB")
+    for ln in fs_lines:
+        print(f"[13 full-stack path] B={FS_B} N={HORIZON} {FS_CYCLES} cycles, {ln} on {card}",
+              flush=True)
+
+    # The first 64 lanes, cycle by cycle, against the same loop on the plain
+    # versions with the same noise, in float32 and (on the plain stages and
+    # the oracle propagation) float64, and on egos moved by 2 ulps: the
+    # per-lane rule of phases 4-10.  A lane found chaotic in one cycle has
+    # left its references for good and is left out of the later cycles.  On
+    # the benchmark's all-zero map (only the obstacles' smeared boxes) the
+    # lanes stay calm through all 5 cycles; on the random map about a third
+    # turn chaotic per cycle, so it is held for 2 cycles.
+    L = FS_REF_LANES
+
+    def captured(gm, states, draws, dtype=torch.float32, **kw):
+        """The loop's per-cycle solve results (X, U, iterations, J, lamb),
+        taken through the plan_step_batched hook around the default solve."""
+        world = (plan64, n64, obstacles64) if dtype == torch.float64 else (plan, n, obstacles)
+        out = []
+
+        def step(noisy, U_warm, umaps):
+            r = solver_batched.run_steps_batched(p, world[0], world[1], noisy, U_warm.contiguous(),
+                                                 world[2], umaps, impl="mega", world_batched=True)
+            out.append(pick(r))
+            return r
+
+        full_stack(gm, states, draws, dtype, plan_step_batched=step, **kw)
+        return out
+
+    for label, gm, cycles in (("all-zero map", gmap_zero, FS_CYCLES), ("random map", gmap, 2)):
+        sub_draws = fs_draws[:cycles, :L]
+        zero_counts()
+        got_c = captured(gm, x0s[:L], sub_draws)
+        sub_launches = read_counts()
+        require(sub_launches == {"sample": cycles, "uncertainty": cycles, "lm": 0, "riccati": 0,
+                                 "lm_iter": sum(int(g[2].max()) for g in got_c)},
+                f"the {L}-lane run launched {sub_launches}")
+        with plain_versions():
+            want32_c = captured(gm, x0s[:L], sub_draws)
+            want64_c = captured(gm, x0s[:L], sub_draws, torch.float64, use_kernels=False)
+            nudged_c = [captured(gm, e, sub_draws) for e in perturbed(x0s[:L], FS_NUDGES)]
+        require(read_counts() == sub_launches, "a plain-version loop launched a kernel")
+        keep = torch.ones(L, dtype=torch.bool, device=dev)
+        lane_lines = []
+        for t in range(cycles):
+            sub = lambda r: tuple(v[keep] for v in r)
+            line, calm, _, _ = check_lanes(
+                f"full-stack cycle {t + 1}, {label}", sub(got_c[t]), sub(want32_c[t]),
+                sub(want64_c[t]), [sub(nc[t]) for nc in nudged_c], chaotic_it_off=2,
+                by_spread=True, calm_it_off=FS_CALM_IT_OFF)
+            lane_lines.append(f"cycle {t + 1} ({int(keep.sum())} lanes held): {line}")
+            keep[keep.clone()] = calm
+            if t == 0:
+                require(int(keep.sum()) >= L // 2,
+                        f"{label}: only {int(keep.sum())} of {L} lanes calm in cycle 1")
+        print(f"[13 lanes] {label}, first {L} lanes vs the loop on the plain versions: "
+              + " || ".join(lane_lines) + f" || {int(keep.sum())} lanes calm through {cycles} "
+              "cycles", flush=True)
+    del got_c, want32_c, want64_c, nudged_c
+    print(f"[13 profile] B={FS_B}: " + profile_line(
+        lambda: full_stack(gmap, x0s, fs_draws), reps=1,
+        kernels={"K5": "sample_kernel", "K4": "propagate_kernel", "K3": "lm_iter_kernel"},
+        annotation="uncertainty_sample_batched"), flush=True)
+
+    # closed_loop_batched: one shared map, K1 once per cycle, the JAX
+    # benchmark's 10 cycles at B=32768
+    egos_cl, _ = scenario_batch(MAIN_B, seed=13)
+    cl_draws = torch.randn((CL_CYCLES, MAIN_B, 3), dtype=torch.float32, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(14))
+
+    def closed_loop():
+        return plant.closed_loop_batched(p, noise, plan, n, egos_cl, None, CL_CYCLES, obstacles, unc,
+                                         obs_xyyaw, obs_size, obs_mask, noise_draws=cl_draws)
+
+    zero_counts()
+    xf_cl, rec_cl = closed_loop()
+    torch.cuda.synchronize()
+    cl_launches = read_counts()
+    require(cl_launches == {"sample": 0, "uncertainty": 0, "lm_iter": 0, "lm": CL_CYCLES,
+                            "riccati": 0}, f"closed_loop_batched launches {cl_launches}")
+    require(bool(torch.isfinite(xf_cl).all()) and bool(torch.isfinite(rec_cl["J"]).all())
+            and 1 <= int(rec_cl["iterations"].min())
+            and int(rec_cl["iterations"].max()) <= p.max_iterations, "closed_loop_batched record")
+    cl_ms = cuda_ms(closed_loop, 2)
+    # the perception channel: obstacle 0 moves, is seen by the camera only,
+    # tracked per scenario and painted into the semantic layer
+    PB = 256
+    percept = perception.PerceptionSim(0, torch.tensor([0.5, 0.0], device=dev), bbox_sigma=0.3)
+    xf_p, rec_p = plant.closed_loop_full_stack_batched(
+        p, cpf, noise, gmap, ggeom, plan, n, x0s[:PB], torch.Generator(device=dev).manual_seed(15),
+        3, obstacles=obstacles, obs_xyyaw=obs_xyyaw, obs_size=obs_size, obs_mask=obs_mask,
+        band_plan=fs_band, percept=percept)
+    require(all(bool(torch.isfinite(v.float()).all()) for v in rec_p.values())
+            and bool(torch.isfinite(xf_p).all()), "non-finite record with percept")
+    valid_share = float(rec_p["bbox_valid"].float().mean())
+    require(valid_share > 0.5 and float(rec_p["semantic_max"].max()) == 100.0,
+            f"percept: {100 * valid_share:.1f}% valid boxes, semantic_max "
+            f"{float(rec_p['semantic_max'].max())}")
+    print(f"[13 other loops] closed_loop_batched B={MAIN_B} {CL_CYCLES} cycles: launches "
+          f"{cl_launches} | mean iterations {float(rec_cl['iterations'].float().mean()):.2f} | "
+          f"{cl_ms:.3f} ms/call = {CL_CYCLES * MAIN_B / cl_ms * 1e3:.0f} cycles/s | percept B={PB} "
+          f"3 cycles: finite, bbox_valid {100 * valid_share:.1f}%, semantic_max "
+          f"{float(rec_p['semantic_max'].max()):.0f}", flush=True)
+    del egos_cl, cl_draws, rec_cl, rec_p
+
+    # 14. K6, the op-throughput probe: every body against its plain version
+    # at a small depth (1e-5 rel + 1e-5 abs; the exp body 1e-4: the kernel
+    # contracts a multiply-add that PyTorch rounds twice), then the report.
+    # The select body flips the sign of a where b crosses a threshold; an
+    # element whose float64 chain passes within 1e-4 of it may flip in one
+    # float32 version and not the other, and is left out.
+    n6 = torch.cuda.get_device_properties(dev).multi_processor_count * 2048 * opbench.WAVES
+    x6 = opbench.probe_input(n6, seed=16)
+    require(x6.device == dev, "probe_input left the probe off the card")
+    k6_err, k6_lines = 0.0, []
+    for body in opbench.BODIES:
+        before = opbench.LAUNCHES
+        got6 = opbench.opchain(body, K6_CHECK_ROUNDS, x6)
+        torch.cuda.synchronize()
+        require(opbench.LAUNCHES == before + 1, "K6 launch counter did not move")
+        want6 = opbench.opchain_plain(body, K6_CHECK_ROUNDS, x6)
+        tol = 1e-4 if body == "exp" else 1e-5
+        left_out = 0
+        if body == "sel":
+            robust = opbench.sel_margin(K6_CHECK_ROUNDS, x6) > 1e-4
+            left_out = int((~robust).sum())
+            require(left_out <= n6 // 100, f"K6 sel: {left_out} elements near a threshold")
+            got6, want6 = got6[:, robust], want6[:, robust]
+        err, excess = max_excess(got6, want6, rtol=tol, atol=tol)
+        require(excess <= 0.0, f"K6 {body}: max |diff| {err:.3e} beyond {tol:g} rel + {tol:g} abs")
+        k6_err = max(k6_err, err)
+        k6_lines.append(f"{body} {err:.2e}" + (f" ({left_out} left out)" if left_out else ""))
+    opbench.LAUNCHES = 0
+    report = opbench.measure()
+    k6_launches = opbench.LAUNCHES
+    r0 = report["rounds"][0]
+    k6_plain_ms = cuda_ms(lambda: opbench.opchain_plain("rot", r0, x6), 1)
+    # bound of the rotation body at the report's first depth: the pairs
+    # read and written once; 6 operations per round (2 multiplies, 2 fused
+    # multiply-adds)
+    k6_bound = bound(2 * nbytes(x6), 6.0 * r0 * n6)
+    kernels["opchain"] = dict(
+        name="opchain", route="cuda", source="cilqr_tpu_torch/csrc/opchain.cu",
+        replaces="scripts/microbench_vpu.py:57", max_abs_err=k6_err,
+        ms=report["kernels"]["rot"]["t_r0_us"] / 1e3, plain_ms=k6_plain_ms, **k6_bound,
+        launches=k6_launches, path="utils.opbench.measure(), phase 14",
+        timed_body=f"rot, {r0} rounds, {n6} elements")
+    c6 = report["constants"]
+    print(f"[14 K6 opchain] {n6} elements, {K6_CHECK_ROUNDS} rounds, max|kernel-plain|: "
+          + ", ".join(k6_lines) + f" | report ({k6_launches} launches, grid "
+          f"{report['grid']['blocks']} x {report['grid']['threads_per_block']}, depths "
+          f"{report['rounds']}): mul {c6['mul_ops_per_s']:.4g} op/s, fma "
+          f"{c6['fma_flops_per_s']:.4g} FLOP/s = {100 * c6['fma_share_of_published_fp32_peak']:.1f}% "
+          f"of the published {PEAK_TFLOPS:.0f} TFLOP/s, fma/mul {c6['fma_vs_mul']:.2f}, rot "
+          f"{c6['rot_slots_check']:.2f} slots, cmp+select {c6['cmp_select_slots']:.2f}, expf "
+          f"{c6['exp_slots']:.2f}, shuffle gather {c6['shuffle_gather_slots']:.2f}, shuffle roll "
+          f"{c6['shuffle_roll_slots']:.2f}, shared-memory transpose "
+          f"{c6['smem_transpose_slots']:.2f} | rot at {r0} rounds: kernel "
+          f"{kernels['opchain']['ms']:.3f} ms, plain {k6_plain_ms:.3f} ms, bound "
+          f"{k6_bound['bound_ms']:.3f} ms by {k6_bound['bound_by']}", flush=True)
+    print("[14 report] " + json.dumps(report), flush=True)
+
     kernels["lm"]["launches"] = main_launches["lm"]
     kernels["riccati"]["launches"] = main_launches["riccati"]
     kernels["riccati"]["on_main_path"] = (
@@ -682,8 +1215,15 @@ def main() -> None:
     kernels["uncertainty"]["launches"] = mc_launches["uncertainty"]
     for name in ("lm_iter", "uncertainty"):
         kernels[name]["path"] = "monte_carlo(impl='fast'), phase 10"
-    require("jax" not in sys.modules, "jax was imported")
-    print(json.dumps({"kernels": [kernels[k] for k in ("lm", "riccati", "lm_iter", "uncertainty")]}))
+        kernels[name]["full_stack_launches"] = fs_launches[name]
+    kernels["lm"]["path"] = "run_steps_batched(impl='mega'), phase 5"
+    kernels["lm"]["closed_loop_batched_launches"] = cl_launches["lm"]
+    kernels["sample"]["launches"] = fs_launches["sample"]
+    kernels["sample"]["path"] = "closed_loop_full_stack_batched, phase 13"
+    require("jax" not in sys.modules and "cilqr_tpu" not in sys.modules,
+            "jax or the JAX package was imported")
+    print(json.dumps({"kernels": [kernels[k] for k in ("lm", "riccati", "lm_iter", "uncertainty",
+                                                       "sample", "opchain")]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -4,16 +4,21 @@ hand-written CUDA kernels for NVIDIA Hopper (sm_90a).
 A port of ``cilqr_tpu`` that keeps its layout: every module here has its
 JAX reference at the same path under ``cilqr_tpu/``.  Entry points:
 
-  SolverParams / CostmapParams / NoiseParams   shared configuration
+  SolverParams / CostmapParams / NoiseParams   configuration (utils.params)
   models.solver.run_step                       one planning cycle (faithful)
   models.solver_batched.run_steps_batched      batched fast path (CUDA kernels)
+  parallel.monte_carlo.monte_carlo             sampled covariances, one batch
+  sim.plant.closed_loop_full_stack_batched     costmap rebuild + solve per cycle
   sim.example_scenario.example_scenario        the benchmark world
 
-The port imports ``torch`` and never ``jax``; the configuration dataclasses
-are the framework-free ones of ``cilqr_tpu.utils.params``.
+The port imports ``torch`` and never ``jax``, and nothing of ``cilqr_tpu``:
+it keeps its own copy of the configuration dataclasses (``utils.params``;
+``utils.interop`` carries a JAX-side parameter set across).  Constructors
+allocate on the card unless the caller passes ``device="cpu"``
+(``utils.device``); functions of tensors follow their tensors.
 """
 
-from cilqr_tpu.utils.params import (  # noqa: F401
+from cilqr_tpu_torch.utils.params import (  # noqa: F401
     CostmapParams,
     NoiseParams,
     SolverParams,

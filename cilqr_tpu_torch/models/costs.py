@@ -12,7 +12,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from cilqr_tpu.utils.params import SolverParams
+from cilqr_tpu_torch.utils.params import SolverParams
 from cilqr_tpu_torch.models import obstacles as obstacles_mod
 from cilqr_tpu_torch.models import uncertainty as uncertainty_mod
 from cilqr_tpu_torch.models.reference_path import LocalPlan, find_closest_points

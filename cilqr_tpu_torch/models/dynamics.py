@@ -13,7 +13,7 @@ import math
 
 import torch
 
-from cilqr_tpu.utils.params import SolverParams
+from cilqr_tpu_torch.utils.params import SolverParams
 
 
 def clamp_control(p: SolverParams, x: torch.Tensor, u: torch.Tensor) -> torch.Tensor:

@@ -11,7 +11,8 @@ from typing import NamedTuple
 
 import torch
 
-from cilqr_tpu.utils.params import SolverParams
+from cilqr_tpu_torch.utils.device import resolve
+from cilqr_tpu_torch.utils.params import SolverParams
 
 
 class Obstacles(NamedTuple):
@@ -32,6 +33,7 @@ def make_static_obstacles(p: SolverParams, centers, sizes, yaws, speeds=None,
     """Padded ``Obstacles`` with a constant pose over the horizon
     (ilqr_uncertainty_node.cpp:151-190).  Padding obstacles sit at x=1e6 so
     their masked barrier also underflows to 0."""
+    device = resolve(device)
     t = lambda a: torch.as_tensor(a, dtype=dtype, device=device)
     centers = t(centers).reshape(-1, 2)
     sizes = t(sizes).reshape(-1, 2)

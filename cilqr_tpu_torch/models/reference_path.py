@@ -18,7 +18,8 @@ from typing import NamedTuple
 
 import torch
 
-from cilqr_tpu.utils.params import SolverParams
+from cilqr_tpu_torch.utils.device import resolve
+from cilqr_tpu_torch.utils.params import SolverParams
 
 
 class LocalPlan(NamedTuple):
@@ -270,6 +271,7 @@ def pad_global_plan(p: SolverParams, plan_xy, dtype=torch.float32, device=None):
 
     Padding repeats the final waypoint so out-of-range gathers stay sane.
     """
+    device = resolve(device)
     plan_xy = torch.as_tensor(plan_xy, dtype=dtype, device=device)
     n = plan_xy.shape[0]
     P = p.max_global_plan_points

@@ -26,7 +26,8 @@ from typing import NamedTuple
 
 import torch
 
-from cilqr_tpu.utils.params import SolverParams
+from cilqr_tpu_torch.utils.params import SolverParams
+from cilqr_tpu_torch.utils.device import resolve
 from cilqr_tpu_torch.models import costs as costs_mod
 from cilqr_tpu_torch.models import dynamics
 from cilqr_tpu_torch.models.reference_path import LocalPlan, get_local_plan
@@ -46,6 +47,7 @@ class SolveResult(NamedTuple):
 def initial_controls(p: SolverParams, dtype=torch.float32, device=None) -> torch.Tensor:
     """Cold-start guess (iLQR.cpp:9-15): a = 0.5; yaw-rate 0 for the first
     N/2 steps, then 0.1."""
+    device = resolve(device)
     N = p.horizon
     acc = torch.full((N,), 0.5, dtype=dtype, device=device)
     yr = torch.full((N,), 0.1, dtype=dtype, device=device)

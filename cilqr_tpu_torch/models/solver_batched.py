@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from cilqr_tpu.utils.params import SolverParams
+from cilqr_tpu_torch.utils.params import SolverParams
 from cilqr_tpu_torch.models import costs, solver
 from cilqr_tpu_torch.models import uncertainty as uncertainty_mod
 from cilqr_tpu_torch.models.reference_path import get_local_plan

@@ -13,8 +13,9 @@ from typing import NamedTuple
 
 import torch
 
-from cilqr_tpu.utils.params import SolverParams
+from cilqr_tpu_torch.utils.params import SolverParams
 from cilqr_tpu_torch.ops import gridmap
+from cilqr_tpu_torch.utils.device import resolve
 
 
 class UncertaintyMap(NamedTuple):
@@ -34,6 +35,7 @@ class UncertaintyMap(NamedTuple):
 
 def make_uncertainty_map(values, center_xy, resolution, origin_xy, origin_yaw,
                          dtype=torch.float32, device=None) -> UncertaintyMap:
+    device = resolve(device)
     values = torch.as_tensor(values, dtype=dtype, device=device)
     geom = gridmap.make_geom(center_xy, float(resolution), values.shape[0],
                              values.shape[1], dtype=dtype, device=device)

@@ -1,10 +1,19 @@
-"""Uncertainty propagation of the local costmap engine (the slice the
-Monte-Carlo path uses).
+"""Local uncertainty-costmap engine: the ``map_engine`` node
+(``local_costmap.cpp`` + ``arbitrary_transformation.cu`` / ``ARBIT.cuh``).
 
-Port of part of ``cilqr_tpu/ops/costmap.py``: the per-cell covariance terms
-(``cell_sigma_rho``), the window sizing (``required_window_radius``) and the
-semantics oracle of the propagation (``propagate_uncertainty_reference``).
-The propagation kernel lives in ``ops/uncertainty_cuda.py``.
+Port of ``cilqr_tpu/ops/costmap.py``.  Per planning tick
+(odomCallback, local_costmap.cpp:172-310):
+  1. corridor-derived map geometry        (``corridor_geometry``)
+  2. obstacle OBB rasterization           (``rasterize_obstacles``)
+  3. prior-map resampling, a rotated nearest gather (``sample_prior``;
+     batched on the card: kernel K5, ``ops/sample_cuda.py``)
+  4. uncertainty propagation (``propagate_uncertainty_reference``; on the
+     card: kernel K4, ``ops/uncertainty_cuda.py``)
+  5. planner map assembly                 (``build_local_costmap(_batched)``)
+
+The grid is a fixed (rows, cols) patch whose center follows the corridor
+bounding box, as in the JAX package.  Functions that the JAX package
+``vmap``s over scenarios take leading scenario dims here.
 
 For every cell i the propagated occupancy is
 ``u_i = sum_j f_ij p_j / sum_j f_ij`` over the cells j inside the 95%
@@ -17,13 +26,199 @@ a fixed (2R+1)^2 offset scan with the analytic inside test
 from __future__ import annotations
 
 import math
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
-from cilqr_tpu.utils.params import CostmapParams
+from cilqr_tpu_torch.models.reference_path import closest_point_index
 from cilqr_tpu_torch.ops import gridmap
+from cilqr_tpu_torch.utils.params import CostmapParams
+
+
+class LocalCostmap(NamedTuple):
+    """Multi-layer vehicle-frame costmap (layers of local_costmap.cpp:125-132);
+    in the batched build every leaf carries a leading B axis.
+    ``semantic_lidar_map`` (the KF-tracked perception box, :328-394) and
+    ``ellipse_map`` (the ego's 95% ellipse, for display) are filled on
+    demand and None otherwise."""
+
+    vehicle_map: torch.Tensor       # (rows, cols) prior + obstacle occupancy
+    bounding_box_map: torch.Tensor  # (rows, cols) rasterized obstacle OBBs
+    uncertainty_map: torch.Tensor   # (rows, cols) propagated occupancy
+    corridor_mask: torch.Tensor     # (rows, cols) 1 inside the dynamic corridor
+    geom: gridmap.GridGeom          # vehicle-frame geometry
+    origin_xy: torch.Tensor         # (2,) ego global position (map origin)
+    origin_yaw: torch.Tensor        # () ego global yaw
+    semantic_lidar_map: Optional[torch.Tensor] = None
+    ellipse_map: Optional[torch.Tensor] = None
+
+
+def _path_headings(waypoints: torch.Tensor, idx: torch.Tensor, n_valid, fallback_yaw):
+    """Path-tangent headings at waypoint indices ``idx`` (..., L).
+
+    Degenerate tail (repeated last waypoint): the last valid heading is
+    carried forward; ``fallback_yaw`` (...,) only where no index up to there
+    has a valid tangent."""
+    last = torch.as_tensor(n_valid, device=idx.device) - 1
+    wp = waypoints[idx]
+    nxt = waypoints[torch.minimum(idx + 1, last)]
+    tangent = nxt - wp
+    yaw_w = torch.atan2(tangent[..., 1], tangent[..., 0])
+    ok = (tangent * tangent).sum(dim=-1) > 1e-12
+    L = idx.shape[-1]
+    ar = torch.arange(L, device=idx.device).expand(idx.shape)
+    last_valid = torch.cummax(torch.where(ok, ar, torch.full_like(ar, -1)), dim=-1).values
+    yaw_filled = torch.gather(yaw_w, -1, last_valid.clamp(min=0))
+    fallback = torch.as_tensor(fallback_yaw, dtype=yaw_w.dtype, device=yaw_w.device)
+    return torch.where(last_valid >= 0, yaw_filled, fallback[..., None])
+
+
+def corridor_geometry(cp: CostmapParams, waypoints: torch.Tensor, n_valid,
+                      ego_xy: torch.Tensor, ego_yaw: torch.Tensor):
+    """Vehicle-map center from the lane-corridor bounding box
+    (``getVehicleMapScale``, local_costmap.cpp:712-805): ``look_ahead_waypoints``
+    waypoints from the nearest one, offset 8 m left / 4 m right along
+    heading - pi/2, transformed to the vehicle frame and bounded.
+
+    ego_xy (..., 2), ego_yaw (...).  Returns (center (..., 2), (x_len, y_len),
+    (x_min, x_max, y_min, y_max)), each (...,); the -5 m x shift of
+    local_costmap.cpp:213 is included in the center."""
+    start = closest_point_index(waypoints, n_valid, ego_xy)
+    last = torch.as_tensor(n_valid, device=start.device) - 1
+    ar = torch.arange(cp.look_ahead_waypoints, device=start.device)
+    idx = torch.minimum(start[..., None] + ar, last)
+    wp = waypoints[idx]  # (..., L, 2)
+    yaw_w = _path_headings(waypoints, idx, n_valid, ego_yaw)
+
+    heading = yaw_w - math.pi / 2.0
+    heading = torch.where(heading < 0, heading + 2 * math.pi, heading)
+    side = torch.stack([torch.cos(heading), torch.sin(heading)], dim=-1)
+    left = wp - cp.corridor_left * side
+    right = wp + cp.corridor_right * side
+    corridor = torch.cat([left, right], dim=-2)  # (..., 2L, 2)
+
+    cy, sy = torch.cos(ego_yaw)[..., None], torch.sin(ego_yaw)[..., None]
+    dxy = corridor - ego_xy[..., None, :]
+    lx = cy * dxy[..., 0] + sy * dxy[..., 1]
+    ly = -sy * dxy[..., 0] + cy * dxy[..., 1]
+    x_min, x_max = lx.amin(dim=-1), lx.amax(dim=-1)
+    y_min, y_max = ly.amin(dim=-1), ly.amax(dim=-1)
+    x_len = x_max - x_min
+    y_len = y_max - y_min
+    center = torch.stack([x_len / 2.0 - 5.0, (y_max + y_min) / 2.0], dim=-1)
+    return center, (x_len, y_len), (x_min, x_max, y_min, y_max)
+
+
+def corridor_center_bounds(cp: CostmapParams, waypoints, n_valid, lateral_offsets=(-3.0, 0.0, 3.0),
+                           max_yaw_dev: float = 1.2, n_yaw: int = 9, x_margin: float = 5.0,
+                           y_margin: float = 5.0):
+    """Bounds on the corridor-derived map center over a route: ``corridor_geometry``
+    at ego poses swept along the plan (each valid waypoint at the path-tangent
+    yaw) x lateral and yaw perturbations, padded with margins.  Feed the
+    result to ``uncertainty_cuda.make_band_plan_bounds``.  Runs on the CPU in
+    the waypoints' dtype, outside any loop; ``max_yaw_dev`` must bound the
+    worst |ego_yaw - path_yaw| of the run (the center is a rotation of
+    global offsets by -ego_yaw, so its extrema over the yaw range are
+    interior: ``n_yaw`` points sample the whole interval).
+
+    Returns ((x_lo, x_hi), (y_lo, y_hi)) Python floats."""
+    nv = int(n_valid)
+    if nv < 1:
+        raise ValueError("corridor_center_bounds needs at least one waypoint")
+    wpt = torch.as_tensor(waypoints).detach().cpu()
+    dtype = wpt.dtype
+    wp = wpt.numpy().astype(np.float64)[:nv]
+    yaw = _path_headings(wpt, torch.arange(nv), nv, torch.zeros((), dtype=dtype)).numpy().astype(
+        np.float64)
+    centers = []
+    for lat in lateral_offsets:
+        exs = wp[:, 0] + lat * np.cos(yaw - np.pi / 2.0)
+        eys = wp[:, 1] + lat * np.sin(yaw - np.pi / 2.0)
+        for dy in np.linspace(-max_yaw_dev, max_yaw_dev, n_yaw):
+            c, _, _ = corridor_geometry(cp, wpt, nv, torch.tensor(np.stack([exs, eys], -1), dtype=dtype),
+                                        torch.tensor(yaw + dy, dtype=dtype))
+            centers.append(c.numpy())
+    cat = np.concatenate(centers, axis=0)
+    return ((float(cat[:, 0].min() - x_margin), float(cat[:, 0].max() + x_margin)),
+            (float(cat[:, 1].min() - y_margin), float(cat[:, 1].max() + y_margin)))
+
+
+def rasterize_obstacles(cp: CostmapParams, geom: gridmap.GridGeom, rows: int, cols: int,
+                        obs_xy: torch.Tensor, obs_size: torch.Tensor, obs_yaw: torch.Tensor,
+                        obs_mask: torch.Tensor, ego_xy: torch.Tensor,
+                        ego_yaw: torch.Tensor) -> torch.Tensor:
+    """Bounding-box layer (``bondingBoxHandle``, local_costmap.cpp:860-922):
+    +0.2 m inflation, 100 m range gate, corners rotated by the obstacle yaw,
+    transformed to the vehicle frame and filled at 100 by the polygon mask.
+
+    obs_xy, obs_size (M, 2), obs_yaw, obs_mask (M,) are shared; ego_xy
+    (..., 2), ego_yaw (...) and geom may carry leading scenario dims.  The
+    obstacles are filled one after the other into a running maximum, so the
+    temporaries stay (..., rows, cols)."""
+    dtype = geom.center.dtype
+    M = obs_xy.shape[0]
+    dist = torch.sqrt(((obs_xy - ego_xy[..., None, :]) ** 2).sum(dim=-1))  # (..., M)
+    active = (obs_mask != 0) & (dist <= cp.obstacle_raster_radius)
+
+    half = 0.5 * (obs_size + cp.bbox_inflation)  # (M, 2)
+    sx = torch.tensor([1.0, 1.0, -1.0, -1.0], dtype=dtype, device=obs_xy.device)
+    sy = torch.tensor([1.0, -1.0, -1.0, 1.0], dtype=dtype, device=obs_xy.device)
+    cx_l = half[:, 0:1] * sx  # (M, 4) corners in the obstacle frame
+    cy_l = half[:, 1:2] * sy
+    co, so = torch.cos(obs_yaw)[:, None], torch.sin(obs_yaw)[:, None]
+    gx = co * cx_l - so * cy_l + obs_xy[:, 0:1]
+    gy = so * cx_l + co * cy_l + obs_xy[:, 1:2]
+    cy, sy_e = torch.cos(ego_yaw)[..., None, None], torch.sin(ego_yaw)[..., None, None]
+    ex, ey = ego_xy[..., 0, None, None], ego_xy[..., 1, None, None]
+    lx = cy * (gx - ex) + sy_e * (gy - ey)  # (..., M, 4)
+    ly = -sy_e * (gx - ex) + cy * (gy - ey)
+    verts = torch.stack([lx, ly], dim=-1)  # (..., M, 4, 2)
+
+    out = torch.zeros(tuple(ego_yaw.shape) + (rows, cols), dtype=dtype, device=obs_xy.device)
+    for m in range(M):
+        mask = gridmap.rasterize_polygon(geom, rows, cols, verts[..., m, :, :])
+        out = torch.maximum(out, torch.where(active[..., m, None, None], mask,
+                                             torch.zeros_like(mask)))
+    return 100.0 * out
+
+
+def rasterize_tracked_bbox(geom: gridmap.GridGeom, rows: int, cols: int, box: torch.Tensor,
+                           valid: torch.Tensor) -> torch.Tensor:
+    """``semantic_lidar_map`` layer: the KF-smoothed perception box filled as
+    ``bboxCallback`` does (local_costmap.cpp:358-371).  ``box`` (..., 4) is
+    the tracker's [cx, cy, w, h] in cell units of the camera convention: the
+    start index is (150 - cy - h/2, 50 + cx - w/2), the extent (h, w), both
+    truncated to integers.  Invalid measurements clear the layer."""
+    cx, cy, w, h = box.unbind(-1)
+    start = torch.stack([150.0 - cy - 0.5 * h, 50.0 + cx - 0.5 * w], dim=-1).to(torch.int32)
+    size = torch.stack([h, w], dim=-1).to(torch.int32)
+    m = gridmap.submap_mask(rows, cols, start, size, dtype=geom.center.dtype)
+    return torch.where(valid[..., None, None], 100.0 * m, torch.zeros_like(m))
+
+
+def sample_prior(geom: gridmap.GridGeom, rows: int, cols: int, global_map: torch.Tensor,
+                 global_geom: gridmap.GridGeom, ego_xy: torch.Tensor,
+                 ego_yaw: torch.Tensor) -> torch.Tensor:
+    """Prior-map layer: nearest-cell lookup of the global map at every
+    vehicle-frame cell rotated into the global frame
+    (local_costmap.cpp:242-253).  geom, ego_xy (..., 2) and ego_yaw (...)
+    may carry leading scenario dims: (..., rows, cols).  Batched, this is
+    the plain version of kernel K5 (``ops/sample_cuda.py``), which repeats
+    every operation below in this order."""
+    H, W = global_map.shape
+    xs, ys = gridmap.cell_positions(geom, rows, cols)
+    cx = xs[..., :, None]
+    cyy = ys[..., None, :]
+    cyaw = torch.cos(ego_yaw)[..., None, None]
+    syaw = torch.sin(ego_yaw)[..., None, None]
+    gx = cx * cyaw - cyy * syaw + ego_xy[..., 0, None, None]
+    gy = cx * syaw + cyy * cyaw + ego_xy[..., 1, None, None]
+    top = global_geom.center + 0.5 * global_geom.length
+    i = gridmap.nearest_index(top[0], global_geom.resolution, gx, H)
+    j = gridmap.nearest_index(top[1], global_geom.resolution, gy, W)
+    return global_map[i, j]
 
 
 def cell_sigma_rho(cp: CostmapParams, xs: torch.Tensor, ys: torch.Tensor, ego_yaw,
@@ -154,3 +349,158 @@ def propagate_uncertainty_reference(cp: CostmapParams, prior: torch.Tensor,
         num = num + w * p_j
         den = den + w
     return torch.where(psd & (den > 0), (num / den).clamp(0.0, 100.0), prior)
+
+
+def vehicle_geom(cp: CostmapParams, center: torch.Tensor) -> gridmap.GridGeom:
+    """The static-extent vehicle-frame grid at ``center`` (..., 2); the
+    resolution and length leaves are broadcast to its leading dims (views)."""
+    lead = tuple(center.shape[:-1])
+    res = torch.tensor(cp.resolution, dtype=center.dtype, device=center.device)
+    length = torch.tensor([cp.rows * cp.resolution, cp.cols * cp.resolution], dtype=center.dtype,
+                          device=center.device)
+    return gridmap.GridGeom(center, res.expand(lead), length.expand(lead + (2,)))
+
+
+def _costmap_pre(cp: CostmapParams, global_map, global_geom, waypoints, n_wpts, ego_state,
+                 obs_xy, obs_size, obs_yaw, obs_mask, skip_prior: bool = False):
+    """Everything before the propagation: corridor geometry and mask, the
+    obstacle layer, the prior with the bbox override.  ego_state (..., 4).
+    ``skip_prior=True`` leaves the prior out (vehicle_map = bbox): the
+    batched build fills it with kernel K5."""
+    rows, cols = cp.rows, cp.cols
+    ego_xy, ego_yaw = ego_state[..., :2], ego_state[..., 3]
+    center, _, bounds = corridor_geometry(cp, waypoints, n_wpts, ego_xy, ego_yaw)
+    geom = vehicle_geom(cp, center.to(global_map.dtype))
+    # cells inside the reference's dynamic corridor bbox
+    xs, ys = gridmap.cell_positions(geom, rows, cols)
+    x_min, x_max, y_min, y_max = (b[..., None, None] for b in bounds)
+    corridor = ((xs[..., :, None] >= x_min) & (xs[..., :, None] <= x_max)
+                & (ys[..., None, :] >= y_min) & (ys[..., None, :] <= y_max)).to(global_map.dtype)
+    bbox = rasterize_obstacles(cp, geom, rows, cols, obs_xy, obs_size, obs_yaw, obs_mask,
+                               ego_xy, ego_yaw)
+    if skip_prior:
+        return bbox, bbox, corridor, geom
+    prior = sample_prior(geom, rows, cols, global_map, global_geom, ego_xy, ego_yaw)
+    # bbox overrides prior where > 90 (local_costmap.cpp:260-263)
+    return torch.where(bbox > 90.0, bbox, prior), bbox, corridor, geom
+
+
+def build_local_costmap(cp: CostmapParams, global_map, global_geom, waypoints, n_wpts, ego_state,
+                        obs_xy, obs_size, obs_yaw, obs_mask, use_kernels: bool = False,
+                        tracked_box=None, tracked_valid=None, with_ellipse_layer: bool = False,
+                        sigmas=None) -> LocalCostmap:
+    """One costmap tick (odomCallback, local_costmap.cpp:172-310) for one
+    ego_state (4,).
+
+    ``use_kernels`` (the JAX package's ``use_pallas``): False propagates
+    with the oracle ``propagate_uncertainty_reference``; True with
+    ``uncertainty_cuda.propagate_uncertainty`` (kernel K4 for a float32 map
+    on the card, its plain version on the CPU).  ``tracked_box`` /
+    ``tracked_valid``: the KF-smoothed perception box (``models.tracker.step``),
+    rasterized into ``semantic_lidar_map`` and overriding the vehicle map
+    where > 90.  ``with_ellipse_layer`` fills ``ellipse_map`` with the ego
+    pose's 95% ellipse.  ``sigmas`` (3,) overrides the configured
+    propagation sigmas; size ``cp.window_radius`` for the largest one
+    (``required_window_radius``)."""
+    ego_xy, ego_yaw = ego_state[:2], ego_state[3]
+    vehicle_map, bbox, corridor, geom = _costmap_pre(
+        cp, global_map, global_geom, waypoints, n_wpts, ego_state, obs_xy, obs_size, obs_yaw,
+        obs_mask)
+
+    semantic = None
+    if tracked_box is not None:
+        semantic = rasterize_tracked_bbox(geom, cp.rows, cp.cols, tracked_box, tracked_valid)
+        vehicle_map = torch.where(semantic > 90.0, semantic, vehicle_map)
+
+    ellipse = None
+    if with_ellipse_layer:
+        kw = dict(dtype=vehicle_map.dtype, device=vehicle_map.device)
+        # the ego sits at vehicle-frame (0, 0): no lever arm, cov = diag(sx^2, sy^2)
+        cov = torch.diag(torch.tensor([cp.sigma_x * cp.sigma_x, cp.sigma_y * cp.sigma_y], **kw))
+        hm, hmin, ang = gridmap.confidence_ellipse(cov, cp.chisquare_val)
+        axes = torch.stack([hm.clamp(min=cp.resolution), hmin.clamp(min=cp.resolution)])
+        ellipse = 100.0 * gridmap.ellipse_mask(geom, cp.rows, cp.cols, torch.zeros(2, **kw),
+                                               axes, ang).to(vehicle_map.dtype)
+
+    if use_kernels:
+        from cilqr_tpu_torch.ops import uncertainty_cuda
+
+        unc = uncertainty_cuda.propagate_uncertainty(cp, vehicle_map, geom, ego_yaw, sigmas=sigmas)
+    else:
+        unc = propagate_uncertainty_reference(cp, vehicle_map, geom, ego_yaw, sigmas=sigmas)
+    return LocalCostmap(vehicle_map, bbox, unc, corridor, geom, ego_xy, ego_yaw,
+                        semantic_lidar_map=semantic, ellipse_map=ellipse)
+
+
+def build_local_costmap_batched(cp: CostmapParams, global_map, global_geom, waypoints, n_wpts,
+                                ego_states, obs_xy, obs_size, obs_yaw, obs_mask,
+                                use_kernels: bool = True, band_plan=None,
+                                global_res: Optional[float] = None, tracked_boxes=None,
+                                tracked_valid=None, sigmas=None) -> LocalCostmap:
+    """Per-scenario costmap ticks for ego_states (B, 4) over one shared
+    world; every leaf of the result carries a leading B axis.
+
+    ``use_kernels`` (the JAX package's ``use_pallas``): True takes the
+    kernel wrappers: the prior resample ``sample_cuda.sample_prior_batched``
+    (K5), then the bbox / semantic override, then the banded propagation
+    ``uncertainty_cuda.propagate_uncertainty_banded`` (K4) with per-scenario
+    priors, frames and yaws.  For float32 tensors on the card they launch
+    their kernels; for CPU tensors of any float dtype they take their plain
+    versions; for float64 on the card they raise.  False takes
+    ``sample_prior`` and the oracle ``propagate_uncertainty_reference`` on
+    any device and dtype.
+
+    ``band_plan`` (``uncertainty_cuda.make_band_plan_bounds`` over
+    ``corridor_center_bounds``) cuts the propagation exactly; None is one
+    full window of ``cp.window_radius``.  ``sigmas`` (B, 3) or (3,)
+    overrides the configured propagation sigmas; the plan / window must be
+    sized for the largest the caller feeds.  ``tracked_boxes`` (B, 4) /
+    ``tracked_valid`` (B,) as in ``build_local_costmap``.  ``global_res``
+    is accepted for the JAX signature and not used: the JAX package needs
+    the resolution as a Python float to size its kernel's window, K5 reads
+    it from ``global_geom``."""
+    del global_res
+    B = ego_states.shape[0]
+    vehicle_map, bbox, corridor, geom = _costmap_pre(
+        cp, global_map, global_geom, waypoints, n_wpts, ego_states, obs_xy, obs_size, obs_yaw,
+        obs_mask, skip_prior=use_kernels)
+    xys, yaws = ego_states[:, :2], ego_states[:, 3]
+
+    if use_kernels:
+        from cilqr_tpu_torch.ops import sample_cuda
+
+        prior = sample_cuda.sample_prior_batched(geom, cp.rows, cp.cols, global_map, global_geom,
+                                                 xys, yaws)
+        vehicle_map = torch.where(bbox > 90.0, bbox, prior.to(bbox.dtype))
+
+    semantic = None
+    if tracked_boxes is not None:
+        semantic = rasterize_tracked_bbox(geom, cp.rows, cp.cols, tracked_boxes, tracked_valid)
+        vehicle_map = torch.where(semantic > 90.0, semantic, vehicle_map)
+
+    sig_b = None
+    if sigmas is not None:
+        sig_b = torch.as_tensor(sigmas, dtype=vehicle_map.dtype,
+                                device=vehicle_map.device).expand(B, 3)
+    if use_kernels:
+        from cilqr_tpu_torch.ops import uncertainty_cuda
+
+        if band_plan is None:
+            band_plan = uncertainty_cuda.full_window_plan(cp, cp.rows)
+        elif band_plan.sigma_hi is not None and sigmas is None:
+            # a plan built for smaller sigmas would silently truncate the
+            # 95% ellipses; with ``sigmas`` given the caller owns the bound
+            sh = band_plan.sigma_hi
+            if cp.sigma_x > sh[0] or cp.sigma_y > sh[1] or cp.sigma_theta > sh[2]:
+                raise ValueError(
+                    f"band plan sized for sigma_hi={sh} but the costmap uses "
+                    f"({cp.sigma_x}, {cp.sigma_y}, {cp.sigma_theta}): rebuild it with "
+                    "make_band_plan_bounds")
+        unc = uncertainty_cuda.propagate_uncertainty_banded(cp, vehicle_map, geom, yaws, sig_b,
+                                                            band_plan)
+    else:
+        sig = None if sig_b is None else tuple(s[:, None, None] for s in sig_b.unbind(-1))
+        unc = propagate_uncertainty_reference(cp, vehicle_map, geom, yaws[:, None, None],
+                                              sigmas=sig)
+    return LocalCostmap(vehicle_map, bbox, unc, corridor, geom, xys, yaws,
+                        semantic_lidar_map=semantic)

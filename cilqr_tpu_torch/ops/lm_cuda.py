@@ -30,9 +30,10 @@ from typing import NamedTuple
 
 import torch
 
-from cilqr_tpu.utils.params import SolverParams
+from cilqr_tpu_torch.utils.params import SolverParams
 from cilqr_tpu_torch.models import costs, solver
 from cilqr_tpu_torch.ops import riccati_cuda
+from cilqr_tpu_torch.utils.device import resolve
 
 LAUNCHES = 0  # K1 launches made by fused_optimize
 ITER_LAUNCHES = 0  # K3 launches made by fused_iteration
@@ -62,10 +63,11 @@ class WorldPrep(NamedTuple):
 
 
 def prep_obstacles(p: SolverParams, obs, dtype=torch.float32, device=None) -> torch.Tensor:
-    """Per-(m, j) global-frame ellipse quadratic forms, (M*6, N)."""
+    """Per-(m, j) global-frame ellipse quadratic forms, (M*6, N), on the
+    obstacles' device (without obstacles: on ``device``)."""
     N = p.horizon
     if obs is None:
-        return torch.zeros((6, N), dtype=dtype, device=device)
+        return torch.zeros((6, N), dtype=dtype, device=resolve(device))
     dims = obs.dims[:, :N].to(dtype)
     pos = obs.pos[:, :N].to(dtype)
     M = dims.shape[0]
@@ -85,8 +87,10 @@ def prep_obstacles(p: SolverParams, obs, dtype=torch.float32, device=None) -> to
 
 def prep_unc_map(m, dtype=torch.float32, device=None):
     """(values (H, W), scl (16,)) for the in-kernel sampler.  Without a map
-    the box has lo > hi, so `inside` is never true."""
+    the box has lo > hi, so `inside` is never true.  On the map's device
+    (without a map: on ``device``)."""
     if m is None:
+        device = resolve(device)
         scl = torch.zeros(16, dtype=dtype, device=device)
         scl[7], scl[8] = 1.0, -1.0
         return torch.zeros((2, 2), dtype=dtype, device=device), scl

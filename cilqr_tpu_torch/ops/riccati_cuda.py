@@ -19,7 +19,7 @@ import math
 
 import torch
 
-from cilqr_tpu.utils.params import SolverParams
+from cilqr_tpu_torch.utils.params import SolverParams
 from cilqr_tpu_torch.models import solver
 from cilqr_tpu_torch.models.costs import CostDerivs
 

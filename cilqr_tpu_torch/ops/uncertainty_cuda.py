@@ -31,7 +31,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from cilqr_tpu.utils.params import CostmapParams
+from cilqr_tpu_torch.utils.params import CostmapParams
 from cilqr_tpu_torch.ops import costmap as costmap_mod
 from cilqr_tpu_torch.ops import gridmap, riccati_cuda
 

@@ -18,11 +18,12 @@ from typing import NamedTuple
 
 import torch
 
-from cilqr_tpu.utils.params import CostmapParams, SolverParams
+from cilqr_tpu_torch.utils.params import CostmapParams, SolverParams
 from cilqr_tpu_torch.models import solver, solver_batched
 from cilqr_tpu_torch.models import uncertainty as unc_mod
 from cilqr_tpu_torch.ops import costmap as costmap_mod
 from cilqr_tpu_torch.ops import uncertainty_cuda
+from cilqr_tpu_torch.utils.device import resolve
 
 
 class MCSample(NamedTuple):
@@ -51,8 +52,9 @@ def sample_scenarios(generator: torch.Generator, n: int, base_ego, sigma_lo=DEFA
     """Per-scenario covariances, uniform in [sigma_lo, sigma_hi], and ego
     noise N(0, sigma) with the drawn sigma on x, y and yaw (the
     noise-injection feature of ilqr_uncertainty_node.cpp:82-110).  Draws on
-    the generator's device, returns on ``device``.  The JAX package's PRNG
-    stream is not reproduced."""
+    the generator's device, returns on ``device`` (the card when unset).  The
+    JAX package's PRNG stream is not reproduced."""
+    device = resolve(device)
     gdev = generator.device
     u = torch.rand((n, 3), generator=generator, dtype=dtype, device=gdev)
     lo = torch.tensor(sigma_lo, dtype=dtype, device=gdev)

@@ -10,10 +10,13 @@ import torch
 from cilqr_tpu_torch.models import obstacles as obs_mod
 from cilqr_tpu_torch.models import reference_path as rp
 from cilqr_tpu_torch.models import solver, uncertainty as unc_mod
+from cilqr_tpu_torch.utils.device import resolve
 
 
 def example_scenario(p, dtype=torch.float32, device=None):
-    """Returns (plan (P, 2), n, ego (4,), U0 (N, 2), obstacles, unc_map)."""
+    """Returns (plan (P, 2), n, ego (4,), U0 (N, 2), obstacles, unc_map),
+    on the card unless ``device`` says otherwise."""
+    device = resolve(device)
     n_pts = min(120, p.max_global_plan_points)
     s = np.linspace(0.0, 119.0, n_pts)
     plan_np = np.stack([90.0 + s, -306.0 + 2.5 * np.sin(0.03 * s) + 0.01 * s], axis=1)

@@ -1,0 +1,352 @@
+"""Closed-loop plant: the replacement for CARLA + ros-bridge.
+
+Port of ``cilqr_tpu/sim/plant.py``:
+
+  * plant dynamics  = the kinematic bicycle the planner assumes (receding
+    horizon: only U[0] is applied, ilqr_uncertainty_node.cpp:129)
+  * localization noise = per-cycle N(0, sigma) on x/y/theta
+    (ilqr_uncertainty_node.cpp:82-110: a feature of the experiment)
+  * collision ground truth = SAT OBB checks against every obstacle
+  * experiment record = per-cycle (start_pos, X, U, J, iterations) streams
+
+``lax.scan`` over the cycles is a Python loop here that stacks the records;
+``closed_loop_jit`` has no counterpart (PyTorch runs eagerly).
+
+**Noise.**  JAX's PRNG stream cannot be reproduced, so ``inject_noise``
+takes standard-normal draws instead of a key.  Every loop takes, in the
+place of the JAX ``key``, a ``torch.Generator`` from which it draws one
+(T, [B,] 3) block for the localization noise and, with ``percept``, one
+(T, [B,] 4) block for the camera; or it takes the blocks pre-drawn
+(``noise_draws``, ``camera_draws``), which is how the tests feed both
+packages the same numbers.  ``per_run_keys`` of the JAX batched loop is
+JAX key discipline (it makes a batched lane replay a single run's key) and
+has no counterpart: pre-drawn blocks serve that purpose.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import torch
+
+from cilqr_tpu_torch.models import dynamics, solver, solver_batched, tracker
+from cilqr_tpu_torch.models import uncertainty as unc_mod
+from cilqr_tpu_torch.ops import costmap as costmap_mod
+from cilqr_tpu_torch.sim import collision, perception
+from cilqr_tpu_torch.utils.params import CostmapParams, NoiseParams, SolverParams
+
+
+class AckermannCmd(NamedTuple):
+    """The /carla/ego_vehicle/ackermann_cmd payload
+    (ilqr_uncertainty_node.cpp:229-238)."""
+
+    steering_angle: torch.Tensor        # = yaw-rate control (reference quirk)
+    steering_angle_velocity: torch.Tensor
+    speed: torch.Tensor                 # = current speed + accel
+    acceleration: torch.Tensor
+    jerk: torch.Tensor
+
+
+def to_ackermann(speed: torch.Tensor, u0: torch.Tensor) -> AckermannCmd:
+    """publishVehicleCmd semantics: speed + accel as the target speed, the
+    yaw-rate control in the steering_angle field."""
+    z = torch.zeros_like(speed)
+    return AckermannCmd(u0[..., 1], z, speed + u0[..., 0], z, z)
+
+
+class ExperimentRecord(NamedTuple):
+    """Per-cycle /experiment payload (+ solver telemetry)."""
+
+    start_pos: torch.Tensor   # (T, 4) true ego state at cycle start
+    noisy_pos: torch.Tensor   # (T, 4) state fed to the planner
+    X: torch.Tensor           # (T, N+1, 4) planned trajectories
+    U: torch.Tensor           # (T, N, 2) planned controls
+    J: torch.Tensor           # (T,)
+    iterations: torch.Tensor  # (T,)
+    collided: torch.Tensor    # (T,) any-obstacle SAT hit at cycle start
+
+
+def inject_noise(noise: NoiseParams, r: torch.Tensor, state: torch.Tensor) -> torch.Tensor:
+    """N(0, sigma) on x, y, theta (ilqr_uncertainty_node.cpp:82-110) from the
+    standard-normal draws r (..., 3) -> state (..., 4) with noise."""
+    r = r.to(state.dtype)
+    zero = torch.zeros_like(r[..., 0])
+    return state + torch.stack([noise.sigma_x * r[..., 0], noise.sigma_y * r[..., 1], zero,
+                                noise.sigma_theta * r[..., 2]], dim=-1)
+
+
+def check_collisions(p: SolverParams, state: torch.Tensor, obs_xyyaw: torch.Tensor,
+                     obs_size: torch.Tensor, obs_mask: torch.Tensor) -> torch.Tensor:
+    """Any SAT overlap between the ego footprint and a live obstacle: state
+    (..., 4) -> bool (...).  obs_xyyaw (M, 3); obs_size (2,) shared or (M, 2)."""
+    M = obs_xyyaw.shape[0]
+    sizes = obs_size.expand(M, 2)
+    length = torch.tensor(p.length, dtype=state.dtype, device=state.device)
+    width = torch.tensor(p.width, dtype=state.dtype, device=state.device)
+    ego = (state[..., 0, None], state[..., 1, None], state[..., 3, None], length, width)
+    hit = collision.is_collision(
+        ego, (obs_xyyaw[:, 0], obs_xyyaw[:, 1], obs_xyyaw[:, 2], sizes[:, 0], sizes[:, 1]))
+    return (hit & (obs_mask > 0)).any(dim=-1)
+
+
+def _draws(generator, given, shape, dtype, device, what: str) -> torch.Tensor:
+    """The pre-drawn block if given, else one standard-normal block of
+    ``shape`` from the generator (drawn on its device), on ``device``."""
+    if given is not None:
+        if tuple(given.shape) != tuple(shape):
+            raise ValueError(f"{what} must have shape {tuple(shape)}, got {tuple(given.shape)}")
+        return given.to(device=device, dtype=dtype)
+    if generator is None:
+        raise ValueError(f"pass a torch.Generator or pre-drawn {what}")
+    return torch.randn(shape, generator=generator, dtype=dtype,
+                       device=generator.device).to(device)
+
+
+def _stack_records(recs: list) -> dict:
+    return {k: torch.stack([r[k] for r in recs]) for k in recs[0]}
+
+
+def closed_loop(p: SolverParams, noise: NoiseParams, plan_xy: torch.Tensor, plan_n,
+                x0: torch.Tensor, generator: Optional[torch.Generator], n_cycles: int,
+                obstacles=None, unc_map=None, obs_xyyaw=None, obs_size=None, obs_mask=None,
+                plan_step=None, noise_draws=None):
+    """Run ``n_cycles`` plan -> act cycles from x0 (4,) (apply U[0], receding
+    horizon).  Returns (final state, ExperimentRecord).
+
+    ``plan_step(noisy_state, U_warm) -> SolveResult-like`` swaps in another
+    planner; the default is the CILQR solve.  ``noise_draws`` (T, 3): see
+    the module docstring."""
+    U_warm = solver.initial_controls(p, dtype=x0.dtype, device=x0.device)
+    if plan_step is None:
+        def plan_step(noisy, U_w):
+            return solver.run_step(p, plan_xy, plan_n, noisy, U_w, obstacles, unc_map)
+    draws = _draws(generator, noise_draws, (n_cycles, 3), x0.dtype, x0.device, "noise_draws")
+    state, recs = x0, []
+    for t in range(n_cycles):
+        noisy = inject_noise(noise, draws[t], state)
+        res = plan_step(noisy, U_warm)
+        if obs_xyyaw is not None:
+            hit = check_collisions(p, state, obs_xyyaw, obs_size, obs_mask)
+        else:
+            hit = torch.zeros((), dtype=torch.bool, device=x0.device)
+        recs.append((state, noisy, res.X, res.U, res.J, res.iterations, hit))
+        # apply only the first control (ilqr_uncertainty_node.cpp:129)
+        state, U_warm = dynamics.step(p, state, res.U[0]), res.U
+    return state, ExperimentRecord(*(torch.stack(c) for c in zip(*recs)))
+
+
+def _obstacle_arrays(obs_xyyaw, obs_size, obs_mask, dtype, device):
+    """(M, obs_xyyaw (M', 3), sizes (M', 2), mask (M',)): without obstacles
+    one masked placeholder far away, so the costmap build has a row."""
+    M = obs_xyyaw.shape[0] if obs_xyyaw is not None else 0
+    if M:
+        return M, obs_xyyaw, obs_size.expand(M, 2), obs_mask
+    kw = dict(dtype=dtype, device=device)
+    return 0, torch.full((1, 3), 1e6, **kw), torch.ones((1, 2), **kw), torch.zeros((1,), **kw)
+
+
+def _percept_setup(percept, M: int, obs_mask: torch.Tensor):
+    """The raster mask with the perceived obstacle taken out."""
+    pi = percept.obs_index
+    if not (0 <= pi < M):
+        raise ValueError(f"percept.obs_index={pi} out of range for {M} obstacles")
+    raster_mask = obs_mask.clone()
+    raster_mask[pi] = 0.0
+    return pi, raster_mask
+
+
+def _camera(cp: CostmapParams, percept, plan_xy, plan_n, states, obs_now, sizes, pi, draws):
+    """The camera's measurement in each tick's own vehicle-frame grid:
+    (z (..., 4), valid (...)) for states (..., 4)."""
+    center, _, _ = costmap_mod.corridor_geometry(cp, plan_xy, plan_n, states[..., :2],
+                                                 states[..., 3])
+    geom = costmap_mod.vehicle_geom(cp, center.to(states.dtype))
+    return perception.bbox_measurement(cp, geom, states[..., :2], states[..., 3], obs_now[pi, :2],
+                                       sizes[pi], obs_now[pi, 2], draws=draws,
+                                       sigma=percept.bbox_sigma)
+
+
+def closed_loop_full_stack(p: SolverParams, cp: CostmapParams, noise: NoiseParams,
+                           global_map: torch.Tensor, global_geom, plan_xy: torch.Tensor, plan_n,
+                           x0: torch.Tensor, generator: Optional[torch.Generator], n_cycles: int,
+                           obstacles=None, obs_xyyaw=None, obs_size=None, obs_mask=None,
+                           use_kernels: bool = False, plan_step=None, percept=None,
+                           costmap_sigmas=None, noise_draws=None, camera_draws=None):
+    """The complete two-node pipeline for one vehicle: every cycle rebuilds
+    the local uncertainty costmap from the global prior (the map_engine
+    node, local_costmap.cpp:172-310) and feeds it to the planner.
+
+    The costmap is built at the true ego pose (the costmap node consumes
+    raw odometry) while the solver sees the noisy pose (the planner node
+    injects the localization noise): the reference's information flow.
+
+    ``plan_step(noisy_state, U_warm, umap) -> SolveResult-like`` swaps in
+    another planner.  ``percept`` (``sim.perception.PerceptionSim``) turns
+    the perception channel on: obstacle ``percept.obs_index`` moves at
+    ``percept.vel`` and is taken out of the bounding-box rasterization;
+    each cycle the camera gives a noisy cell-space box of its true pose,
+    the Kalman filter smooths it (``models.tracker.step``) and the tracked
+    box is rasterized into ``semantic_lidar_map`` and overrides the vehicle
+    map the propagation consumes.  The SAT ground truth still uses the true
+    moving pose.  ``costmap_sigmas`` (3,) overrides the propagation sigmas
+    of ``cp``.  ``use_kernels`` as in ``costmap.build_local_costmap``.
+    ``noise_draws`` (T, 3) / ``camera_draws`` (T, 4): see the module
+    docstring; the camera's draws are separate from the noise draws, so the
+    noise is the same with ``percept`` on or off.
+
+    Returns (final state, dict of (T, ...) records)."""
+    dtype, dev = x0.dtype, x0.device
+    U_warm = solver.initial_controls(p, dtype=dtype, device=dev)
+    if plan_step is None:
+        def plan_step(noisy, U_w, umap):
+            return solver.run_step(p, plan_xy, plan_n, noisy, U_w, obstacles, umap)
+    M, obs_xyyaw, sizes, obs_mask = _obstacle_arrays(obs_xyyaw, obs_size, obs_mask, dtype, dev)
+    draws = _draws(generator, noise_draws, (n_cycles, 3), dtype, dev, "noise_draws")
+    cm_raster_mask = obs_mask
+    if percept is not None:
+        pi, cm_raster_mask = _percept_setup(percept, M, obs_mask)
+        kf = tracker.init(dtype=dtype, device=dev)
+        cam = None
+        if percept.bbox_sigma > 0.0:
+            cam = _draws(generator, camera_draws, (n_cycles, 4), dtype, dev, "camera_draws")
+
+    state, recs = x0, []
+    for t in range(n_cycles):
+        obs_now = obs_xyyaw
+        tracked_box = tracked_valid = None
+        if percept is not None:
+            obs_now = obs_xyyaw.clone()
+            obs_now[pi, :2] += (t * p.timestep) * percept.vel.to(dtype)
+            z, tracked_valid = _camera(cp, percept, plan_xy, plan_n, state, obs_now, sizes, pi,
+                                       None if cam is None else cam[t])
+            kf, tracked_box = tracker.step(kf, z, tracked_valid)
+
+        cm = costmap_mod.build_local_costmap(
+            cp, global_map, global_geom, plan_xy, plan_n, state, obs_now[:, :2], sizes,
+            obs_now[:, 2], cm_raster_mask, use_kernels=use_kernels, tracked_box=tracked_box,
+            tracked_valid=tracked_valid, sigmas=costmap_sigmas)
+        umap = unc_mod.UncertaintyMap(cm.uncertainty_map, cm.geom, cm.origin_xy, cm.origin_yaw)
+        noisy = inject_noise(noise, draws[t], state)
+        res = plan_step(noisy, U_warm, umap)
+        if M:
+            hit = check_collisions(p, state, obs_now, sizes, obs_mask)
+        else:
+            hit = torch.zeros((), dtype=torch.bool, device=dev)
+        rec = {"start_pos": state, "noisy_pos": noisy, "J": res.J, "iterations": res.iterations,
+               "collided": hit, "uncertainty_max": cm.uncertainty_map.max()}
+        if percept is not None:
+            rec.update(tracked_box=tracked_box, bbox_meas=z, bbox_valid=tracked_valid,
+                       semantic_max=cm.semantic_lidar_map.max(), obs_pos=obs_now[pi, :2])
+        recs.append(rec)
+        state, U_warm = dynamics.step(p, state, res.U[0]), res.U
+    return state, _stack_records(recs)
+
+
+def closed_loop_batched(p: SolverParams, noise: NoiseParams, plan_xy: torch.Tensor, plan_n,
+                        x0s: torch.Tensor, generator: Optional[torch.Generator], n_cycles: int,
+                        obstacles=None, unc_map=None, obs_xyyaw=None, obs_size=None,
+                        obs_mask=None, noise_draws=None):
+    """Closed loop over a scenario batch x0s (B, 4) on the fused path: every
+    plan -> act cycle solves the whole batch through
+    ``run_steps_batched(impl="mega")`` (kernel K1 on the card), on one
+    shared world.  ``noise_draws`` (T, B, 3).
+
+    Returns (final states (B, 4), dict of (T, B, ...) records)."""
+    B = x0s.shape[0]
+    dtype, dev = x0s.dtype, x0s.device
+    U_warm = solver.initial_controls(p, dtype=dtype, device=dev).expand(B, p.horizon, 2)
+    draws = _draws(generator, noise_draws, (n_cycles, B, 3), dtype, dev, "noise_draws")
+    states, recs = x0s, []
+    for t in range(n_cycles):
+        noisy = inject_noise(noise, draws[t], states)
+        res = solver_batched.run_steps_batched(p, plan_xy, plan_n, noisy, U_warm.contiguous(),
+                                               obstacles, unc_map)
+        if obs_xyyaw is not None:
+            hits = check_collisions(p, states, obs_xyyaw, obs_size, obs_mask)
+        else:
+            hits = torch.zeros((B,), dtype=torch.bool, device=dev)
+        recs.append({"start_pos": states, "noisy_pos": noisy, "J": res.J,
+                     "iterations": res.iterations, "collided": hits})
+        states, U_warm = dynamics.step(p, states, res.U[:, 0]), res.U
+    return states, _stack_records(recs)
+
+
+def closed_loop_full_stack_batched(p: SolverParams, cp: CostmapParams, noise: NoiseParams,
+                                   global_map: torch.Tensor, global_geom, plan_xy: torch.Tensor,
+                                   plan_n, x0s: torch.Tensor,
+                                   generator: Optional[torch.Generator], n_cycles: int,
+                                   obstacles=None, obs_xyyaw=None, obs_size=None, obs_mask=None,
+                                   band_plan=None, global_res: Optional[float] = None,
+                                   percept=None, costmap_sigmas=None, plan_step_batched=None,
+                                   use_kernels: bool = True, noise_draws=None,
+                                   camera_draws=None):
+    """The complete pipeline, batched: every plan -> act cycle, every
+    scenario of x0s (B, 4) rebuilds its own vehicle-frame uncertainty
+    costmap from the shared global map (``costmap.build_local_costmap_batched``:
+    the resample kernel K5, then the propagation kernel K4 with per-scenario
+    priors, frames and yaws) and replans through the hybrid solve
+    (``run_steps_batched(impl="mega", world_batched=True)``: each
+    scenario's map sampled in PyTorch, the LM-iteration kernel K3 once per
+    iteration).  Per scenario the information flow is that of
+    ``closed_loop_full_stack``: costmap at the true pose, solver at the
+    noisy pose.  Any B works.
+
+    ``percept`` runs the camera -> Kalman filter -> ``semantic_lidar_map``
+    channel per scenario.  ``plan_step_batched(noisy_states, U_warm, umaps)
+    -> batched SolveResult-like`` swaps in another batched planner.
+    ``band_plan``, ``global_res``, ``use_kernels`` and ``costmap_sigmas``
+    go to ``build_local_costmap_batched``.  ``noise_draws`` (T, B, 3) /
+    ``camera_draws`` (T, B, 4): see the module docstring.
+
+    Returns (final states (B, 4), dict of (T, B, ...) records)."""
+    B = x0s.shape[0]
+    dtype, dev = x0s.dtype, x0s.device
+    U_warm = solver.initial_controls(p, dtype=dtype, device=dev).expand(B, p.horizon, 2)
+    M, obs_xyyaw, sizes, obs_mask = _obstacle_arrays(obs_xyyaw, obs_size, obs_mask, dtype, dev)
+    draws = _draws(generator, noise_draws, (n_cycles, B, 3), dtype, dev, "noise_draws")
+    cm_raster_mask = obs_mask
+    if percept is not None:
+        pi, cm_raster_mask = _percept_setup(percept, M, obs_mask)
+        kf = tracker.init(dtype=dtype, batch=(B,), device=dev)
+        cam = None
+        if percept.bbox_sigma > 0.0:
+            cam = _draws(generator, camera_draws, (n_cycles, B, 4), dtype, dev, "camera_draws")
+
+    states, recs = x0s, []
+    for t in range(n_cycles):
+        obs_now = obs_xyyaw
+        boxes = valid = None
+        if percept is not None:
+            obs_now = obs_xyyaw.clone()
+            obs_now[pi, :2] += (t * p.timestep) * percept.vel.to(dtype)
+            zs, valid = _camera(cp, percept, plan_xy, plan_n, states, obs_now, sizes, pi,
+                                None if cam is None else cam[t])
+            kf, boxes = tracker.step(kf, zs, valid)
+
+        cms = costmap_mod.build_local_costmap_batched(
+            cp, global_map, global_geom, plan_xy, plan_n, states, obs_now[:, :2], sizes,
+            obs_now[:, 2], cm_raster_mask, use_kernels=use_kernels, band_plan=band_plan,
+            global_res=global_res, tracked_boxes=boxes, tracked_valid=valid,
+            sigmas=costmap_sigmas)
+        umaps = unc_mod.UncertaintyMap(cms.uncertainty_map, cms.geom, cms.origin_xy,
+                                       cms.origin_yaw)
+        noisy = inject_noise(noise, draws[t], states)
+        if plan_step_batched is not None:
+            res = plan_step_batched(noisy, U_warm, umaps)
+        else:
+            res = solver_batched.run_steps_batched(p, plan_xy, plan_n, noisy,
+                                                   U_warm.contiguous(), obstacles, umaps,
+                                                   impl="mega", world_batched=True)
+        if M:
+            hits = check_collisions(p, states, obs_now, sizes, obs_mask)
+        else:
+            hits = torch.zeros((B,), dtype=torch.bool, device=dev)
+        rec = {"start_pos": states, "noisy_pos": noisy, "J": res.J,
+               "iterations": res.iterations, "collided": hits,
+               "uncertainty_max": cms.uncertainty_map.amax(dim=(1, 2))}
+        if percept is not None:
+            rec.update(tracked_box=boxes, bbox_valid=valid,
+                       semantic_max=cms.semantic_lidar_map.amax(dim=(1, 2)))
+        recs.append(rec)
+        states, U_warm = dynamics.step(p, states, res.U[:, 0].to(dtype)), res.U.to(dtype)
+    return states, _stack_records(recs)

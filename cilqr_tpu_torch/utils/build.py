@@ -105,6 +105,10 @@ def load_library() -> ctypes.CDLL:
     f, d = ctypes.c_float, ctypes.c_double
     lib.cilqr_propagate.argtypes = [i, i, i, f, d, f, p, ctypes.c_longlong] + [p] * 7 + [p]
     lib.cilqr_propagate.restype = i
+    lib.cilqr_sample_prior.argtypes = [i] * 5 + [p] * 4 + [p]
+    lib.cilqr_sample_prior.restype = i
+    lib.cilqr_opchain.argtypes = [i, i, ctypes.c_longlong, p, p, p]
+    lib.cilqr_opchain.restype = i
     lib.cilqr_riccati_config_size.argtypes = []
     lib.cilqr_riccati_config_size.restype = i
     lib.cilqr_lm_config_size.argtypes = []

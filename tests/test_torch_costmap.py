@@ -22,6 +22,8 @@ from cilqr_tpu.utils.params import CostmapParams
 from cilqr_tpu_torch.ops import costmap as tcm, gridmap as tgrid, uncertainty_cuda as tuc
 from cilqr_tpu_torch.utils import interop
 
+DEV = "cpu"  # the port allocates on the card unless told otherwise
+
 REL = 1e-10
 SIGMA_HI = (0.16, 0.16, 0.017)
 CENTER = (10.0, 0.0)
@@ -41,7 +43,7 @@ def world():
     prior = rng.uniform(0.0, 100.0, (24, 24))
     sig = np.concatenate([rng.uniform(0.02, 0.16, (5, 2)), rng.uniform(0.005, 0.017, (5, 1))], 1)
     jgeom = jgrid.make_geom(CENTER, cp.resolution, 24, 24, dtype=jnp.float64)
-    tgeom = interop.grid_geom_from_numpy(jgeom, dtype=torch.float64)
+    tgeom = interop.grid_geom_from_numpy(jgeom, dtype=torch.float64, device=DEV)
     return cp, prior, sig, jgeom, tgeom
 
 
@@ -170,7 +172,7 @@ def test_plain_version_matches_pallas_kernel_interpret(world):
         jnp.asarray(sig, jnp.float32), jplan, interpret=True)
     got = tuc.propagate_uncertainty_banded(
         cp, torch.tensor(prior, dtype=torch.float32),
-        interop.grid_geom_from_numpy(geom32, dtype=torch.float32),
+        interop.grid_geom_from_numpy(geom32, dtype=torch.float32, device=DEV),
         torch.tensor(0.7, dtype=torch.float32), torch.tensor(sig, dtype=torch.float32),
         interop.band_plan_from_numpy(jplan))
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=2e-5, atol=2e-4)

@@ -30,6 +30,8 @@ from cilqr_tpu_torch.models import solver_batched as tsb, uncertainty as tunc
 from cilqr_tpu_torch.ops import lm_cuda
 from cilqr_tpu_torch.parallel import monte_carlo as tmc
 
+DEV = "cpu"  # the port allocates on the card unless told otherwise
+
 CSRC = Path(lm_cuda.__file__).resolve().parent.parent / "csrc"
 
 
@@ -45,8 +47,8 @@ def _world(p, jdtype, tdtype, yaw=0.05):
     margs = (vals, [10.0, 0.0], 0.2, [100.0, -305.6], yaw)
     return (jobs.make_static_obstacles(p, *ob, dtype=jdtype),
             junc.make_uncertainty_map(*margs, dtype=jdtype),
-            tobs.make_static_obstacles(p, *ob, dtype=tdtype),
-            tunc.make_uncertainty_map(*margs, dtype=tdtype))
+            tobs.make_static_obstacles(p, *ob, dtype=tdtype, device=DEV),
+            tunc.make_uncertainty_map(*margs, dtype=tdtype, device=DEV))
 
 
 def _batch(p, global_plan, B, seed, jdtype, tdtype):
@@ -55,7 +57,7 @@ def _batch(p, global_plan, B, seed, jdtype, tdtype):
     U0 = np.broadcast_to(np.asarray(jsolver.initial_controls(p, dtype=jnp.float64)),
                          (B, p.horizon, 2))
     jplan, jn = jrp.pad_global_plan(p, global_plan, dtype=jdtype)
-    tplan, tn = trp.pad_global_plan(p, global_plan, dtype=tdtype)
+    tplan, tn = trp.pad_global_plan(p, global_plan, dtype=tdtype, device=DEV)
     return (jplan, jn, jnp.asarray(egos, jdtype), jnp.asarray(U0, jdtype),
             tplan, tn, torch.tensor(egos, dtype=tdtype), torch.tensor(U0, dtype=tdtype))
 
@@ -63,10 +65,10 @@ def _batch(p, global_plan, B, seed, jdtype, tdtype):
 def test_prep_obstacles_matches_jax(params):
     p = _p(params)
     jo, _, to, _ = _world(p, jnp.float64, torch.float64)
-    np.testing.assert_allclose(lm_cuda.prep_obstacles(p, to, torch.float64).numpy(),
+    np.testing.assert_allclose(lm_cuda.prep_obstacles(p, to, torch.float64, device=DEV).numpy(),
                                np.asarray(lm_pallas.prep_obstacles(p, jo, jnp.float64)),
                                rtol=1e-12, atol=1e-12)
-    np.testing.assert_array_equal(lm_cuda.prep_obstacles(p, None).numpy(),
+    np.testing.assert_array_equal(lm_cuda.prep_obstacles(p, None, device=DEV).numpy(),
                                   np.asarray(lm_pallas.prep_obstacles(p, None)))
 
 
@@ -76,7 +78,7 @@ def test_map_frame_scalars_match_jax(params, with_map):
     (lm_pallas.py:144-151); without a map the box is empty (lo > hi)."""
     p = _p(params)
     _, ju, _, tu = _world(p, jnp.float64, torch.float64, yaw=0.7)
-    values, scl = lm_cuda.prep_unc_map(tu if with_map else None, torch.float64)
+    values, scl = lm_cuda.prep_unc_map(tu if with_map else None, torch.float64, device=DEV)
     _, jscl, hw = lm_pallas.prep_unc_map(ju if with_map else None, jnp.float64)
     np.testing.assert_allclose(scl.numpy(), np.asarray(jscl)[0], rtol=1e-14, atol=0)
     assert tuple(values.shape) == tuple(hw)
@@ -222,7 +224,7 @@ def test_fused_iteration_plain_with_planes_matches_jax(params, global_plan):
         return (*jsolver.forward_pass(p, X1, U1, k, K), J)
 
     want = jax.jit(jax.vmap(one))(jeg, jnp.asarray(X.numpy()), jU, jlamb, jvals)
-    world = lm_cuda.prep_world(p, to, None, torch.float64)
+    world = lm_cuda.prep_world(p, to, None, torch.float64, device=DEV)
     got = lm_cuda.fused_iteration(p, world, plans, X, U, lamb, planes)
     for g, w in zip(got, want):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,
@@ -266,7 +268,7 @@ def test_iteration_plain_matches_pallas_kernel_interpret(params, global_plan):
         p, lm_pallas.prep_world(p, jo, None), _to_tiles(lm_pallas._fit_payload(jp)[:, :, None], B),
         _to_tiles(sxy, B), _to_tiles(f32(X), B), _to_tiles(f32(U), B),
         _to_tiles(f32(lamb)[:, None], B)[:, 0], _to_tiles(f32(planes), B), interpret=True)
-    world = lm_cuda.prep_world(p, to, None)
+    world = lm_cuda.prep_world(p, to, None, device=DEV)
     got = lm_cuda.fused_iteration_plain(p, world, plans, X, U, lamb, planes)
     np.testing.assert_allclose(got[1].numpy(), np.asarray(_from_tiles(Un_t, B, (2,))),
                                rtol=2e-3, atol=2e-3)

@@ -23,6 +23,8 @@ from cilqr_tpu_torch.models import uncertainty as tunc
 from cilqr_tpu_torch.ops import eig2x2 as teig, gridmap as tgrid
 from cilqr_tpu_torch.utils import interop
 
+DEV = "cpu"  # the port allocates on the card unless told otherwise
+
 REL = 1e-10
 
 
@@ -101,7 +103,7 @@ def grid():
 
 def test_gridmap_geometry_matches_jax(grid):
     vals, args, pos = grid
-    jg, tg = jgrid.make_geom(*args, dtype=jnp.float64), tgrid.make_geom(*args, dtype=torch.float64)
+    jg, tg = jgrid.make_geom(*args, dtype=jnp.float64), tgrid.make_geom(*args, dtype=torch.float64, device=DEV)
     close(tuple(tg), tuple(jg))
     close(tgrid.cell_positions(tg, 9, 7), jgrid.cell_positions(jg, 9, 7))
     close(tgrid.continuous_index(tg, T(pos)), jgrid.continuous_index(jg, jnp.asarray(pos)))
@@ -114,7 +116,7 @@ def test_gridmap_geometry_matches_jax(grid):
 @pytest.mark.parametrize("use_onehot", [True, False])
 def test_bilinear_sample_matches_jax(grid, use_onehot):
     vals, args, pos = grid
-    jg, tg = jgrid.make_geom(*args, dtype=jnp.float64), tgrid.make_geom(*args, dtype=torch.float64)
+    jg, tg = jgrid.make_geom(*args, dtype=jnp.float64), tgrid.make_geom(*args, dtype=torch.float64, device=DEV)
     want = jgrid.sample_bilinear_with_grad(jnp.asarray(vals), jg, jnp.asarray(pos), use_onehot=use_onehot)
     close(tgrid.sample_bilinear_with_grad(T(vals), tg, T(pos)), want)
 
@@ -134,7 +136,7 @@ def test_bilinear_sample_batched_matches_jax():
 
 def _padded(p, global_plan):
     jplan, jn = jrp.pad_global_plan(p, global_plan, dtype=jnp.float64)
-    tplan, tn = trp.pad_global_plan(p, global_plan, dtype=torch.float64)
+    tplan, tn = trp.pad_global_plan(p, global_plan, dtype=torch.float64, device=DEV)
     return jplan, jn, tplan, tn
 
 
@@ -179,7 +181,7 @@ def test_find_closest_points_matches_jax(p, global_plan):
     states = _states(rng, 6, p.horizon, sd=(3.0, 1.0, 0, 0))
     jp = jvmap(lambda e: jrp.get_local_plan(p, jplan, jn, e))(jnp.asarray(egos))
     want = jvmap(jrp.find_closest_points)(jp, jnp.asarray(states))
-    close(trp.find_closest_points(interop.local_plan_from_numpy(jp, dtype=torch.float64),
+    close(trp.find_closest_points(interop.local_plan_from_numpy(jp, dtype=torch.float64, device=DEV),
                                   T(states)), want)
 
 
@@ -188,11 +190,11 @@ def world(p):
     """Obstacles (one moving, one rotated) and an uncertainty map, for both."""
     centers, sizes, yaws, speeds = [[112.0, -305.5], [104.0, -305.0]], [[3.63, 1.84]] * 2, [0.0, 0.4], [1.5, 0.0]
     jo = jobs.make_static_obstacles(p, centers, sizes, yaws, speeds, dtype=jnp.float64)
-    to = tobs.make_static_obstacles(p, centers, sizes, yaws, speeds, dtype=torch.float64)
+    to = tobs.make_static_obstacles(p, centers, sizes, yaws, speeds, dtype=torch.float64, device=DEV)
     vals = np.random.default_rng(0).uniform(0.0, 100.0, (48, 32))
     margs = (vals, [10.0, 0.0], 0.2, [100.0, -305.6], 0.05)
     ju = junc.make_uncertainty_map(*margs, dtype=jnp.float64)
-    tu = tunc.make_uncertainty_map(*margs, dtype=torch.float64)
+    tu = tunc.make_uncertainty_map(*margs, dtype=torch.float64, device=DEV)
     return jo, to, ju, tu
 
 
@@ -228,7 +230,7 @@ def test_uncertainty_sample_batched_matches_jax(p, world):
     jb = ju._replace(values=jnp.asarray(vals),
                      geom=jax.tree.map(lambda a: jnp.broadcast_to(a, (B,) + a.shape), ju.geom),
                      origin_xy=jnp.broadcast_to(ju.origin_xy, (B, 2)), origin_yaw=jnp.asarray(yaw))
-    tb = interop.unc_map_from_numpy(jb, dtype=torch.float64)
+    tb = interop.unc_map_from_numpy(jb, dtype=torch.float64, device=DEV)
     X = _states(rng, B, p.horizon, sd=(6.0, 4.0, 1.0, 0.3))
     close(tunc.uncertainty_sample_batched(p, tb, T(X)),
           junc.uncertainty_sample_batched(p, jb, jnp.asarray(X)))
@@ -262,5 +264,5 @@ def test_barrier_matches_jax():
 
 
 def test_initial_controls_match_jax(p):
-    close(tsolver.initial_controls(p, dtype=torch.float64),
+    close(tsolver.initial_controls(p, dtype=torch.float64, device=DEV),
           jsolver.initial_controls(p, dtype=jnp.float64))

@@ -28,6 +28,8 @@ from cilqr_tpu_torch.models import uncertainty as tunc
 from cilqr_tpu_torch.parallel import monte_carlo as tmc
 from cilqr_tpu_torch.utils import interop
 
+DEV = "cpu"  # the port allocates on the card unless told otherwise
+
 SIGMA_HI = (0.16, 0.16, 0.017)
 B = 8
 
@@ -50,10 +52,10 @@ def setup(params):
     jplan, jn = jrp.pad_global_plan(p, plan_np, dtype=jnp.float64)
     jargs = (p, cp, jnp.asarray(prior), jgeom, jnp.asarray(ego[:2]), jnp.asarray(ego[3]), jplan,
              jn, jmc.MCSample(jnp.asarray(sig), jnp.asarray(egos)))
-    tplan, tn = trp.pad_global_plan(p, plan_np, dtype=torch.float64)
-    targs = (p, cp, torch.tensor(prior), interop.grid_geom_from_numpy(jgeom, dtype=torch.float64),
+    tplan, tn = trp.pad_global_plan(p, plan_np, dtype=torch.float64, device=DEV)
+    targs = (p, cp, torch.tensor(prior), interop.grid_geom_from_numpy(jgeom, dtype=torch.float64, device=DEV),
              torch.tensor(ego[:2]), torch.tensor(ego[3]), tplan, tn,
-             interop.mc_sample_from_numpy(jargs[-1], dtype=torch.float64))
+             interop.mc_sample_from_numpy(jargs[-1], dtype=torch.float64, device=DEV))
     return jargs, targs
 
 
@@ -108,8 +110,8 @@ def test_sample_scenarios():
     """Sigmas inside the bounds, noise only on x, y and yaw, and the same
     draws from the same generator seed."""
     ego = torch.tensor([100.0, -305.8, 4.0, 0.05])
-    a = tmc.sample_scenarios(torch.Generator().manual_seed(3), 500, ego, sigma_hi=SIGMA_HI)
-    b = tmc.sample_scenarios(torch.Generator().manual_seed(3), 500, ego, sigma_hi=SIGMA_HI)
+    a = tmc.sample_scenarios(torch.Generator().manual_seed(3), 500, ego, sigma_hi=SIGMA_HI, device=DEV)
+    b = tmc.sample_scenarios(torch.Generator().manual_seed(3), 500, ego, sigma_hi=SIGMA_HI, device=DEV)
     assert a.sigmas.shape == (500, 3) and a.egos.shape == (500, 4)
     assert bool((a.sigmas >= torch.tensor(tmc.DEFAULT_SIGMA_LO)).all())
     assert bool((a.sigmas <= torch.tensor(SIGMA_HI)).all())
@@ -138,8 +140,8 @@ def batched_world(setup):
         maps, samples.egos, U0)
     want_batched = jax.jit(jax.vmap(one))(maps, samples.egos, U0, jobs_b)
     tmaps = tmc.per_scenario_map(torch.tensor(np.asarray(maps)), targs[3], targs[4], targs[5])
-    tobs_shared = interop.obstacles_from_numpy(shared_obs, dtype=torch.float64)
-    tobs_b = interop.obstacles_from_numpy(jobs_b, dtype=torch.float64)
+    tobs_shared = interop.obstacles_from_numpy(shared_obs, dtype=torch.float64, device=DEV)
+    tobs_b = interop.obstacles_from_numpy(jobs_b, dtype=torch.float64, device=DEV)
     return (targs[0], targs[6], targs[7], targs[8].egos, torch.tensor(np.asarray(U0)), tmaps,
             tobs_shared, tobs_b, want_shared, want_batched)
 
@@ -187,7 +189,7 @@ def test_interop_carries_mc_inputs(setup):
     samples = targs[-1]
     for f in samples._fields:
         np.testing.assert_array_equal(getattr(samples, f).numpy(), np.asarray(getattr(jargs[-1], f)))
-    prior = interop.tensor_from_numpy(jargs[2], dtype=torch.float64)
+    prior = interop.tensor_from_numpy(jargs[2], dtype=torch.float64, device=DEV)
     np.testing.assert_array_equal(prior.numpy(), np.asarray(jargs[2]))
 
 

@@ -24,6 +24,8 @@ from cilqr_tpu.models import solver as jsolver
 from cilqr_tpu_torch.models.costs import CostDerivs
 from cilqr_tpu_torch.ops import riccati_cuda
 
+DEV = "cpu"  # the port allocates on the card unless told otherwise
+
 CSRC = Path(riccati_cuda.__file__).resolve().parent.parent / "csrc"
 
 

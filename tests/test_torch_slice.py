@@ -30,6 +30,8 @@ from cilqr_tpu_torch.sim.example_scenario import example_scenario as torch_examp
 from cilqr_tpu_torch.utils import interop
 from oracle import oracle_cilqr as oracle
 
+DEV = "cpu"  # the port allocates on the card unless told otherwise
+
 ROOT = Path(__file__).resolve().parent.parent
 
 
@@ -48,7 +50,7 @@ def small_world(params):
     """The example world (obstacles + costmap) at a small size, both packages."""
     p = _small(params)
     j = jax_example(p, jnp.float64)
-    t = torch_example(p, torch.float64)
+    t = torch_example(p, torch.float64, device=DEV)
     return p, j, t
 
 
@@ -84,8 +86,8 @@ def test_run_step_matches_oracle(params, global_plan, ego_state, horizon):
     only.  +-1 iteration: the ~1e-4 polyfit-conditioning residual against the
     oracle's raw-power fit can flip one accept/reject decision."""
     p = dataclasses.replace(params, horizon=horizon)
-    plan, n = trp.pad_global_plan(p, global_plan, dtype=torch.float64)
-    U0 = tsolver.initial_controls(p, dtype=torch.float64)
+    plan, n = trp.pad_global_plan(p, global_plan, dtype=torch.float64, device=DEV)
+    U0 = tsolver.initial_controls(p, dtype=torch.float64, device=DEV)
     res = tsolver.run_step(p, plan, n, torch.tensor(ego_state), U0)
     oX, oU, _, oiters, oJ, _ = oracle.run_step(p, global_plan, np.asarray(ego_state), U0.numpy())
     assert abs(int(res.iterations) - oiters) <= 1
@@ -96,11 +98,11 @@ def test_run_step_matches_oracle(params, global_plan, ego_state, horizon):
 
 def test_run_step_with_obstacle_matches_oracle(params, global_plan, ego_state):
     ob = tobs.make_static_obstacles(params, [[115.0, -306.0]], [[3.63, 1.84]], [0.0],
-                                    dtype=torch.float64)
+                                    dtype=torch.float64, device=DEV)
     oracle_obs = [(np.tile([3.63, 1.84], (params.horizon, 1)),
                    np.tile([115.0, -306.0, 0.0, 0.0], (params.horizon, 1)))]
-    plan, n = trp.pad_global_plan(params, global_plan, dtype=torch.float64)
-    U0 = tsolver.initial_controls(params, dtype=torch.float64)
+    plan, n = trp.pad_global_plan(params, global_plan, dtype=torch.float64, device=DEV)
+    U0 = tsolver.initial_controls(params, dtype=torch.float64, device=DEV)
     res = tsolver.run_step(params, plan, n, torch.tensor(ego_state), U0, obstacles=ob)
     oX, oU, _, oiters, _, _ = oracle.run_step(params, global_plan, np.asarray(ego_state),
                                               U0.numpy(), obstacles=oracle_obs)
@@ -129,7 +131,7 @@ def test_any_batch_and_lane_zero_invariance(small_world, impl):
 def test_example_scenario_matches_jax(params, dtype):
     p = dataclasses.replace(params, horizon=50)
     want = jax_example(p, getattr(jnp, dtype))
-    got = torch_example(p, getattr(torch, dtype))
+    got = torch_example(p, getattr(torch, dtype), device=DEV)
     flat = lambda tree: [np.asarray(a) for a in jax.tree.leaves(tree)]
     tflat = [got[0], got[1], got[2], got[3], *got[4], got[5].values, *got[5].geom,
              got[5].origin_xy, got[5].origin_yaw]
@@ -144,20 +146,20 @@ def test_interop_round_trip(params, global_plan):
     jplan, jn = jrp.pad_global_plan(p, global_plan, dtype=jnp.float64)
     ego = jnp.asarray([100.0, -305.6, 4.0, 0.05])
     jp = jrp.get_local_plan(p, jplan, jn, ego)
-    tp = interop.local_plan_from_numpy(jp, dtype=torch.float64)
+    tp = interop.local_plan_from_numpy(jp, dtype=torch.float64, device=DEV)
     for f in jp._fields:
         np.testing.assert_array_equal(getattr(tp, f).numpy(), np.asarray(getattr(jp, f)))
     jo = jobs.make_static_obstacles(p, [[112.0, -305.5]], [[3.6, 1.8]], [0.2], dtype=jnp.float64)
-    to = interop.obstacles_from_numpy(jo, dtype=torch.float64)
+    to = interop.obstacles_from_numpy(jo, dtype=torch.float64, device=DEV)
     assert all(np.array_equal(a.numpy(), np.asarray(b)) for a, b in zip(to, jo))
     ju = junc.make_uncertainty_map(np.ones((6, 5)), [1.0, 0.0], 0.2, [100.0, -305.0], 0.1,
                                    dtype=jnp.float64)
-    tu = interop.unc_map_from_numpy(ju, dtype=torch.float64)
+    tu = interop.unc_map_from_numpy(ju, dtype=torch.float64, device=DEV)
     np.testing.assert_array_equal(tu.geom.length.numpy(), np.asarray(ju.geom.length))
     assert float(tu.origin_yaw) == float(ju.origin_yaw)
-    res = tsb.run_steps_batched(p, trp.pad_global_plan(p, global_plan, torch.float64)[0],
+    res = tsb.run_steps_batched(p, trp.pad_global_plan(p, global_plan, torch.float64, device=DEV)[0],
                                 int(jn), torch.tensor(np.asarray(ego))[None],
-                                tsolver.initial_controls(p, torch.float64)[None], to, tu)
+                                tsolver.initial_controls(p, torch.float64, device=DEV)[None], to, tu)
     back = interop.solve_result_to_numpy(res)
     assert back._fields == jsolver.SolveResult._fields
     assert all(isinstance(a, np.ndarray) for a in back)
