@@ -8,7 +8,8 @@ that each went through its kernels:
 
   phases 1-7   the batched solve ``run_steps_batched(impl="mega")`` at
                B=32768, N=50 on the example world (kernels K1 and K2), and
-               where a call's time goes;
+               where a call's time goes; K1 and K3 at every lane-group size
+               G, which must all give the same bits;
   phases 8-10  the Monte-Carlo path ``monte_carlo(impl="fast")`` at B=8192,
                N=50 on the full 152x104 costmap (kernels K4 and K3), and
                where its time goes;
@@ -49,6 +50,7 @@ NUDGES = 8          # 2-ulp perturbations of the egos that find chaotic lanes
 MC_B = 8192         # Monte-Carlo batch (the JAX benchmark's B)
 K4_CHECK_B = 256
 K3_CHECK_B = 1024
+LAUNCH_RULE_BATCHES = (1024, 8192, 32768)  # around the steps of lm_cuda.launch_shape
 MC_REF_LANES = 64
 SIGMA_HI = (0.16, 0.16, 0.017)  # the JAX benchmark's sampling bound
 FS_B = 8192         # full-stack batch (the JAX benchmark's B)
@@ -147,7 +149,8 @@ def profile_line(fn, reps: int, kernels: dict, annotation: str | None = None) ->
 
 def ptxas_lines(log: str) -> list:
     """One line per compiled kernel from nvcc's -Xptxas -v report: its name
-    (template argument from the mangled name), registers and spill bytes."""
+    (integer template argument from the mangled name), registers and spill
+    bytes."""
     out, name, spill = [], "?", ""
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
@@ -155,7 +158,8 @@ def ptxas_lines(log: str) -> list:
             mangled = m.group(1)
             base = re.search(r"([a-z]+(?:_[a-z]+)*_kernel)", mangled)
             name = base.group(1) if base else mangled
-            name += "<true>" if "ILb1E" in mangled else "<false>" if "ILb0E" in mangled else ""
+            arg = re.search(r"ILi(\d+)E", mangled)
+            name += f"<{arg.group(1)}>" if arg else ""
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m:
             spill = f"{m.group(1)}/{m.group(2)} spill bytes (stores/loads)"
@@ -222,6 +226,14 @@ def perturbed(egos: torch.Tensor, count: int) -> list:
     return out
 
 
+def nudged_results(run, egos: torch.Tensor, count: int) -> list:
+    """The results (X, U, it, J, lamb) of run(egos') on ``perturbed(egos,
+    count)``, all copies solved as one batch: one tuple per copy."""
+    L = egos.shape[0]
+    out = run(torch.cat(perturbed(egos, count)))
+    return [tuple(t[i * L:(i + 1) * L] for t in out) for i in range(count)]
+
+
 def check_lanes(label: str, got, want32, want64, nudged32, chaotic_it_off: int = 1,
                 by_spread: bool = False, calm_it_off: int | None = None):
     """Hold a float32 solve result (X, U, it, J, lamb) per lane to a float32
@@ -280,6 +292,17 @@ def check_lanes(label: str, got, want32, want64, nudged32, chaotic_it_off: int =
     require(not bool(dev64["fail"][calm].any()),
             f"{label}: a calm lane breaks the bars against the float64 plain version: {line}")
     return line, calm, it_share, float((got[1] - want32[1]).abs().amax(dim=(1, 2))[calm].max())
+
+
+def iteration_spread(iterations: torch.Tensor, per_warp: int) -> tuple:
+    """(histogram of LM iteration counts as {count: lanes}, the mean over
+    warps of the slowest scenario's count over the warp's mean count, for
+    warps of per_warp neighbouring scenarios): what a warp that ran until
+    its slowest scenario stopped would spend over what its scenarios need."""
+    it = iterations.long()
+    hist = {int(c): int(n) for c, n in enumerate(torch.bincount(it)) if n}
+    full = it[: it.numel() // per_warp * per_warp].reshape(-1, per_warp).double()
+    return hist, float((full.amax(dim=1) / full.mean(dim=1)).mean())
 
 
 def bound(n_bytes: float, n_ops: float) -> dict:
@@ -379,12 +402,24 @@ def main() -> None:
     build.load_library()
     build_s = time.perf_counter() - t0
     ptxas = ptxas_lines((build.BUILD_DIR / "build.log").read_text())
-    require(any(ln.startswith("lm_opt_kernel:") and "0/0 spill" in ln for ln in ptxas),
-            f"K1 spills or is missing from the ptxas report: {ptxas}")
+    for kernel in ("lm_opt_kernel", "lm_iter_kernel"):
+        for G in lm_cuda.GROUP_SIZES:
+            require(any(ln.startswith(f"{kernel}<{G}>:") and "0/0 spill" in ln for ln in ptxas),
+                    f"{kernel}<{G}> spills or is missing from the ptxas report: {ptxas}")
     print(f"[2 build] {build_s:.2f} s -> {build.BUILD_DIR / build.LIB_NAME}; "
           f"ptxas: {' | '.join(ptxas)}", flush=True)
 
     p = dataclasses.replace(SolverParams(), horizon=HORIZON)
+    S = p.n_closest_samples
+    # each instantiation of K1 and K3 (a block is one warp of T = 32 / G
+    # scenarios): registers and local-memory bytes per thread, shared memory
+    # per block, resident blocks per SM
+    # (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
+    for label, whole_loop in (("K1 lm_opt_kernel", True), ("K3 lm_iter_kernel", False)):
+        print(f"[2 resources] {label}, S={S}: " + " | ".join(
+            "G={G} T={T}: {registers} registers, {local_bytes} B local, {shared_bytes} B shared, "
+            "{blocks_per_sm} blocks/SM".format(G=G, T=32 // G, **lm_cuda.kernel_resources(
+                whole_loop, G, S)) for G in lm_cuda.GROUP_SIZES), flush=True)
     plan, n, ego, U0, obstacles, unc = example_scenario(p)  # on the card by default
     require(all(t.device == dev for t in (plan, n, ego, U0, obstacles.pos, unc.values)),
             "example_scenario left a tensor off the card")
@@ -487,12 +522,35 @@ def main() -> None:
     egos64, U0s64 = egos.double(), U0s.double()
     want64 = lm_cuda.fused_optimize_plain(
         p, get_local_plan(p, plan64, n64, egos64), egos64, U0s64, obstacles64, unc64)
-    nudged = [lm_cuda.fused_optimize_plain(p, get_local_plan(p, plan, n, e), e, U0s, obstacles, unc)
-              for e in perturbed(egos, NUDGES)]
+    u0_for = lambda e: U0.expand(e.shape[0], HORIZON, 2).contiguous()
+    nudged = nudged_results(lambda e: lm_cuda.fused_optimize_plain(
+        p, get_local_plan(p, plan, n, e), e, u0_for(e), obstacles, unc), egos, NUDGES)
     k1_line, _, k1_it_share, k1_err = check_lanes("K1", got, want, want64, nudged)
     print(f"[4 K1 lm] B={K1_CHECK_B} {k1_line}", flush=True)
     require(k1_it_share >= 0.99, "K1 iteration counts equal on fewer than 99% of lanes")
+    # every lane-group size: a scenario's result must not depend on G, so
+    # each instantiation gives the bits of the one just held to the plain
+    # versions (iterations, X, U, J and lambda)
+    for G in lm_cuda.GROUP_SIZES:
+        other = lm_cuda._launch(p, plans, egos, U0s, obstacles, unc, G)
+        require(all(torch.equal(a, b) for a, b in zip(other, got)),
+                f"K1 at G = {G} differs from the group size launch_shape picks: iterations "
+                f"equal {bool(torch.equal(other[2], got[2]))}, max |dX| "
+                f"{float((other[0] - got[0]).abs().max()):.3e}")
+    print(f"[4 K1 lm] B={K1_CHECK_B} every G of {lm_cuda.GROUP_SIZES} gives the bits of (T, G) = "
+          f"{lm_cuda.launch_shape(K1_CHECK_B, S)}: iterations, X, U, J, lambda equal exactly, so "
+          f"each is held to the plain versions as above", flush=True)
     plans_m = get_local_plan(p, plan, n, egos_m)
+    # the times behind lm_cuda.launch_shape: K1 (wrapper included) at every G
+    # on both sides of the rule's two steps
+    rule = {}
+    for B_r in LAUNCH_RULE_BATCHES:
+        e_r, u_r = (egos_m, U0_m) if B_r == MAIN_B else scenario_batch(B_r, seed=2)
+        plans_r = plans_m if B_r == MAIN_B else get_local_plan(p, plan, n, e_r)
+        rule[B_r] = {G: round(cuda_ms(lambda: lm_cuda._launch(
+            p, plans_r, e_r, u_r, obstacles, unc, G), 3), 3) for G in lm_cuda.GROUP_SIZES}
+    print(f"[4 launch rule] K1 ms by B and G: {rule} | launch_shape picks G = "
+          f"{ {B_r: lm_cuda.launch_shape(B_r, S)[1] for B_r in rule} }", flush=True)
     k1_ms, k1_out = timed(
         lambda: lm_cuda.fused_optimize(p, plans_m, egos_m, U0_m, obstacles, unc), 3)
     k1_plain_ms = cuda_ms(
@@ -501,7 +559,7 @@ def main() -> None:
     # iterations, J and lambda out; the iterations this run's lanes took,
     # each of N steps, plus the sample table (30 per sample) and the initial
     # rollout (25 per step) once per lane
-    S, M_obs = p.n_closest_samples, obstacles.mask.shape[0]
+    M_obs = obstacles.mask.shape[0]
     world_m = lm_cuda.prep_world(p, obstacles, unc, torch.float32, dev)
     k1_bytes = (nbytes(lm_cuda._fit_payload(plans_m), egos_m, U0_m, world_m.obs, world_m.values,
                        world_m.scl) + nbytes(*k1_out))
@@ -513,9 +571,12 @@ def main() -> None:
         replaces="cilqr_tpu/ops/lm_pallas.py:682", max_abs_err=k1_err,
         max_abs_err_of="full-horizon U against the float32 plain version, calm lanes",
         ms=k1_ms, plain_ms=k1_plain_ms, **k1_bound)
-    print(f"[4 K1 lm] B={MAIN_B}: kernel {k1_ms:.3f} ms, plain {k1_plain_ms:.3f} ms, bound "
-          f"{k1_bound['bound_ms']:.3f} ms by {k1_bound['bound_by']} ({k1_ops:.3e} operations, "
-          f"{k1_bytes / 1e6:.1f} MB)", flush=True)
+    k1_shape = lm_cuda.launch_shape(MAIN_B, S)
+    kernels["lm"]["launch_shape"] = dict(T=k1_shape[0], G=k1_shape[1],
+                                         **lm_cuda.kernel_resources(True, k1_shape[1], S))
+    print(f"[4 K1 lm] B={MAIN_B}: kernel {k1_ms:.3f} ms at (T, G) = {k1_shape}, plain "
+          f"{k1_plain_ms:.3f} ms, bound {k1_bound['bound_ms']:.3f} ms by {k1_bound['bound_by']} "
+          f"({k1_ops:.3e} operations, {k1_bytes / 1e6:.1f} MB)", flush=True)
     del k1_out
 
     # 5. the main path: run_steps_batched(impl="mega") at B=32768, N=50.  It
@@ -542,12 +603,19 @@ def main() -> None:
     ref = solver.run_step(p, plan, n, egos_m[:R], U0_m[:R], obstacles, unc)
     ref64 = solver.run_step(p, plan64, n64, egos_m[:R].double(), U0_m[:R].double(),
                             obstacles64, unc64)
-    nudged = [pick(solver.run_step(p, plan, n, e, U0_m[:R], obstacles, unc))
-              for e in perturbed(egos_m[:R], NUDGES)]
+    nudged = nudged_results(lambda e: pick(solver.run_step(p, plan, n, e, u0_for(e), obstacles,
+                                                           unc)), egos_m[:R], NUDGES)
     ref_line, *_ = check_lanes("main path vs solver.run_step",
                                tuple(t[:R] for t in pick(res)), pick(ref), pick(ref64), nudged)
     main_ms = cuda_ms(lambda: solver_batched.run_steps_batched(
         p, plan, n, egos_m, U0_m, obstacles, unc, impl="mega"), TIMED_CALLS)
+    # what K1's persistent groups are for: the spread of the counts, as the
+    # work a warp of W neighbouring scenarios would do over the work they need
+    it_hist, _ = iteration_spread(res.iterations, 32)
+    waste = {W: round(iteration_spread(res.iterations, W)[1], 3) for W in (32, 16, 8, 4, 2)}
+    print(f"[5 iterations] B={MAIN_B}: histogram {it_hist} | slowest scenario's count over the "
+          f"mean, averaged over warps of W scenarios: {waste} (W = 32 / G; the shape in use is "
+          f"(T, G) = {k1_shape})", flush=True)
     print(f"[5 main path] mega B={MAIN_B} N={HORIZON}: launches {main_launches} | mean iterations "
           f"{mean_it:.2f} (range {it_min}..{it_max}) | first {R} lanes vs solver.run_step: {ref_line} "
           f"| {main_ms:.3f} ms/call = {MAIN_B / main_ms * 1e3:.0f} solves/s on {card}", flush=True)
@@ -573,8 +641,10 @@ def main() -> None:
             f"two_phase: {two_phase_launches} K2 launches for {int(r4.iterations.max())} iterations")
     tp_ms = cuda_ms(lambda: solver_batched.run_steps_batched(
         p, plan, n, e4, u4, obstacles, unc, impl="two_phase"), 2)
-    print(f"[6 serving/two-phase] mega B=1 {b1_ms:.3f} ms/call (lane 0 as in the B={MAIN_B} "
-          f"batch: max |dU| {b1_diff:.1e}) | two_phase B={K2_CHECK_B} "
+    b1_equal = bool(torch.equal(r1.U[0], res.U[0]) and torch.equal(r1.X[0], res.X[0]))
+    print(f"[6 serving/two-phase] mega B=1 {b1_ms:.3f} ms/call at (T, G) = "
+          f"{lm_cuda.launch_shape(1, S)} (lane 0 as in the B={MAIN_B} batch: max |dU| "
+          f"{b1_diff:.1e}, X and U equal bit for bit: {b1_equal}) | two_phase B={K2_CHECK_B} "
           f"{tp_ms:.3f} ms/call ({int(r4.iterations.max())} LM iterations, "
           f"{two_phase_launches} K2 launches)", flush=True)
 
@@ -728,6 +798,25 @@ def main() -> None:
     require(lm_cuda.ITER_LAUNCHES == before + 1, "K3 launch counter did not move")
     k3_err, roll3, j_rel = k3_compare(
         X3, U3, got3, lm_cuda.fused_iteration_plain(p, world, plans3, X3, U3, lamb3, uext3))
+    # every lane-group size gives the bits of the one just held to the plain
+    # version (all five outputs)
+    for G in lm_cuda.GROUP_SIZES:
+        other = lm_cuda._launch_iteration(p, world, plans3, X3, U3, lamb3, uext3, G)
+        require(all(torch.equal(a, b) for a, b in zip(other, got3)),
+                f"K3 at G = {G} differs from the group size launch_shape picks")
+    # planted ties: the second half of every scenario's sample table repeats
+    # its first half, so every winner has an exact twin S/2 samples later;
+    # the first must win in every lane group, or the refine lands S/2
+    # samples down the path
+    half = S // 2
+    twin = lambda t: torch.cat([t[:, :half], t[:, :half], t[:, 2 * half:]], dim=1)
+    plans_tie = plans3._replace(sample_xl=twin(plans3.sample_xl), sample_yl=twin(plans3.sample_yl),
+                                sample_r=twin(plans3.sample_r))
+    want_tie = lm_cuda.fused_iteration_plain(p, world, plans_tie, X3, U3, lamb3, uext3)
+    tie_err = 0.0
+    for G in lm_cuda.GROUP_SIZES:
+        got_tie = lm_cuda._launch_iteration(p, world, plans_tie, X3, U3, lamb3, uext3, G)
+        tie_err = max(tie_err, k3_compare(X3, U3, got_tie, want_tie)[0])
     before = lm_cuda.ITER_LAUNCHES
     got = lm_cuda.fused_optimize(p, plans3, egos3, U3, obstacles, None, unc_sampler=sampler3)
     torch.cuda.synchronize()
@@ -756,30 +845,46 @@ def main() -> None:
     XM = dynamics.rollout(p, egosM, UM)
     uextM = solver_batched.map_sampler(p, umapsM)(XM[:, :HORIZON])
     lambM = torch.ones(MC_B, dtype=torch.float32, device=dev)
-    k3_ms, gotM = timed(lambda: lm_cuda.fused_iteration(p, world, plansM, XM, UM, lambM, uextM), 5)
+    # as the hybrid loop launches it (table and fit payload prepared once per
+    # solve), and called on its own (prepared on every call)
+    worldM = world._replace(iteration=lm_cuda.prep_iteration(plansM))
+    k3_ms, gotM = timed(lambda: lm_cuda.fused_iteration(p, worldM, plansM, XM, UM, lambM, uextM), 5)
+    k3_alone_ms, aloneM = timed(
+        lambda: lm_cuda.fused_iteration(p, world, plansM, XM, UM, lambM, uextM), 5)
+    require(all(torch.equal(a, b) for a, b in zip(gotM, aloneM)),
+            "K3 with inputs prepared once differs from K3 called on its own")
     k3_plain_ms, wantM = timed(
         lambda: lm_cuda.fused_iteration_plain(p, world, plansM, XM, UM, lambM, uextM), 2)
     k3_err_m, roll_m, j_rel_m = k3_compare(XM, UM, gotM, wantM)
-    # bound: fit payload, sample table, X, U, lambda, planes and obstacle
-    # payload in; X_new, U_new, J, k and K out; one iteration of N steps
+    # bound: what K3 is given (the fit payload and the [sxl, syl] sample
+    # table, r being recomputed), X, U, lambda, planes and obstacle payload
+    # in; X_new, U_new, J, k and K out; one iteration of N steps
     k3_bound = bound(
-        nbytes(lm_cuda._fit_payload(plansM), plansM.sample_xl, plansM.sample_yl, plansM.sample_r,
-               XM, UM, lambM, uextM, world.obs) + nbytes(*gotM),
+        nbytes(worldM.iteration.table, worldM.iteration.fit, XM, UM, lambM, uextM, world.obs)
+        + nbytes(*gotM),
         MC_B * HORIZON * lm_step_ops(p.n_closest_samples, obstacles.mask.shape[0], 20))
     kernels["lm_iter"] = dict(
         name="lm_iter", route="cuda", source="cilqr_tpu_torch/csrc/lm.cu",
         replaces="cilqr_tpu/ops/lm_pallas.py:663", max_abs_err=max(k3_err, k3_err_m),
         max_abs_err_of="one iteration's gains k, K against the float32 plain version",
-        ms=k3_ms, plain_ms=k3_plain_ms, **k3_bound)
+        ms=k3_ms, ms_called_alone=k3_alone_ms, plain_ms=k3_plain_ms, **k3_bound)
+    k3_shape = lm_cuda.launch_shape(MC_B, S)
+    kernels["lm_iter"]["launch_shape"] = dict(T=k3_shape[0], G=k3_shape[1],
+                                              **lm_cuda.kernel_resources(False, k3_shape[1], S))
     print(f"[9 K3 lm_iter] B={K3_CHECK_B} one iteration: max|kernel-plain| k/K {k3_err:.3e} "
           f"(bar 1e-4 rel + 1e-5 abs) | per step " + ", ".join(f"{nm} {e:.3e}" for nm, e in roll3)
-          + f" | J rel {j_rel:.3e} | hybrid loop ({hybrid_launches} K3 launches): {k3_line} "
+          + f" | J rel {j_rel:.3e} | every G of {lm_cuda.GROUP_SIZES} gives the same bits | "
+          f"planted ties (table halves equal), every G: max|kernel-plain| k/K {tie_err:.3e} at "
+          f"the same bars "
+          f"| hybrid loop ({hybrid_launches} K3 launches): {k3_line} "
           f"(max full-horizon |dU| on calm lanes {k3_loop_err:.3e}) | B={MC_B} one iteration: "
           f"max|kernel-plain| k/K {k3_err_m:.3e}, per step "
           + ", ".join(f"{nm} {e:.3e}" for nm, e in roll_m)
-          + f", J rel {j_rel_m:.3e}, kernel {k3_ms:.3f} ms, plain {k3_plain_ms:.3f} ms, bound "
+          + f", J rel {j_rel_m:.3e}, kernel {k3_ms:.3f} ms with its inputs prepared once per solve "
+          f"({k3_alone_ms:.3f} ms called on its own) at (T, G) = {k3_shape}, plain "
+          f"{k3_plain_ms:.3f} ms, bound "
           f"{k3_bound['bound_ms']:.3f} ms by {k3_bound['bound_by']}", flush=True)
-    del umapsM, egosM, plansM, XM, uextM, gotM, wantM
+    del umapsM, egosM, plansM, XM, uextM, gotM, wantM, aloneM, worldM
 
     # 10. the Monte-Carlo path: monte_carlo(impl="fast") at B=8192, N=50.  It
     # launches K4 once and K3 once per LM iteration, and never K1 or K2.
@@ -817,7 +922,8 @@ def main() -> None:
         return pick(mc.monte_carlo(p, cp, prior, geom, origin_xy, origin_yaw, plan, n, s,
                                    obstacles, sigma_hi=SIGMA_HI, impl="reference"))
 
-    nudged = [mc_reference(mc.MCSample(sub.sigmas, e)) for e in perturbed(sub.egos, NUDGES)]
+    nudged = nudged_results(lambda e: mc_reference(mc.MCSample(sub.sigmas.repeat(NUDGES, 1), e)),
+                            sub.egos, NUDGES)
     mc_line, *_ = check_lanes("MC path vs monte_carlo(impl='reference')",
                               tuple(t[:L] for t in pick(res)), mc_reference(sub),
                               mc_reference(sub, torch.float64), nudged, chaotic_it_off=2,
@@ -1083,7 +1189,12 @@ def main() -> None:
         with plain_versions():
             want32_c = captured(gm, x0s[:L], sub_draws)
             want64_c = captured(gm, x0s[:L], sub_draws, torch.float64, use_kernels=False)
-            nudged_c = [captured(gm, e, sub_draws) for e in perturbed(x0s[:L], FS_NUDGES)]
+            # the nudged copies as one loop of FS_NUDGES x L lanes, each
+            # copy on the same noise
+            nudged_all = captured(gm, torch.cat(perturbed(x0s[:L], FS_NUDGES)),
+                                  sub_draws.repeat(1, FS_NUDGES, 1))
+            nudged_c = [[tuple(v[i * L:(i + 1) * L] for v in cyc) for cyc in nudged_all]
+                        for i in range(FS_NUDGES)]
         require(read_counts() == sub_launches, "a plain-version loop launched a kernel")
         keep = torch.ones(L, dtype=torch.bool, device=dev)
         lane_lines = []
@@ -1101,7 +1212,7 @@ def main() -> None:
         print(f"[13 lanes] {label}, first {L} lanes vs the loop on the plain versions: "
               + " || ".join(lane_lines) + f" || {int(keep.sum())} lanes calm through {cycles} "
               "cycles", flush=True)
-    del got_c, want32_c, want64_c, nudged_c
+    del got_c, want32_c, want64_c, nudged_c, nudged_all
     print(f"[13 profile] B={FS_B}: " + profile_line(
         lambda: full_stack(gmap, x0s, fs_draws), reps=1,
         kernels={"K5": "sample_kernel", "K4": "propagate_kernel", "K3": "lm_iter_kernel"},

@@ -67,7 +67,7 @@ __global__ void riccati_kernel(RiccatiConfig cfg,
     const float v = vta[at(j, 0, 3, B, b)];
     const float th = vta[at(j, 1, 3, B, b)];
     const float a = vta[at(j, 2, 3, B, b)];
-    riccati_backward_step(l_x, l_xx, l_u, l_uu, v, th, a, cfg.dt, lam, Vx, Vxx, kj, Kj);
+    riccati_backward_step(l_x, l_xx, l_u, l_uu, v, cosf(th), sinf(th), a, cfg.dt, lam, Vx, Vxx, kj, Kj);
     k[at(j, 0, 2, B, b)] = kj[0];
     k[at(j, 1, 2, B, b)] = kj[1];
 #pragma unroll

@@ -5,18 +5,22 @@ Port of ``cilqr_tpu/ops/lm_pallas.py``.  K1 (``_opt_kernel`` via
 ``fused_optimize``, the in-kernel-loop form with a shared world)
 regenerates each scenario's closest-point sample table from its fit
 payload, then runs every LM iteration (derivatives, J, backward Riccati,
-rollout, accept/reject, lambda, stop) per thread.  K3 (``_iter_kernel`` via
-``fused_iteration``) runs one iteration on a given trajectory; with
-``unc_sampler`` (one uncertainty map per scenario, the Monte-Carlo and
-full-stack form) ``fused_optimize`` drives it from the host LM loop
-(``solver.optimize``), sampling each scenario's map at the current
-trajectory before every launch.  Both are in ``csrc/lm.cu``.
+rollout, accept/reject, lambda, stop) in a group of G lanes.  K3
+(``_iter_kernel`` via ``fused_iteration``) runs one iteration on a given
+trajectory; with ``unc_sampler`` (one uncertainty map per scenario, the
+Monte-Carlo and full-stack form) ``fused_optimize`` drives it from the host
+LM loop (``solver.optimize``), sampling each scenario's map at the current
+trajectory before every launch.  Both are in ``csrc/lm.cu``; a block is one
+warp of T = 32 / G scenarios whose sample tables it keeps in shared memory,
+and ``launch_shape`` picks G from the batch size.
 
 Shared-world payloads are prepared once per solve: the obstacle quadratic
 forms (``prep_obstacles``), the map and its frame scalars (``prep_unc_map``;
-the kernel reads the four corners of the (H, W) map directly).  The initial
-rollout of U_init from x0 runs inside the kernel (the JAX code does it
-outside, with ``dynamics.rollout``; the plain version here still does).
+the kernel reads the four corners of the (H, W) map directly) and, for the
+hybrid loop, K3's scenario-minor sample table and fit payload
+(``prep_iteration``).  The initial rollout of U_init from x0 runs inside
+the kernel (the JAX code does it outside, with ``dynamics.rollout``; the
+plain version here still does).
 
 ``fused_optimize`` and ``fused_iteration`` take their plain versions
 (``fused_optimize_plain``, ``fused_iteration_plain``) for tensors on the
@@ -26,6 +30,7 @@ CPU; for CUDA tensors they launch the kernel or raise.
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import NamedTuple
 
 import torch
@@ -37,6 +42,24 @@ from cilqr_tpu_torch.utils.device import resolve
 
 LAUNCHES = 0  # K1 launches made by fused_optimize
 ITER_LAUNCHES = 0  # K3 launches made by fused_iteration
+
+GROUP_SIZES = (1, 8, 32)           # lanes per scenario the kernels are built for
+MAX_SHARED_BYTES = 232448           # what one block may opt in to on an H100
+TABLE_BYTES_PER_SAMPLE = 8          # [sxl, syl] in float32; the kernels recompute r
+
+
+class IterationInputs(NamedTuple):
+    """K3's inputs that stay the same over a solve, in the kernel's layout.
+
+    table: (S, 2, B) the local sample table [sxl, syl], scenario-minor (the
+           kernel recomputes r = sxl^2 + syl^2 as ``_local_channels`` does).
+    fit:   (poly_order+11, B) the fit payload, scenario-minor.
+    plans: the plans they were made from.
+    """
+
+    table: torch.Tensor
+    fit: torch.Tensor
+    plans: object
 
 
 class WorldPrep(NamedTuple):
@@ -51,6 +74,9 @@ class WorldPrep(NamedTuple):
             first_x, first_y, 1/res, lo_x, hi_x, lo_y, hi_y, 0...].
     has_obs / has_unc: whether the kernel evaluates each term.
     obstacles / unc_map: the world as given (the plain versions use it).
+    iteration: ``prep_iteration`` of the plans this world is solved with
+            (``fused_iteration`` raises on any other plans), or None:
+            ``fused_iteration`` then prepares them on every call.
     """
 
     obs: torch.Tensor
@@ -60,6 +86,7 @@ class WorldPrep(NamedTuple):
     has_unc: bool
     obstacles: object
     unc_map: object
+    iteration: IterationInputs | None = None
 
 
 def prep_obstacles(p: SolverParams, obs, dtype=torch.float32, device=None) -> torch.Tensor:
@@ -121,6 +148,87 @@ def _fit_payload(plans) -> torch.Tensor:
         [plans.coeffs, plans.x_mid[:, None], plans.x_scale[:, None], plans.samp_frame],
         dim=-1,
     )
+
+
+def prep_iteration(plans) -> IterationInputs:
+    """The sample table and the fit payload of ``plans`` as K3 reads them."""
+    table = torch.stack([plans.sample_xl, plans.sample_yl], dim=-1)
+    return IterationInputs(riccati_cuda.to_scenario_minor(table),
+                           _fit_payload(plans).t().contiguous(), plans)
+
+
+def split_tournament(d: torch.Tensor, G: int) -> torch.Tensor:
+    """Plain version of the kernels' split tournament over distances d
+    (..., S): lane g of G scans samples g, g+G, ... in ascending order and
+    keeps its first minimum (strict <); a butterfly then merges the lanes'
+    (d, j) pairs, the smaller d winning and, on equal d, the smaller j.
+    Returns j (...), the first minimum of the whole row for any S."""
+    S = d.shape[-1]
+    inf = torch.full(d.shape[:-1], float("inf"), dtype=d.dtype, device=d.device)
+    none = torch.full(d.shape[:-1], torch.iinfo(torch.int64).max, dtype=torch.int64,
+                      device=d.device)
+    best, arg = [], []
+    for g in range(G):
+        bd, bj = inf, none
+        for s in range(g, S, G):
+            better = d[..., s] < bd
+            bd = torch.where(better, d[..., s], bd)
+            bj = torch.where(better, torch.full_like(bj, s), bj)
+        best.append(bd)
+        arg.append(bj)
+    off = G // 2
+    while off > 0:
+        merged = []
+        for g in range(G):
+            od, oj = best[g ^ off], arg[g ^ off]
+            take = (od < best[g]) | ((od == best[g]) & (oj < arg[g]))
+            merged.append((torch.where(take, od, best[g]), torch.where(take, oj, arg[g])))
+        best, arg = [m[0] for m in merged], [m[1] for m in merged]
+        off //= 2
+    return torch.where(arg[0] < S, arg[0], torch.zeros_like(arg[0]))
+
+
+def table_bytes(T: int, S: int) -> int:
+    """Shared memory of a block that holds T scenarios' sample tables."""
+    return T * S * TABLE_BYTES_PER_SAMPLE
+
+
+# (G, the smallest B from which G lanes per scenario are used), largest B
+# first, from K1's times on one H100 (chip_smoke.py times every G at B =
+# 1024, 8192 and 32768; PERF.md has them): the whole warp while every
+# scenario's group is resident at once (132 SMs x 16 warps), 8 lanes up to
+# twice that many scenarios per lane slot, and one lane where B fills the
+# card anyway: there more lanes only repeat the work outside the tournament.
+_GROUP_FROM_B = ((1, 16384), (8, 2048), (32, 1))
+
+
+def _check_group(G: int, S: int) -> int:
+    """T = 32 / G, the scenarios of a block (one warp) at G lanes per
+    scenario; raises if G is no group size or the block's tables do not fit
+    in shared memory."""
+    if G not in GROUP_SIZES:
+        raise ValueError(f"G = {G} lanes per scenario: the kernels are built for {GROUP_SIZES}")
+    T = 32 // G
+    if table_bytes(T, S) > MAX_SHARED_BYTES:
+        raise ValueError(f"{T} tables of S={S} samples take {table_bytes(T, S)} bytes of "
+                         f"shared memory, more than the {MAX_SHARED_BYTES} a block can hold")
+    return T
+
+
+def launch_shape(B: int, S: int) -> tuple:
+    """(T, G) for a batch of B scenarios with S table samples: G lanes per
+    scenario and T = 32 / G scenarios per block (one warp).  One lane where
+    B fills the card by itself, more as B shrinks, the whole warp for a few
+    scenarios; the next larger G while the block's tables (T x S x 8 bytes)
+    exceed its shared memory.  Raises if one scenario's table does not fit."""
+    if B < 1:
+        raise ValueError("empty batch")
+    by_batch = next(g for g, min_b in _GROUP_FROM_B if B >= min_b)
+    for G in GROUP_SIZES:
+        if G >= by_batch and table_bytes(32 // G, S) <= MAX_SHARED_BYTES:
+            return 32 // G, G
+    raise ValueError(f"a sample table of S={S} samples takes {table_bytes(1, S)} bytes, "
+                     f"more than the {MAX_SHARED_BYTES} of shared memory a block can hold")
 
 
 def fused_iteration_plain(p: SolverParams, world: WorldPrep, plans, X, U, lamb, uext=None):
@@ -224,7 +332,26 @@ def _load(build):
     return lib
 
 
-def _launch(p: SolverParams, plans, x0s, U_init, obstacles, unc_map):
+def kernel_resources(whole_loop: bool, G: int, S: int) -> dict:
+    """What the compiler and the current card give K1 (``whole_loop``) or K3
+    at G lanes per scenario: registers and local-memory bytes per thread,
+    shared memory per block, resident blocks per SM, and the card's SMs."""
+    _check_group(G, S)
+    return _resources(bool(whole_loop), G, S, torch.cuda.current_device())
+
+
+@functools.lru_cache(maxsize=None)
+def _resources(whole_loop: bool, G: int, S: int, device_index: int) -> dict:
+    from cilqr_tpu_torch.utils import build
+
+    lib = _load(build)
+    out = (ctypes.c_int * 5)()
+    build.check(lib, lib.cilqr_lm_resources(int(whole_loop), G, S, out), "LM kernel resources")
+    return dict(registers=out[0], local_bytes=out[1], shared_bytes=out[2], blocks_per_sm=out[3],
+                sms=out[4])
+
+
+def _launch(p: SolverParams, plans, x0s, U_init, obstacles, unc_map, G=None):
     global LAUNCHES
     from cilqr_tpu_torch.utils import build
 
@@ -232,46 +359,46 @@ def _launch(p: SolverParams, plans, x0s, U_init, obstacles, unc_map):
     B = x0s.shape[0]
     if B < 1:
         raise ValueError("empty batch")
+    # G: another group size than launch_shape's (the card's comparisons)
+    T, G = launch_shape(B, S) if G is None else (_check_group(G, S), G)
     fit = _fit_payload(plans)
-    for name, t, shape in (
+    for name, t, shape_ in (
         ("x0s", x0s, (B, 4)), ("U_init", U_init, (B, N, 2)),
         ("fit payload", fit, (B, p.poly_order + 11)),
     ):
-        riccati_cuda.check_cuda_f32(name, t, shape)
+        riccati_cuda.check_cuda_f32(name, t, shape_)
     dev = x0s.device
     world = prep_world(p, obstacles, unc_map, torch.float32, dev)
     M, H, W = _check_world(world, N)
     lib = _load(build)
-    fit_t = fit.t().contiguous()  # (C, B)
-    x0_t = x0s.t().contiguous()   # (4, B)
-    U0s = riccati_cuda.to_scenario_minor(U_init)
-    obs = world.obs.contiguous()
-    values = world.values.contiguous()
-    scl = world.scl.contiguous()
+    # as many blocks as the card holds at once: each group of lanes takes
+    # scenarios from a counter until none is left
+    with torch.cuda.device(dev):
+        res = kernel_resources(True, G, S)
+    blocks = min(-(-B // T), res["sms"] * res["blocks_per_sm"])
+    Q = blocks * T
+    ins = [fit.t().contiguous(), x0s.contiguous(), U_init.contiguous(), world.obs.contiguous(),
+           world.values.contiguous(), world.scl.contiguous(),
+           torch.zeros(1, dtype=torch.int32, device=dev)]
     f32 = dict(dtype=torch.float32, device=dev)
-    X = torch.empty((N + 1, 4, B), **f32)
-    U = torch.empty((N, 2, B), **f32)
+    X = torch.empty((B, N + 1, 4), **f32)
+    U = torch.empty((B, N, 2), **f32)
     J = torch.empty((B,), **f32)
     lamb = torch.empty((B,), **f32)
     it = torch.empty((B,), dtype=torch.int32, device=dev)
-    sxy = torch.empty((S, 3, B), **f32)
-    Xp = torch.empty((N + 1, 4, B), **f32)
-    Up = torch.empty((N, 2, B), **f32)
-    k = torch.empty((N, 2, B), **f32)
-    K = torch.empty((N, 8, B), **f32)
+    scratch = [torch.empty(shape_, **f32) for shape_ in (
+        (N + 1, 4, Q), (N + 1, 4, Q), (N, 2, Q), (N, 2, Q), (N, 2, Q), (N, 8, Q))]
     cfg = _config(p, B, M, H, W, world.has_obs, world.has_unc)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.cilqr_lm_opt(
-        ctypes.byref(cfg), *(t.data_ptr() for t in (
-            fit_t, x0_t, U0s, obs, values, scl, X, U, J, lamb, it, sxy, Xp, Up, k, K)),
-        stream)
+        ctypes.byref(cfg), *(t.data_ptr() for t in ins + [X, U, J, lamb, it] + scratch),
+        blocks, G, stream)
     build.check(lib, rc, "LM kernel launch")
     LAUNCHES += 1
-    return (riccati_cuda.from_scenario_minor(X, (4,)),
-            riccati_cuda.from_scenario_minor(U, (2,)), it, J, lamb)
+    return X, U, it, J, lamb
 
 
-def _launch_iteration(p: SolverParams, world: WorldPrep, plans, X, U, lamb, uext):
+def _launch_iteration(p: SolverParams, world: WorldPrep, plans, X, U, lamb, uext, G=None):
     global ITER_LAUNCHES
     from cilqr_tpu_torch.utils import build
 
@@ -281,18 +408,23 @@ def _launch_iteration(p: SolverParams, world: WorldPrep, plans, X, U, lamb, uext
         raise ValueError("empty batch")
     if world.has_unc:
         raise ValueError("K3 takes its uncertainty sample from uext; the world must hold no map")
-    fit = _fit_payload(plans)
-    sxy = torch.stack([plans.sample_xl, plans.sample_yl, plans.sample_r], dim=-1)
-    for name, t, shape in (
+    if G is None:
+        G = launch_shape(B, S)[1]
+    else:  # another group size than launch_shape's (the card's comparisons)
+        _check_group(G, S)
+    prep = world.iteration or prep_iteration(plans)
+    if prep.plans is not plans:
+        raise ValueError("world.iteration was prepared from other plans than these")
+    table, fit = prep.table, prep.fit
+    for name, t, shape_ in (
         ("X", X, (B, N + 1, 4)), ("U", U, (B, N, 2)), ("lamb", lamb, (B,)),
-        ("fit payload", fit, (B, p.poly_order + 11)), ("sample table", sxy, (B, S, 3)),
+        ("fit payload", fit, (p.poly_order + 11, B)), ("sample table", table, (S, 2, B)),
         ("uext", uext, (B, N, 3)),
     ):
-        riccati_cuda.check_cuda_f32(name, t, shape)
+        riccati_cuda.check_cuda_f32(name, t, shape_)
     M, H, W = _check_world(world, N)
     lib = _load(build)
-    ins = [fit.t().contiguous(), riccati_cuda.to_scenario_minor(sxy),
-           riccati_cuda.to_scenario_minor(X), riccati_cuda.to_scenario_minor(U),
+    ins = [fit, table, riccati_cuda.to_scenario_minor(X), riccati_cuda.to_scenario_minor(U),
            lamb.contiguous(), riccati_cuda.to_scenario_minor(uext), world.obs.contiguous()]
     f32 = dict(dtype=torch.float32, device=X.device)
     outs = [torch.empty((N + 1, 4, B), **f32), torch.empty((N, 2, B), **f32),
@@ -300,7 +432,7 @@ def _launch_iteration(p: SolverParams, world: WorldPrep, plans, X, U, lamb, uext
             torch.empty((N, 8, B), **f32)]
     cfg = _config(p, B, M, H, W, world.has_obs, False)
     stream = torch.cuda.current_stream(X.device).cuda_stream
-    rc = lib.cilqr_lm_iter(ctypes.byref(cfg), *(t.data_ptr() for t in ins + outs), stream)
+    rc = lib.cilqr_lm_iter(ctypes.byref(cfg), *(t.data_ptr() for t in ins + outs), G, stream)
     build.check(lib, rc, "LM iteration kernel launch")
     ITER_LAUNCHES += 1
     Xn, Un, J, k, K = outs
@@ -314,8 +446,11 @@ def fused_iteration(p: SolverParams, world: WorldPrep, plans, X, U, lamb, uext):
     external planes): J of (X (B, N+1, 4), U (B, N, 2)) and the proposal
     after the backward pass at lamb (B,) and the rollout.  ``world`` from
     ``prep_world``, holding no map; ``uext`` (B, N, 3) the [e, gx, gy]
-    uncertainty planes.  Returns (X_new, U_new, J) and, after them, the
-    gains of the backward pass (k (B, N, 2), K (B, N, 2, 4))."""
+    uncertainty planes.  ``world.iteration``, when set, must be
+    ``prep_iteration`` of these very plans (the hybrid loop builds it once
+    per solve); other plans raise.
+    Returns (X_new, U_new, J) and, after them, the gains of the backward
+    pass (k (B, N, 2), K (B, N, 2, 4))."""
     if X.device.type == "cpu":
         return fused_iteration_plain(p, world, plans, X, U, lamb, uext)
     return _launch_iteration(p, world, plans, X, U, lamb, uext)
@@ -335,6 +470,8 @@ def fused_optimize(p: SolverParams, plans, x0s, U_init, obstacles=None, unc_map=
     _check_sampler(unc_sampler, unc_map)
     if unc_sampler is not None:
         world = prep_world(p, obstacles, None, torch.float32, x0s.device)
+        if x0s.is_cuda:  # K3's constant inputs, once for all iterations
+            world = world._replace(iteration=prep_iteration(plans))
         return solver.optimize(p, plans, x0s, U_init, iteration=_hybrid_iteration(
             p, world, plans, unc_sampler, fused_iteration))
     if x0s.device.type == "cpu":

@@ -98,10 +98,12 @@ def load_library() -> ctypes.CDLL:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.cilqr_riccati.argtypes = [p] * 13 + [p]
     lib.cilqr_riccati.restype = i
-    lib.cilqr_lm_opt.argtypes = [p] * 17 + [p]
+    lib.cilqr_lm_opt.argtypes = [p] * 19 + [i, i] + [p]
     lib.cilqr_lm_opt.restype = i
-    lib.cilqr_lm_iter.argtypes = [p] * 13 + [p]
+    lib.cilqr_lm_iter.argtypes = [p] * 13 + [i] + [p]
     lib.cilqr_lm_iter.restype = i
+    lib.cilqr_lm_resources.argtypes = [i, i, i, p]
+    lib.cilqr_lm_resources.restype = i
     f, d = ctypes.c_float, ctypes.c_double
     lib.cilqr_propagate.argtypes = [i, i, i, f, d, f, p, ctypes.c_longlong] + [p] * 7 + [p]
     lib.cilqr_propagate.restype = i

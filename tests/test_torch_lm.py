@@ -8,7 +8,9 @@ float64 rounding of different summation orders, amplified along the horizon.
 The world payloads are held against ``lm_pallas``'s own.  One LM iteration
 with external uncertainty planes (kernel K3's plain version) is held to the
 same iteration composed from the JAX cost stack, backward pass and rollout
-at 1e-10 of scale.
+at 1e-10 of scale.  What surrounds the kernels is plain Python and runs here:
+the split tournament's plain version against the sequential first minimum,
+the launch-shape rule, and K3's once-per-solve inputs.
 """
 
 import ctypes
@@ -299,3 +301,126 @@ def test_iteration_kernel_matches_plain_on_card(params, global_plan):
     for g, w in zip(got[3:], want[3:]):
         torch.testing.assert_close(g, w, rtol=1e-4, atol=1e-5)
     torch.testing.assert_close(got[2], want[2], rtol=2e-5, atol=0)
+
+
+def _distances_with_ties(S, seed):
+    """(6, 5, S) float32 distances in which every row's minimum is planted
+    at two to four places (exactly equal values), first, last and middle
+    samples among them."""
+    rng = np.random.default_rng(seed)
+    d = rng.uniform(1.0, 2.0, (6, 5, S)).astype(np.float32)
+    for i in range(6):
+        for j in range(5):
+            where = rng.choice(S, size=min(S, 2 + (i + j) % 3), replace=False)
+            d[i, j, where] = np.float32(0.25)
+    d[0, 0, :] = np.float32(1.5)          # every sample ties: sample 0 wins
+    d[1, 0, [0, S - 1]] = np.float32(0.125)
+    d[2, 0, S - 1] = np.float32(0.0)      # a lone minimum at the last sample
+    return d
+
+
+@pytest.mark.parametrize("S", [7, 33, 200])
+@pytest.mark.parametrize("G", [1, 2, 4, 8, 32])
+def test_split_tournament_is_the_sequential_first_minimum(G, S):
+    """G lanes scanning samples g, g+G, ... with a strict <, merged by
+    (d, j) lexicographically, find the first minimum of the row, as
+    ``torch.argmin`` / ``numpy.argmin`` do, with exact ties planted and S
+    not a multiple of G."""
+    d = _distances_with_ties(S, seed=100 * G + S)
+    want = np.argmin(d, axis=-1)          # numpy: the first of equal minima
+    got = lm_cuda.split_tournament(torch.tensor(d), G)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert int(got[0, 0]) == 0 and int(got[1, 0]) == 0 and int(got[2, 0]) == S - 1
+
+
+def test_split_tournament_without_a_finite_distance_takes_sample_zero():
+    d = torch.full((3, 9), float("inf"))
+    assert lm_cuda.split_tournament(d, 4).tolist() == [0, 0, 0]
+
+
+@pytest.mark.parametrize("B", [1, 2, 31, 64, 1024, 8192, 32768, 100000])
+def test_launch_shape_is_allowed_and_fits(B, params):
+    S = params.n_closest_samples
+    T, G = lm_cuda.launch_shape(B, S)
+    assert G in lm_cuda.GROUP_SIZES and T * G == 32  # a block is one warp
+    assert lm_cuda.table_bytes(T, S) <= lm_cuda.MAX_SHARED_BYTES == 232448
+    assert lm_cuda._check_group(G, S) == T
+    if B == 1:
+        assert G == 32  # one scenario: the whole warp
+
+
+def test_launch_shape_follows_the_batch_and_the_table(params):
+    S = params.n_closest_samples
+    groups = [lm_cuda.launch_shape(B, S)[1] for B in (1, 64, 1024, 8192, 32768)]
+    assert groups == sorted(groups, reverse=True) and groups[0] == 32 and groups[-1] <= 2
+    # a table too large for 32 scenarios per warp: fewer scenarios per warp
+    T, G = lm_cuda.launch_shape(32768, 2000)
+    assert lm_cuda.table_bytes(T, 2000) <= lm_cuda.MAX_SHARED_BYTES < lm_cuda.table_bytes(32, 2000)
+    with pytest.raises(ValueError, match="shared memory"):
+        lm_cuda.launch_shape(8, 40000)  # one scenario's table alone does not fit
+    with pytest.raises(ValueError, match="built for"):
+        lm_cuda._check_group(4, S)
+    with pytest.raises(ValueError, match="shared memory"):
+        lm_cuda._check_group(1, 2000)
+
+
+def test_iteration_inputs_prepared_once_equal_the_per_call_layout(params, global_plan):
+    """``prep_iteration`` (built once per solve by the hybrid loop) gives,
+    bit for bit, the scenario-minor layout of the stacked [sxl, syl] table
+    and the transposed fit payload; r is what the kernel recomputes from
+    them: sxl*sxl + syl*syl, each operation rounded."""
+    from cilqr_tpu_torch.ops import riccati_cuda
+
+    p = _p(params)
+    *_, tplan, tn, teg, _ = _batch(p, global_plan, 12, 7, jnp.float32, torch.float32)
+    plans = trp.get_local_plan(p, tplan, tn, teg)
+    prep = lm_cuda.prep_iteration(plans)
+    S = p.n_closest_samples
+    assert tuple(prep.table.shape) == (S, 2, 12) and prep.table.is_contiguous()
+    assert tuple(prep.fit.shape) == (p.poly_order + 11, 12) and prep.fit.is_contiguous()
+    table = torch.stack([plans.sample_xl, plans.sample_yl], dim=-1)
+    assert torch.equal(prep.table, riccati_cuda.to_scenario_minor(table))
+    assert torch.equal(prep.table[:, 0].t(), plans.sample_xl)
+    assert torch.equal(prep.table[:, 1].t(), plans.sample_yl)
+    assert torch.equal(prep.fit, lm_cuda._fit_payload(plans).t().contiguous())
+    sxl, syl = prep.table[:, 0], prep.table[:, 1]
+    assert torch.equal((sxl * sxl + syl * syl).t(), plans.sample_r)
+
+
+def test_hybrid_loop_carries_the_prepared_inputs_only_on_the_card(params, global_plan):
+    """On the CPU the hybrid loop runs the plain iteration and prepares
+    nothing; a world without prepared inputs stays valid for
+    ``fused_iteration`` (it prepares them itself on the card)."""
+    p = _p(params)
+    _, (plans, X, U, lamb, to, tmaps, planes) = _iteration_inputs(
+        p, global_plan, 4, 5, jnp.float64, torch.float64)
+    world = lm_cuda.prep_world(p, to, None, torch.float64, device=DEV)
+    assert world.iteration is None
+    seen = []
+
+    def spy(p_, world_, *rest):
+        seen.append(world_.iteration)
+        return lm_cuda.fused_iteration_plain(p_, world_, *rest)
+
+    saved = lm_cuda.fused_iteration
+    lm_cuda.fused_iteration = spy
+    try:
+        lm_cuda.fused_optimize(p, plans, X[:, 0], U, to, unc_sampler=tsb.map_sampler(p, tmaps))
+    finally:
+        lm_cuda.fused_iteration = saved
+    assert seen and all(s is None for s in seen)
+
+
+def test_prepared_inputs_of_other_plans_are_refused(params, global_plan):
+    """A world that carries K3's prepared inputs serves only the plans they
+    were made from: other plans of the same batch size raise, before
+    anything is launched."""
+    p = _p(params)
+    _, (plans, X, U, lamb, to, _, planes) = _iteration_inputs(
+        p, global_plan, 4, 5, jnp.float32, torch.float32)
+    other = plans._replace(sample_xl=plans.sample_xl + 1.0)
+    world = lm_cuda.prep_world(p, to, None, torch.float32, device=DEV)
+    world = world._replace(iteration=lm_cuda.prep_iteration(other))
+    assert world.iteration.plans is other
+    with pytest.raises(ValueError, match="other plans"):
+        lm_cuda._launch_iteration(p, world, plans, X, U, lamb, planes)
