@@ -12,7 +12,10 @@ that each went through its kernels:
                G, which must all give the same bits;
   phases 8-10  the Monte-Carlo path ``monte_carlo(impl="fast")`` at B=8192,
                N=50 on the full 152x104 costmap (kernels K4 and K3), and
-               where its time goes;
+               where its time goes; K4's own covariance fields must equal
+               the PyTorch ones on every cell, and its fused form (fields
+               computed in the kernel, what the paths launch) the
+               fields-given form bit for bit;
   phases 11-13 the full-stack closed loop
                ``closed_loop_full_stack_batched`` at B=8192, N=50, 5 cycles:
                every cycle each scenario resamples a 256x256 global map into
@@ -97,6 +100,27 @@ def cuda_ms(fn, reps: int) -> float:
     return timed(fn, reps)[0]
 
 
+def kernel_profile(fn, reps: int, name: str) -> tuple:
+    """(device ms per call of the kernels whose name holds ``name``, device
+    ms per call of every other kernel or copy, device kernels and copies per
+    call), from ``torch.profiler`` over reps calls after a warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    named = sum(e.time_range.elapsed_us() for e in events if name in e.name) / 1e3 / reps
+    total = sum(e.time_range.elapsed_us() for e in events) / 1e3 / reps
+    require(named > 0.0, f"the profiler saw no {name} device time")
+    return named, total - named, len(events) / reps
+
+
 def profile_line(fn, reps: int, kernels: dict, annotation: str | None = None) -> str:
     """Device time per call by kernel (``torch.profiler``) and the call's
     time (CUDA events), both over the same reps calls after a warm-up call.
@@ -149,8 +173,8 @@ def profile_line(fn, reps: int, kernels: dict, annotation: str | None = None) ->
 
 def ptxas_lines(log: str) -> list:
     """One line per compiled kernel from nvcc's -Xptxas -v report: its name
-    (integer template argument from the mangled name), registers and spill
-    bytes."""
+    (integer or bool template argument from the mangled name), registers and
+    spill bytes."""
     out, name, spill = [], "?", ""
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
@@ -158,7 +182,7 @@ def ptxas_lines(log: str) -> list:
             mangled = m.group(1)
             base = re.search(r"([a-z]+(?:_[a-z]+)*_kernel)", mangled)
             name = base.group(1) if base else mangled
-            arg = re.search(r"ILi(\d+)E", mangled)
+            arg = re.search(r"IL[ib](\d+)E", mangled)
             name += f"<{arg.group(1)}>" if arg else ""
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
         if m:
@@ -334,18 +358,29 @@ def lm_step_ops(S: int, M: int, unc_ops: int) -> int:
     return 5 * S + 26 + 80 + 70 * M + unc_ops + 10 + RICCATI_STEP_OPS + ROLLOUT_STEP_OPS
 
 
-def k4_bound(cp, prior_t: torch.Tensor, fields) -> dict:
-    """Bound of one propagation: prior and the four fields in, the maps out;
-    per cell 15 operations of set-up and 11 (the ellipse test 6, the weight
-    and its accumulation 5) per offset inside its own 95% ellipse, whose
-    cell count pi chi^2 sx sy sqrt(1 - rho^2) / res^2 comes from this run's
-    fields.  The offsets that a band's window visits outside the ellipse
-    are the implementation's scan, not work the function needs."""
+# A cell's covariance fields from the scenario table, as the function needs
+# them (cell_fields without the plain version's `0.0 * Cx` broadcast terms).
+# Default rho formula: Cx 2, Cy 2, g1 = -Cy 1, t = g1 g2 1, sx 4 and sy 4 (a
+# square, two more operations and the root), rho 4 (one division), psd and
+# its select 3.  Faithful formula: g1 and g2 3 each and -s 1, t 7.
+FIELD_OPS = {False: 21, True: 33}
+
+
+def k4_bound(cp, prior_t: torch.Tensor, fields, fused: bool = False, faithful: bool = False) -> dict:
+    """Bound of one propagation: the prior and the four fields in (fused:
+    the prior and 12 floats per scenario; the fields are computed,
+    FIELD_OPS[faithful] per cell), the maps out; per cell 15 operations of
+    set-up and 11 (the ellipse test 6, the weight and its accumulation 5) per
+    offset inside its own 95% ellipse, whose cell count pi chi^2 sx sy
+    sqrt(1 - rho^2) / res^2 comes from this run's fields.  The offsets that a
+    cell's scan visits outside the ellipse are the implementation's, not work
+    the function needs."""
     sx_f, sy_f, rho_f, _ = fields
     inside = float((math.pi * cp.chisquare_val ** 2 / cp.resolution ** 2 * sx_f.double()
                     * sy_f.double() * torch.sqrt(1.0 - rho_f.double() ** 2)).sum())
-    ops = 15 * sx_f.numel() + 11 * inside
-    return bound(nbytes(prior_t, *fields) + sx_f.numel() * 4, ops)
+    ops = (15 + (FIELD_OPS[faithful] if fused else 0)) * sx_f.numel() + 11 * inside
+    given = sx_f.shape[0] * 12 * 4 if fused else nbytes(*fields)
+    return bound(nbytes(prior_t) + given + sx_f.numel() * 4, ops)
 
 
 def pick(r) -> tuple:
@@ -355,19 +390,22 @@ def pick(r) -> tuple:
 
 @contextlib.contextmanager
 def plain_versions():
-    """Inside: the wrappers of K3, K4 and K5 run their plain versions on
-    the card (the launch functions are swapped; their arguments are the
-    plain versions').  Only the comparisons use it."""
+    """Inside: the wrappers of K3, K4 (fields given and fused) and K5 run
+    their plain versions on the card (the launch functions are swapped;
+    their arguments are the plain versions').  Only the comparisons use it."""
     from cilqr_tpu_torch.ops import lm_cuda, sample_cuda, uncertainty_cuda
 
-    saved = (lm_cuda._launch_iteration, uncertainty_cuda._launch, sample_cuda._launch)
+    saved = (lm_cuda._launch_iteration, uncertainty_cuda._launch, uncertainty_cuda._launch_fused,
+             sample_cuda._launch)
     lm_cuda._launch_iteration = lm_cuda.fused_iteration_plain
     uncertainty_cuda._launch = uncertainty_cuda.propagate_banded_plain
+    uncertainty_cuda._launch_fused = uncertainty_cuda.propagate_fused_plain
     sample_cuda._launch = sample_cuda.sample_prior_batched_plain
     try:
         yield
     finally:
-        lm_cuda._launch_iteration, uncertainty_cuda._launch, sample_cuda._launch = saved
+        (lm_cuda._launch_iteration, uncertainty_cuda._launch, uncertainty_cuda._launch_fused,
+         sample_cuda._launch) = saved
 
 
 def require(cond: bool, what: str) -> None:
@@ -406,6 +444,10 @@ def main() -> None:
         for G in lm_cuda.GROUP_SIZES:
             require(any(ln.startswith(f"{kernel}<{G}>:") and "0/0 spill" in ln for ln in ptxas),
                     f"{kernel}<{G}> spills or is missing from the ptxas report: {ptxas}")
+    for kernel in ("riccati_kernel", "propagate_kernel", "fields_kernel"):
+        found = [ln for ln in ptxas if ln.startswith(kernel)]
+        require(found and all("0/0 spill" in ln for ln in found),
+                f"{kernel} spills or is missing from the ptxas report: {ptxas}")
     print(f"[2 build] {build_s:.2f} s -> {build.BUILD_DIR / build.LIB_NAME}; "
           f"ptxas: {' | '.join(ptxas)}", flush=True)
 
@@ -478,10 +520,21 @@ def main() -> None:
     X_m = dynamics.rollout(p, egos_m, U0_m)
     d_m, _ = costs.all_cost_derivs_and_J(p, plans_m, X_m, U0_m, obstacles, unc)
     lamb_m = torch.ones(MAIN_B, dtype=torch.float32, device=dev)
-    k2_ms = cuda_ms(lambda: riccati_cuda.backward_forward_batched(p, d_m, X_m, U0_m, lamb_m), 5)
+    require(all(t.is_contiguous() for t in (*d_m, X_m, U0_m, lamb_m)),
+            "the derivatives reach K2 non-contiguous: its wrapper would copy them")
+    k2_call = lambda: riccati_cuda.backward_forward_batched(p, d_m, X_m, U0_m, lamb_m)
+    k2b_call = lambda: riccati_cuda.backward_batched(p, d_m, X_m, U0_m, lamb_m)
+    k2_ms = cuda_ms(k2_call, 5)
     k2_plain_ms = cuda_ms(lambda: riccati_cuda.backward_forward_plain(p, d_m, X_m, U0_m, lamb_m), 3)
-    k2b_ms = cuda_ms(lambda: riccati_cuda.backward_batched(p, d_m, X_m, U0_m, lamb_m), 5)
+    k2b_ms = cuda_ms(k2b_call, 5)
     k2b_plain_ms = cuda_ms(lambda: riccati_cuda.backward_plain(p, d_m, X_m, U0_m, lamb_m), 3)
+    # one call is one kernel of the port and nothing else on the device: no
+    # layout copy, no PyTorch kernel (the profiler's device events per call)
+    k2_kernel_ms, k2_other_ms, k2_events = kernel_profile(k2_call, 5, "riccati_kernel")
+    k2b_kernel_ms, k2b_other_ms, k2b_events = kernel_profile(k2b_call, 5, "riccati_kernel")
+    require(k2_events == 1 and k2b_events == 1 and max(k2_other_ms, k2b_other_ms) < 1e-6,
+            f"a K2 call launched {k2_events} / {k2b_events} device kernels or copies, expected "
+            "its one kernel")
     # bound: the derivatives the recursion reads (l_ux is identically zero
     # and is not read), X, U and lambda in; X_new and U_new out (backward
     # only: k and K out); one Riccati step and one rollout step per (b, j)
@@ -492,13 +545,16 @@ def main() -> None:
     kernels["riccati"] = dict(
         name="riccati_backward_forward", route="cuda", source="cilqr_tpu_torch/csrc/riccati.cu",
         replaces="cilqr_tpu/ops/riccati_pallas.py:84", max_abs_err=k2_err,
-        ms=k2_ms, plain_ms=k2_plain_ms, **k2_bound,
+        ms=k2_ms, kernel_only_ms=k2_kernel_ms, plain_ms=k2_plain_ms, **k2_bound,
         backward_only=dict(replaces="cilqr_tpu/ops/riccati_pallas.py:296", ms=k2b_ms,
-                           plain_ms=k2b_plain_ms, **k2b_bound))
+                           kernel_only_ms=k2b_kernel_ms, plain_ms=k2b_plain_ms, **k2b_bound))
     print(f"[3 K2 riccati] B={K2_CHECK_B} max|kernel-plain| {k2_err:.3e} (k/K bar 1e-4 rel + "
-          f"1e-5 abs) | {' | '.join(roll)} | B={MAIN_B}: kernel {k2_ms:.3f} ms, "
+          f"1e-5 abs) | {' | '.join(roll)} | B={MAIN_B} at "
+          f"{riccati_cuda.SCENARIOS_PER_WARP} scenarios per warp: wrapper {k2_ms:.3f} ms, kernel alone "
+          f"{k2_kernel_ms:.3f} ms (profiler; {k2_events:.0f} device kernel per call, no copy), "
           f"plain {k2_plain_ms:.3f} ms, bound {k2_bound['bound_ms']:.3f} ms by "
-          f"{k2_bound['bound_by']} | backward only: kernel {k2b_ms:.3f} ms, plain "
+          f"{k2_bound['bound_by']} | backward only: wrapper {k2b_ms:.3f} ms, kernel alone "
+          f"{k2b_kernel_ms:.3f} ms, plain "
           f"{k2b_plain_ms:.3f} ms, bound {k2b_bound['bound_ms']:.3f} ms by "
           f"{k2b_bound['bound_by']}", flush=True)
     del d_m, X_m
@@ -694,67 +750,128 @@ def main() -> None:
                 f"K4 {label}: a kept-prior cell moved")
         return err, int(kept.sum())
 
-    def k4_check(label, prior32, prior_64, geom_64, yaw_64, sigmas, faithful, bnds, dsc):
+    def k4_check(label, prior32, prior_64, geom_64, yaw_64, sigmas, faithful, bnds, dsc, fused_entry):
         f32 = uncertainty_cuda.prep_fields(cp, geom, origin_yaw, sigmas, faithful, rows, cols)
         f64 = uncertainty_cuda.prep_fields(cp, geom_64, yaw_64, None if sigmas is None else
                                            sigmas.double(), faithful, rows, cols, torch.float64)
         before = uncertainty_cuda.LAUNCHES
         got = uncertainty_cuda.propagate_banded(cp, prior32, f32, bnds, dsc)
+        fused = fused_entry(prior32)  # the fields computed in the kernel
         torch.cuda.synchronize()
-        require(uncertainty_cuda.LAUNCHES == before + 1, "K4 launch counter did not move")
+        require(uncertainty_cuda.LAUNCHES == before + 2, "K4 launch counter did not move")
         want = uncertainty_cuda.propagate_banded_plain(cp, prior32, f32, bnds, dsc)
         want64 = uncertainty_cuda.propagate_banded_plain(cp, prior_64, f64, bnds, dsc)
         err, n_kept = k4_compare(label, got, want, prior32, f32[3])
-        k_dev = float((got.double() - want64).abs().max())
-        p_dev = float((want.double() - want64).abs().max())
-        require(k_dev <= 2.0 * p_dev + 1e-4,
-                f"K4 {label}: kernel {k_dev:.3e} from float64, float32 plain {p_dev:.3e}")
-        return got, err, (f"{label}: max|kernel-plain| {err:.3e}, kept-prior cells "
-                          f"{n_kept}, kernel-f64 {k_dev:.3e} plain32-f64 {p_dev:.3e}")
+        err_f, _ = k4_compare(label + ", fused", fused.reshape(got.shape), want, prior32, f32[3])
+        for name, out in (("fields given", got), ("fused", fused.reshape(got.shape))):
+            k_dev = float((out.double() - want64).abs().max())
+            p_dev = float((want.double() - want64).abs().max())
+            require(k_dev <= 2.0 * p_dev + 1e-4, f"K4 {label}, {name}: kernel {k_dev:.3e} from "
+                    f"float64, float32 plain {p_dev:.3e}")
+        same = bool(torch.equal(fused.reshape(got.shape), got))
+        require(same, f"K4 {label}: the fused form differs from the fields-given form")
+        return got, max(err, err_f), (
+            f"{label}: max|kernel-plain| fields given {err:.3e}, fused {err_f:.3e} (fused equals "
+            f"fields given bit for bit: {same}), kept-prior cells {n_kept}, kernel-f64 "
+            f"{k_dev:.3e} plain32-f64 {p_dev:.3e}")
+
+    def fields_check(B_f, geom_f, yaw_f, sigmas, faithful):
+        """The kernel's own fields (cell_fields) against prep_fields: every
+        cell of all four equal; returns the count of non-PSD cells."""
+        before = uncertainty_cuda.FIELD_LAUNCHES
+        got_f = uncertainty_cuda.fields_on_card(cp, geom_f, yaw_f, sigmas, faithful, rows, cols)
+        torch.cuda.synchronize()
+        require(uncertainty_cuda.FIELD_LAUNCHES == before + 1, "fields launch counter did not move")
+        want_f = uncertainty_cuda.prep_fields(cp, geom_f, yaw_f, sigmas, faithful, rows, cols)
+        for name, g, w in zip(("sx", "sy", "rho", "psd"), got_f, want_f):
+            require(g.shape == w.shape and torch.equal(g, w),
+                    f"K4 fields B={B_f} faithful={faithful}: {name} differs from prep_fields on "
+                    f"{int((g != w).sum())} cells")
+        return int((want_f[3] == 0).sum())
+
+    # the fields the fused form computes per cell, bit for bit those of
+    # prep_fields: B=256 and B=8192, both rho formulas, per-scenario sigmas,
+    # yaws (all quadrants) and frames
+    field_lines = []
+    for B_f in (K4_CHECK_B, MC_B):
+        rng_f = np.random.default_rng(20 + B_f)
+        yaw_f = torch.tensor(rng_f.uniform(-math.pi, math.pi, B_f), dtype=torch.float32, device=dev)
+        geom_f = costmap_mod.vehicle_geom(cp, torch.tensor(
+            np.stack([rng_f.uniform(5.0, 20.0, B_f), rng_f.uniform(-3.0, 3.0, B_f)], axis=1),
+            dtype=torch.float32, device=dev))
+        for faithful in (False, True):
+            kept_f = fields_check(B_f, geom_f, yaw_f, samples.sigmas[:B_f], faithful)
+            fields_check(B_f, geom, origin_yaw, samples.sigmas[:B_f] if not faithful else None,
+                         faithful)
+            field_lines.append(f"B={B_f} faithful={faithful}: equal ({kept_f} non-PSD cells)")
+    print(f"[8 K4 fields] cell_fields vs prep_fields, sx, sy, rho, psd on every cell: "
+          + " | ".join(field_lines), flush=True)
 
     sig4 = samples.sigmas[:K4_CHECK_B]
+    banded = lambda sig: lambda prior_t: uncertainty_cuda.propagate_uncertainty_banded(
+        cp, prior_t, geom, origin_yaw, sig, band_plan)
     _, k4_err, line_mc = k4_check("MC form", prior, prior64, geom64, origin_yaw64, sig4, False,
-                                  bands, discs)
+                                  bands, discs, banded(sig4))
     priors = torch.tensor(np.random.default_rng(5).uniform(0.0, 100.0, (K4_CHECK_B, rows, cols)),
                           dtype=torch.float32, device=dev)
     _, err_b, line_b = k4_check("per-scenario priors", priors, priors.double(), geom64,
-                                origin_yaw64, sig4, False, bands, discs)
+                                origin_yaw64, sig4, False, bands, discs, banded(sig4))
     full = uncertainty_cuda.full_window_plan(cp, rows).bands
-    got1, err_1, line_1 = k4_check("single map", prior, prior64, geom64, origin_yaw64, None, True,
-                                   full, None)
-    single = uncertainty_cuda.propagate_uncertainty(cp, prior, geom, origin_yaw, faithful_rho=True)
-    require(torch.equal(single, got1[0]), "K4 single-map entry differs from the kernel on its fields")
-    # at the MC path's shape, B=8192: the last timed outputs of both, compared
-    fields_m = uncertainty_cuda.prep_fields(cp, geom, origin_yaw, samples.sigmas, False, rows, cols)
-    k4_ms, got_m = timed(
+    got1, err_1, line_1 = k4_check(
+        "single map", prior, prior64, geom64, origin_yaw64, None, True, full, None,
+        lambda prior_t: uncertainty_cuda.propagate_uncertainty(cp, prior_t, geom, origin_yaw,
+                                                               faithful_rho=True))
+    # at the MC path's shape, B=8192: the last timed outputs of the fused
+    # form (what the path launches), of the fields-given form and of the
+    # plain version, compared
+    fused_call = lambda: uncertainty_cuda.propagate_uncertainty_banded(
+        cp, prior, geom, origin_yaw, samples.sigmas, band_plan)
+    k4_ms, got_m = timed(fused_call, 3)
+    k4_kernel_ms, k4_other_ms, k4_events = kernel_profile(fused_call, 3, "propagate_kernel")
+    fields_ms, fields_m = timed(lambda: uncertainty_cuda.prep_fields(
+        cp, geom, origin_yaw, samples.sigmas, False, rows, cols), 2)
+    k4_given_ms, given_m = timed(
         lambda: uncertainty_cuda.propagate_banded(cp, prior, fields_m, bands, discs), 3)
     k4_plain_ms, want_m = timed(
         lambda: uncertainty_cuda.propagate_banded_plain(cp, prior, fields_m, bands, discs), 1)
     err_m, kept_m = k4_compare(f"B={MC_B}", got_m, want_m, prior, fields_m[3])
+    require(torch.equal(got_m, given_m), f"K4 B={MC_B}: the fused form differs from the "
+            "fields-given form")
     k4_err = max(k4_err, err_b, err_1, err_m)
 
-    mc_k4_bound = k4_bound(cp, prior, fields_m)
+    mc_k4_bound = k4_bound(cp, prior, fields_m, fused=True)
+    mc_given_bound = k4_bound(cp, prior, fields_m)
     # the single-map entry (one 152x104 map, full window, faithful rho)
     fields_1 = uncertainty_cuda.prep_fields(cp, geom, origin_yaw, None, True, rows, cols)
-    k4a_ms = cuda_ms(lambda: uncertainty_cuda.propagate_banded(cp, prior, fields_1, full), 5)
+    single_call = lambda: uncertainty_cuda.propagate_uncertainty(cp, prior, geom, origin_yaw,
+                                                                 faithful_rho=True)
+    k4a_ms = cuda_ms(single_call, 5)
+    k4a_kernel_ms, _, _ = kernel_profile(single_call, 5, "propagate_kernel")
     k4a_plain_ms = cuda_ms(
         lambda: uncertainty_cuda.propagate_banded_plain(cp, prior, fields_1, full), 1)
-    k4a_bound = k4_bound(cp, prior, fields_1)
+    k4a_bound = k4_bound(cp, prior, fields_1, fused=True, faithful=True)
     kernels["uncertainty"] = dict(
         name="propagate", route="cuda", source="cilqr_tpu_torch/csrc/uncertainty.cu",
         replaces="cilqr_tpu/ops/uncertainty_pallas.py:300",
         also_replaces=["cilqr_tpu/ops/uncertainty_pallas.py:199",
                        "cilqr_tpu/ops/uncertainty_pallas.py:283"],
-        max_abs_err=k4_err, ms=k4_ms, plain_ms=k4_plain_ms, **mc_k4_bound,
+        max_abs_err=k4_err, ms=k4_ms, kernel_only_ms=k4_kernel_ms, plain_ms=k4_plain_ms,
+        **mc_k4_bound,
+        fields_given=dict(ms=k4_given_ms, prep_fields_ms=fields_ms, **mc_given_bound),
         single_map=dict(replaces="cilqr_tpu/ops/uncertainty_pallas.py:199", ms=k4a_ms,
-                        plain_ms=k4a_plain_ms, **k4a_bound))
+                        kernel_only_ms=k4a_kernel_ms, plain_ms=k4a_plain_ms, **k4a_bound))
     print(f"[8 K4 uncertainty] B={K4_CHECK_B} {line_mc} | {line_b} | {line_1} | {len(bands)} bands, "
           f"radii {[R for (_, _, R) in bands]} | B={MC_B}: max|kernel-plain| {err_m:.3e}, kept-prior "
-          f"cells {kept_m}, kernel {k4_ms:.3f} ms, plain {k4_plain_ms:.3f} ms, bound "
-          f"{mc_k4_bound['bound_ms']:.3f} ms by {mc_k4_bound['bound_by']} | one map, full "
-          f"window: kernel {k4a_ms:.3f} ms, plain {k4a_plain_ms:.3f} ms, bound "
+          f"cells {kept_m}, fused equals fields given bit for bit | fused (the path's form): wrapper "
+          f"{k4_ms:.3f} ms, kernel alone {k4_kernel_ms:.3f} ms, {k4_events - 1:.0f} other device "
+          f"kernels {k4_other_ms:.3f} ms (the scenario table), bound "
+          f"{mc_k4_bound['bound_ms']:.3f} ms by {mc_k4_bound['bound_by']} | fields given: kernel "
+          f"{k4_given_ms:.3f} ms after prep_fields {fields_ms:.3f} ms, bound "
+          f"{mc_given_bound['bound_ms']:.3f} ms by {mc_given_bound['bound_by']} | plain "
+          f"{k4_plain_ms:.3f} ms | one map, full window (fused): wrapper {k4a_ms:.3f} ms, kernel "
+          f"alone {k4a_kernel_ms:.3f} ms, plain {k4a_plain_ms:.3f} ms, bound "
           f"{k4a_bound['bound_ms']:.5f} ms by {k4a_bound['bound_by']}", flush=True)
-    del fields_m, priors, got_m, want_m
+    del fields_m, priors, got_m, want_m, given_m
 
     # 9. K3 against its plain version: one iteration with external planes
     # (k, K and each rollout step at K2's bars, J within 2e-5 relative),
@@ -1071,21 +1188,52 @@ def main() -> None:
     require(k_dev <= 2.0 * p_dev + 1e-4, f"costmap build: lane 0 mean |kernel - float64| "
             f"{k_dev:.3e}, float32 plain {p_dev:.3e}")
     build_ms = cuda_ms(lambda: fs_build(x0s), 2)
-    k4_fs_ms = cuda_ms(lambda: uncertainty_cuda.propagate_uncertainty_banded(
-        cpf, cm.vehicle_map, cm.geom, cm.origin_yaw, None, fs_band), 2)
-    fields_fs = uncertainty_cuda.prep_fields(cpf, cm.geom, cm.origin_yaw, None, False, fs_rows,
-                                             fs_cols)
-    fs_k4_bound = k4_bound(cpf, cm.vehicle_map, fields_fs)
+    fs_k4_call = lambda: uncertainty_cuda.propagate_uncertainty_banded(
+        cpf, cm.vehicle_map, cm.geom, cm.origin_yaw, None, fs_band)
+    k4_fs_ms = cuda_ms(fs_k4_call, 2)
+    # the fused form holds no (B, rows, cols) field tensor and runs no
+    # PyTorch kernel over cells: beyond its output the call allocates next to
+    # nothing, and its other device kernels (the scenario table, (B,)-sized)
+    # take next to no time
+    torch.cuda.synchronize()
+    base_mem = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    out_fs = fs_k4_call()
+    torch.cuda.synchronize()
+    k4_call_mem = torch.cuda.max_memory_allocated() - base_mem
+    require(k4_call_mem <= nbytes(out_fs) + 16e6,
+            f"propagate_uncertainty_banded allocated {k4_call_mem / 1e6:.1f} MB for an output of "
+            f"{nbytes(out_fs) / 1e6:.1f} MB: a field tensor?")
+    del out_fs
+    k4_fs_kernel_ms, k4_fs_other_ms, k4_fs_events = kernel_profile(fs_k4_call, 2, "propagate_kernel")
+    require(k4_fs_other_ms <= 0.05 * k4_fs_kernel_ms + 0.2,
+            f"the fused call's other kernels take {k4_fs_other_ms:.3f} ms: an elementwise pass "
+            "over cells?")
+    fields_fs_ms, fields_fs = timed(lambda: uncertainty_cuda.prep_fields(
+        cpf, cm.geom, cm.origin_yaw, None, False, fs_rows, fs_cols), 2)
+    k4_fs_given_ms, given_fs = timed(lambda: uncertainty_cuda.propagate_banded(
+        cpf, cm.vehicle_map, fields_fs, fs_band.bands, fs_band.disc_radii), 2)
+    require(torch.equal(given_fs, cm.uncertainty_map), "full-stack K4: the fused form differs "
+            "from the fields-given form")
+    del given_fs
+    fs_k4_bound = k4_bound(cpf, cm.vehicle_map, fields_fs, fused=True)
+    fs_given_bound = k4_bound(cpf, cm.vehicle_map, fields_fs)
     kernels["uncertainty"]["full_stack"] = dict(
-        ms_with_fields=k4_fs_ms, max_abs_err=err12, **fs_k4_bound)
+        ms_with_fields=k4_fs_ms, kernel_only_ms=k4_fs_kernel_ms, max_abs_err=err12, **fs_k4_bound,
+        fields_given=dict(ms=k4_fs_given_ms, prep_fields_ms=fields_fs_ms, **fs_given_bound))
     print(f"[12 costmap build] B={FS_B}: launches {build_launches} | vehicle map equal to the plain "
           f"build on every cell | uncertainty map max|kernel-plain| {err12:.3e} (bar 2e-5 rel + "
           f"2e-4 abs) | lane 0 vs float64 build_local_costmap: {100 * same_cells:.2f}% of vehicle-"
           f"map cells equal, mean |uncertainty - float64| kernel {k_dev:.3e} plain {p_dev:.3e} | "
           f"{bbox_cells} obstacle cells in lane 0 | {len(fs_band.bands)} bands, radii "
           f"{[R for (_, _, R) in fs_band.bands]} | build {build_ms:.3f} ms, of which fields + K4 "
-          f"{k4_fs_ms:.3f} ms (K4 bound {fs_k4_bound['bound_ms']:.3f} ms by "
-          f"{fs_k4_bound['bound_by']}), peak memory {build_peak:.2f} GB", flush=True)
+          f"{k4_fs_ms:.3f} ms (fused: the kernel alone {k4_fs_kernel_ms:.3f} ms, "
+          f"{k4_fs_events - 1:.0f} other device kernels {k4_fs_other_ms:.3f} ms, "
+          f"{k4_call_mem / 1e6:.1f} MB allocated by the call; bound "
+          f"{fs_k4_bound['bound_ms']:.3f} ms by {fs_k4_bound['bound_by']}) | fields given: kernel "
+          f"{k4_fs_given_ms:.3f} ms after prep_fields {fields_fs_ms:.3f} ms, bound "
+          f"{fs_given_bound['bound_ms']:.3f} ms by {fs_given_bound['bound_by']} | peak memory of "
+          f"the build {build_peak:.2f} GB", flush=True)
     del cm, cm_plain, cm64, fields_fs, same
 
     # 13. the full-stack path: closed_loop_full_stack_batched at B=8192,

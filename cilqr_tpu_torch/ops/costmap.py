@@ -221,6 +221,54 @@ def sample_prior(geom: gridmap.GridGeom, rows: int, cols: int, global_map: torch
     return global_map[i, j]
 
 
+def sigma_rho_terms(cp: CostmapParams, ego_yaw, faithful: bool = False, sigmas=None):
+    """The part of ``cell_sigma_rho`` that does not depend on the cell:
+    (s, c, sc, ssmcc, a, b, dxy, st2) with s, c = sin, cos of the yaw,
+    sc = s c and ssmcc = s s - c c (the faithful lever's cross term; None
+    in the default mode), a = sigma_x^2 + dxx, b = sigma_y^2 + dyy, dxy,
+    st2 = sigma_theta^2.  Each is a tensor of the yaw's / sigmas' shape or,
+    where only configured sigmas enter, a Python float, which PyTorch
+    rounds to the tensor dtype where it meets a tensor."""
+    s, c = torch.sin(ego_yaw), torch.cos(ego_yaw)
+    if sigmas is None:
+        s_x, s_y, s_t = cp.sigma_x, cp.sigma_y, cp.sigma_theta
+    else:
+        s_x, s_y, s_t = sigmas
+    if faithful:
+        sc, ssmcc = s * c, s * s - c * c
+        dxx = dyy = dxy = 0.0  # reference form: unrotated diag
+    else:
+        sc = ssmcc = None
+        d = s_x**2 - s_y**2
+        dxx = -d * s * s
+        dyy = d * s * s
+        dxy = -d * s * c
+    return s, c, sc, ssmcc, s_x**2 + dxx, s_y**2 + dyy, dxy, s_t**2
+
+
+def sigma_rho_cells(Cx: torch.Tensor, Cy: torch.Tensor, terms, faithful: bool = False):
+    """The per-cell arithmetic of ``cell_sigma_rho`` on cell coordinates Cx
+    (..., rows, 1), Cy (..., 1, cols) and the ``sigma_rho_terms`` (tensors
+    among them broadcast against (..., rows, cols)).  The propagation kernel
+    repeats these operations in this order (``cell_fields`` in
+    csrc/uncertainty.cu)."""
+    s, c, sc, ssmcc, a, b, dxy, st2 = terms
+    if faithful:
+        g1 = -s * Cx - c * Cy
+        g2 = c * Cx - s * Cy
+        t = sc * (Cx * Cx - Cy * Cy) + Cx * Cy * ssmcc
+    else:
+        g1 = -Cy + 0.0 * Cx  # broadcast to (..., rows, cols)
+        g2 = Cx + 0.0 * Cy
+        t = g1 * g2
+    u = g1 * g1
+    v = g2 * g2
+    sx = torch.sqrt(a + st2 * u)
+    sy = torch.sqrt(b + st2 * v)
+    rho = (dxy + st2 * t) / (sx * sy)
+    return sx, sy, rho
+
+
 def cell_sigma_rho(cp: CostmapParams, xs: torch.Tensor, ys: torch.Tensor, ego_yaw,
                    faithful: bool = False, sigmas=None):
     """Per-cell propagated covariance terms (sigma_x_i, sigma_y_i, rho),
@@ -239,38 +287,13 @@ def cell_sigma_rho(cp: CostmapParams, xs: torch.Tensor, ys: torch.Tensor, ego_ya
     ``faithful=True`` reproduces the reference formula: the global-frame
     lever and its cross-term sign defect, which makes |rho| exceed 1 at some
     yaws; callers keep the prior on such cells.  See the JAX docstring for
-    the derivation.
+    the derivation.  Split into the per-scenario ``sigma_rho_terms`` and the
+    per-cell ``sigma_rho_cells``.
     """
     Cx = xs[..., :, None]
     Cy = ys[..., None, :]
     yaw = torch.as_tensor(ego_yaw, dtype=Cx.dtype, device=Cx.device)
-    if faithful:
-        s, c = torch.sin(yaw), torch.cos(yaw)
-        g1 = -s * Cx - c * Cy
-        g2 = c * Cx - s * Cy
-        t = s * c * (Cx * Cx - Cy * Cy) + Cx * Cy * (s * s - c * c)
-    else:
-        g1 = -Cy + 0.0 * Cx  # broadcast to (..., rows, cols)
-        g2 = Cx + 0.0 * Cy
-        t = g1 * g2
-    u = g1 * g1
-    v = g2 * g2
-    if sigmas is None:
-        s_x, s_y, s_t = cp.sigma_x, cp.sigma_y, cp.sigma_theta
-    else:
-        s_x, s_y, s_t = sigmas
-    if faithful:
-        dxx = dyy = dxy = 0.0  # reference form: unrotated diag
-    else:
-        sin_y, cos_y = torch.sin(yaw), torch.cos(yaw)
-        d = s_x**2 - s_y**2
-        dxx = -d * sin_y * sin_y
-        dyy = d * sin_y * sin_y
-        dxy = -d * sin_y * cos_y
-    sx = torch.sqrt(s_x**2 + dxx + s_t**2 * u)
-    sy = torch.sqrt(s_y**2 + dyy + s_t**2 * v)
-    rho = (dxy + s_t**2 * t) / (sx * sy)
-    return sx, sy, rho
+    return sigma_rho_cells(Cx, Cy, sigma_rho_terms(cp, yaw, faithful, sigmas), faithful)
 
 
 def required_window_radius(cp: CostmapParams, rows: int, cols: int, center=(None, None),

@@ -9,10 +9,16 @@ points, with the row bands' radii and disc cuts passed as data:
   propagate_uncertainty_batched    B maps over one full-window band
   propagate_uncertainty_banded     B maps over a ``BandPlan``'s row bands
 
-The per-cell covariance fields are plain PyTorch (``prep_fields``), as they
-are XLA in the JAX package.  ``propagate_banded`` launches the kernel for
-CUDA tensors (float32) and takes the plain version
-(``propagate_banded_plain``, any float dtype) for CPU tensors.
+For CUDA tensors (float32) the three entry points launch the kernel in its
+fused form: the per-cell covariance fields are computed in the kernel from
+a table of 12 floats per scenario (``scenario_table``), so no
+(B, rows, cols) field tensor exists.  For CPU tensors they take the plain
+version (``propagate_fused_plain``: ``prep_fields``, plain PyTorch as the
+fields are XLA in the JAX package, then ``propagate_banded_plain``, any
+float dtype).  ``propagate_banded`` is the same kernel reading given
+fields.  A cell scans the box of its own 95% ellipse and, per column,
+the interval of rows that can lie inside it (``scanned_offsets``), within
+its band's window.
 
 The band planner (``BandPlan``, ``make_band_plan``,
 ``make_band_plan_bounds``) is the JAX package's numpy logic.  Not ported:
@@ -24,6 +30,7 @@ count is therefore always 8-row bands, where the JAX planner falls back to
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple
 
@@ -35,7 +42,14 @@ from cilqr_tpu_torch.utils.params import CostmapParams
 from cilqr_tpu_torch.ops import costmap as costmap_mod
 from cilqr_tpu_torch.ops import gridmap, riccati_cuda
 
-LAUNCHES = 0  # kernel launches made by this module's wrappers
+LAUNCHES = 0  # propagation-kernel launches made by this module's wrappers
+FIELD_LAUNCHES = 0  # launches of the fields-only kernel (``fields_on_card``)
+TABLE_FLOATS = 12  # per-scenario floats of ``scenario_table`` (csrc/uncertainty.cu)
+TILE_ROWS = 8  # rows of the prior tile a block stages (kTileRows)
+MAX_SHARED_BYTES = 232448  # shared memory one block can use on an H100
+RANGE_MIN_DET = 1.0 / 65536.0  # a cell's scan is cut to its ellipse where 1 - rho^2 >= this
+RANGE_SLACK = 1e-3  # float32 rounding allowance of the inside test in the scan's bounds
+CELL_MARGIN = 0.01  # cells added to a scan bound before it is floored
 
 
 class BandPlan(NamedTuple):
@@ -145,13 +159,16 @@ def prep_fields(cp: CostmapParams, geom: gridmap.GridGeom, ego_yaw, sigmas, fait
 
 
 def propagate_banded_plain(cp: CostmapParams, prior: torch.Tensor, fields, bands,
-                           disc_radii=None) -> torch.Tensor:
+                           disc_radii=None, scanned=None) -> torch.Tensor:
     """Plain version of the kernel: the Pallas accumulation in PyTorch, band
     by band, column offset outer and row offset inner, with reciprocals
     1/sx, 1/sy, the band radii and the disc cut.
 
     prior (rows, cols) shared or (B, rows, cols) per scenario; fields
-    (sx, sy, rho, psd) from ``prep_fields``.  Returns (B, rows, cols)."""
+    (sx, sy, rho, psd) from ``prep_fields``.  ``scanned`` (dio, djo) ->
+    bool (B, rows, cols) (``scanned_offsets``) drops the offsets that the
+    kernel does not visit; the result keeps its bits.  Returns
+    (B, rows, cols)."""
     sx, sy, rho, psd = fields
     B, rows, cols = sx.shape
     dtype, dev = sx.dtype, sx.device
@@ -184,6 +201,8 @@ def propagate_banded_plain(cp: CostmapParams, prior: torch.Tensor, fields, bands
                 dx = costmap_mod.offset_distance(dio, cp.resolution, dtype)
                 p_j = prior_pad[:, P + r0 + dio: P + r0 + dio + br, P + djo: P + djo + cols]
                 in_map = col_ok & (row_id + dio >= 0) & (row_id + dio < rows)
+                if scanned is not None:
+                    in_map = in_map & scanned(dio, djo)[:, sl]
                 zx = dx * inv_sx[:, sl]
                 q = (zx - t2) * zx + zy2
                 f = torch.exp(-q * inv_det2[:, sl])
@@ -195,28 +214,135 @@ def propagate_banded_plain(cp: CostmapParams, prior: torch.Tensor, fields, bands
     return out
 
 
-def _row_tables(bands, disc_radii, rows: int, device):
-    """Per-row band radius (int32) and squared disc radius (float64, +inf
-    where the band has no disc cut)."""
+def _scan_terms(cp: CostmapParams, fields):
+    """The float32 terms the kernel's scan bounds are made of, by its own
+    operations: (ranged, reach, rows_per_z, cols_per_z, 1 - rho^2)."""
+    sx, sy, rho, _ = (t.float() for t in fields)
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=sx.device)
+    one_m_rho2 = 1.0 - rho * rho
+    inv_det2 = torch.reciprocal(2.0 * one_m_rho2)
+    reach = torch.sqrt(f32(cp.chisquare_val**2) + f32(2.0 * np.float32(RANGE_SLACK)) * inv_det2)
+    inv_res = f32(1.0 / cp.resolution)
+    return one_m_rho2 >= RANGE_MIN_DET, reach, sx * inv_res, sy * inv_res, one_m_rho2
+
+
+def cell_half_extents(cp: CostmapParams, fields, cap: int):
+    """(hi, hj), int32 (B, rows, cols): the half extents in rows and columns
+    of the box that the kernel scans around each cell, by the kernel's
+    formula in float32: min(cap, floor(reach s / res + CELL_MARGIN)) with reach =
+    sqrt(chi^2 + RANGE_SLACK / (1 - rho^2)), s = sx for rows and sy for
+    columns, and ``cap`` (the band radius) where 1 - rho^2 <
+    ``RANGE_MIN_DET``.  No offset with q <= thresh lies outside it
+    (csrc/uncertainty.cu, design step a)."""
+    ranged, reach, rows_per_z, cols_per_z, _ = _scan_terms(cp, fields)
+    ext = lambda per_z: torch.where(
+        ranged, torch.clamp(torch.floor(reach * per_z + np.float32(CELL_MARGIN)),
+                            max=float(cap)),
+        torch.full_like(per_z, float(cap))).to(torch.int32)
+    return ext(rows_per_z), ext(cols_per_z)
+
+
+def scanned_offsets(cp: CostmapParams, fields, cap: torch.Tensor):
+    """The offsets the kernel visits, by its own float32 formulas: a
+    function (dio, djo) -> bool (B, rows, cols), true where the offset lies
+    in the cell's box (``cell_half_extents``, inside the band radius
+    ``cap`` (B, rows, cols) or broadcastable) and in the column's interval
+    of rows: those with (zx - rho zy)^2 <= (1 - rho^2)(chi^2 - zy^2) +
+    ``RANGE_SLACK``, each bound widened by ``CELL_MARGIN``.  Where 1 - rho^2 <
+    ``RANGE_MIN_DET`` it is the whole window of ``cap``.  No offset with
+    q <= thresh lies outside (csrc/uncertainty.cu, design step a).  The
+    kernel's square root of the interval's half width is good to ~3 ulps
+    where this one is exact: a millionth of the slack."""
+    _, sy, rho, _ = (t.float() for t in fields)
+    f32 = lambda v: torch.tensor(v, dtype=torch.float32, device=sy.device)
+    hi, hj = (torch.minimum(h, cap) for h in cell_half_extents(cp, fields, int(cap.max())))
+    ranged, _, rows_per_z, _, one_m_rho2 = _scan_terms(cp, fields)
+    inv_sy = torch.reciprocal(sy)
+    chi2 = f32(cp.chisquare_val**2)
+
+    def scanned(dio: int, djo: int) -> torch.Tensor:
+        zy = f32(abs(djo) * cp.resolution) * inv_sy * (-1.0 if djo > 0 else 1.0)
+        h2 = one_m_rho2 * (chi2 - zy * zy) + f32(RANGE_SLACK)
+        h = torch.sqrt(h2.clamp(min=0.0))
+        cz = rho * zy
+        lo = -torch.floor((cz + h) * rows_per_z + f32(CELL_MARGIN))
+        up = torch.floor((h - cz) * rows_per_z + f32(CELL_MARGIN))
+        in_range = (h2 >= 0.0) & (lo <= dio) & (dio <= up)
+        return (abs(dio) <= hi) & (abs(djo) <= hj) & (in_range | ~ranged)
+
+    return scanned
+
+
+def scenario_table(cp: CostmapParams, geom: gridmap.GridGeom, ego_yaw, sigmas,
+                   faithful_rho: bool) -> torch.Tensor:
+    """(B, TABLE_FLOATS) float32: what the kernel needs per scenario to form
+    a cell's covariance fields: [first_x, first_y, res, s, c, sc, ssmcc, a,
+    b, dxy, st2, 0] (``gridmap.first_position``, ``costmap.sigma_rho_terms``),
+    by the expressions of ``prep_fields`` on (B,)-sized tensors, so that
+    every term has the bits it has there.  geom, ego_yaw and sigmas as in
+    ``prep_fields``; the geometry must be float32."""
+    first = gridmap.first_position(geom)
+    kw = dict(dtype=first.dtype, device=first.device)
+    yaw = torch.as_tensor(ego_yaw, **kw).reshape(-1)
+    sig = None if sigmas is None else tuple(
+        s.reshape(-1) for s in torch.as_tensor(sigmas, **kw).unbind(-1))
+    terms = costmap_mod.sigma_rho_terms(cp, yaw, faithful_rho, sig)
+    columns = [first[..., 0], first[..., 1], geom.resolution,
+               *(0.0 if t is None else t for t in terms), 0.0]
+    columns = [torch.as_tensor(t, dtype=torch.float32, device=first.device).reshape(-1)
+               for t in columns]
+    B = max(t.numel() for t in columns)
+    return torch.stack([t.expand(B) for t in columns], dim=1).contiguous()
+
+
+def fields_from_table(table: torch.Tensor, rows: int, cols: int, faithful_rho: bool):
+    """Plain version of the kernel's ``cell_fields``: (sx, sy, rho, psd),
+    each (B, rows, cols) float32, from a ``scenario_table``."""
+    col = lambda k: table[:, k].reshape(-1, 1, 1)
+    ar = lambda n: torch.arange(n, dtype=table.dtype, device=table.device)
+    Cx = (col(0) - col(2) * ar(rows).reshape(1, rows, 1))
+    Cy = (col(1) - col(2) * ar(cols).reshape(1, 1, cols))
+    sx, sy, rho = costmap_mod.sigma_rho_cells(Cx, Cy, tuple(col(k) for k in range(3, 11)),
+                                              faithful_rho)
+    sx, sy, rho = torch.broadcast_tensors(sx, sy, rho)
+    psd = (rho.abs() < 1.0).to(table.dtype)
+    rho = torch.where(psd > 0, rho, torch.zeros_like(rho))
+    return sx.contiguous(), sy.contiguous(), rho.contiguous(), psd.contiguous()
+
+
+@functools.lru_cache(maxsize=16)
+def _row_table(bands: tuple, disc_radii: tuple | None, rows: int, res: float, device: str):
+    """(int32 (rows, r_max + 2) on ``device``, float32 (r_max + 1,), r_max):
+    per row its band's radius R, then for |dj| = 0..r_max the row half
+    extent m that the disc cut leaves in that column (min(R,
+    floor(sqrt(r_disc^2 - dj^2))); R without a disc cut; -1 where the column
+    lies outside the disc or the band's window); and |dj| * res, formed in
+    float64 and rounded once."""
     disc_radii = disc_radii or (None,) * len(bands)
-    row_R = np.zeros(rows, np.int32)
-    row_rd2 = np.zeros(rows, np.float64)
+    r_max = max(R for (_, _, R) in bands)
+    tab = np.full((rows, r_max + 2), -1, np.int32)
     for (r0, br, R), r_disc in zip(bands, disc_radii):
-        row_R[r0:r0 + br] = R
-        row_rd2[r0:r0 + br] = math.inf if r_disc is None else float(r_disc) * float(r_disc)
-    return torch.from_numpy(row_R).to(device), torch.from_numpy(row_rd2).to(device)
+        tab[r0:r0 + br, 0] = R
+        rd2 = None if r_disc is None else float(r_disc) * float(r_disc)
+        for dj in range(R + 1):
+            if rd2 is None:
+                tab[r0:r0 + br, 1 + dj] = R
+            elif dj * dj <= rd2:
+                tab[r0:r0 + br, 1 + dj] = min(R, int(math.floor(math.sqrt(rd2 - dj * dj))))
+    dy = (np.arange(r_max + 1) * float(res)).astype(np.float32)
+    return torch.from_numpy(tab).to(device), torch.from_numpy(dy).to(device), r_max
 
 
-def _launch(cp: CostmapParams, prior: torch.Tensor, fields, bands, disc_radii):
+def _run_kernel(cp: CostmapParams, prior: torch.Tensor, B: int, bands, disc_radii,
+                fields=None, table=None, faithful_rho: bool = False) -> torch.Tensor:
+    """One launch of the propagation kernel, on given fields or on a
+    ``scenario_table`` (the fused form)."""
     global LAUNCHES
     from cilqr_tpu_torch.utils import build
 
-    sx, sy, rho, psd = fields
-    B, rows, cols = sx.shape
+    rows, cols = prior.shape[-2:]
     if B < 1:
         raise ValueError("empty batch")
-    for name, t in (("sx", sx), ("sy", sy), ("rho", rho), ("psd", psd)):
-        riccati_cuda.check_cuda_f32(name, t, (B, rows, cols))
     if prior.ndim == 2:
         riccati_cuda.check_cuda_f32("prior", prior, (rows, cols))
         stride = 0
@@ -224,19 +350,68 @@ def _launch(cp: CostmapParams, prior: torch.Tensor, fields, bands, disc_radii):
         riccati_cuda.check_cuda_f32("prior", prior, (B, rows, cols))
         stride = rows * cols
     prior = prior.contiguous()
-    fields = [t.contiguous() for t in fields]
-    row_R, row_rd2 = _row_tables(bands, disc_radii, rows, sx.device)
-    out = torch.empty((B, rows, cols), dtype=torch.float32, device=sx.device)
+    if table is None:
+        for name, t in zip(("sx", "sy", "rho", "psd"), fields):
+            riccati_cuda.check_cuda_f32(name, t, (B, rows, cols))
+        fields = [t.contiguous() for t in fields]
+        field_ptrs = [t.data_ptr() for t in fields]
+    else:
+        riccati_cuda.check_cuda_f32("scenario table", table, (B, TABLE_FLOATS))
+        field_ptrs = [None] * 4
+    row_tab, dy_tab, r_max = _row_table(
+        tuple(bands), None if disc_radii is None else tuple(disc_radii), rows,
+        float(cp.resolution), str(prior.device))
+    if (TILE_ROWS + 2 * r_max) * cols * 4 > MAX_SHARED_BYTES:
+        raise ValueError(f"a tile of {TILE_ROWS} rows with a halo of {r_max} over {cols} columns "
+                         f"does not fit the kernel's {MAX_SHARED_BYTES} bytes of shared memory")
+    out = torch.empty((B, rows, cols), dtype=torch.float32, device=prior.device)
     lib = build.load_library()
-    stream = torch.cuda.current_stream(sx.device).cuda_stream
+    stream = torch.cuda.current_stream(prior.device).cuda_stream
     rc = lib.cilqr_propagate(
-        B, rows, cols, float(np.float32(cp.resolution)), float(cp.resolution),
-        float(np.float32(cp.chisquare_val**2)), prior.data_ptr(), stride,
-        *(t.data_ptr() for t in fields), row_R.data_ptr(), row_rd2.data_ptr(),
-        out.data_ptr(), stream)
+        B, rows, cols, r_max, int(table is not None), int(faithful_rho),
+        float(np.float32(cp.resolution)), float(np.float32(1.0 / cp.resolution)),
+        float(np.float32(cp.chisquare_val**2)),
+        prior.data_ptr(), stride, None if table is None else table.data_ptr(), *field_ptrs,
+        row_tab.data_ptr(), dy_tab.data_ptr(), out.data_ptr(), stream)
     build.check(lib, rc, "propagation kernel launch")
     LAUNCHES += 1
     return out
+
+
+def _launch(cp: CostmapParams, prior: torch.Tensor, fields, bands, disc_radii):
+    return _run_kernel(cp, prior, fields[0].shape[0], bands, disc_radii, fields=fields)
+
+
+def _launch_fused(cp: CostmapParams, prior: torch.Tensor, geom: gridmap.GridGeom, ego_yaw,
+                  sigmas, faithful_rho: bool, bands, disc_radii):
+    riccati_cuda.check_cuda_f32("geometry center", geom.center, tuple(geom.center.shape))
+    table = scenario_table(cp, geom, ego_yaw, sigmas, faithful_rho)
+    if prior.ndim == 3 and table.shape[0] == 1:
+        table = table.expand(prior.shape[0], TABLE_FLOATS).contiguous()
+    return _run_kernel(cp, prior, table.shape[0], bands, disc_radii, table=table,
+                       faithful_rho=faithful_rho)
+
+
+def fields_on_card(cp: CostmapParams, geom: gridmap.GridGeom, ego_yaw, sigmas,
+                   faithful_rho: bool, rows: int, cols: int):
+    """(sx, sy, rho, psd), each (B, rows, cols) float32, written by the
+    kernel's own ``cell_fields``: what the fused form computes per cell and
+    never stores.  Only for holding it to ``prep_fields`` bit for bit."""
+    global FIELD_LAUNCHES
+    from cilqr_tpu_torch.utils import build
+
+    riccati_cuda.check_cuda_f32("geometry center", geom.center, tuple(geom.center.shape))
+    table = scenario_table(cp, geom, ego_yaw, sigmas, faithful_rho)
+    B = table.shape[0]
+    out = [torch.empty((B, rows, cols), dtype=torch.float32, device=table.device)
+           for _ in range(4)]
+    lib = build.load_library()
+    rc = lib.cilqr_fields(B, rows, cols, int(faithful_rho), table.data_ptr(),
+                          *(t.data_ptr() for t in out),
+                          torch.cuda.current_stream(table.device).cuda_stream)
+    build.check(lib, rc, "fields kernel launch")
+    FIELD_LAUNCHES += 1
+    return tuple(out)
 
 
 def propagate_banded(cp: CostmapParams, prior: torch.Tensor, fields, bands,
@@ -248,16 +423,30 @@ def propagate_banded(cp: CostmapParams, prior: torch.Tensor, fields, bands,
     return _launch(cp, prior, fields, bands, disc_radii)
 
 
+def propagate_fused_plain(cp: CostmapParams, prior: torch.Tensor, geom: gridmap.GridGeom,
+                          ego_yaw, sigmas, faithful_rho: bool, bands, disc_radii):
+    """Plain version of the fused form: the PyTorch fields, then the plain
+    accumulation, in the prior's dtype on the CPU and float32 on the card."""
+    fields = prep_fields(cp, geom, ego_yaw, sigmas, faithful_rho, *prior.shape[-2:],
+                         _kernel_dtype(prior))
+    return propagate_banded_plain(cp, prior, fields, bands, disc_radii)
+
+
+def _propagate(cp: CostmapParams, prior: torch.Tensor, geom, ego_yaw, sigmas,
+               faithful_rho: bool, bands, disc_radii) -> torch.Tensor:
+    """The fused kernel for CUDA tensors, the plain version for CPU tensors."""
+    fn = propagate_fused_plain if prior.device.type == "cpu" else _launch_fused
+    return fn(cp, prior, geom, ego_yaw, sigmas, faithful_rho, bands, disc_radii)
+
+
 def propagate_uncertainty(cp: CostmapParams, prior: torch.Tensor, geom: gridmap.GridGeom,
                           ego_yaw, faithful_rho: bool = False, sigmas=None) -> torch.Tensor:
     """One map: the fast path of ``costmap.propagate_uncertainty_reference``
     (full window of ``cp.window_radius``).  ``sigmas`` (3,) overrides the
     configured (sigma_x, sigma_y, sigma_theta)."""
-    rows, cols = prior.shape
-    fields = prep_fields(cp, geom, ego_yaw, sigmas, faithful_rho, rows, cols,
-                         _kernel_dtype(prior))
-    plan = full_window_plan(cp, rows)
-    return propagate_banded(cp, prior, fields, plan.bands)[0].to(prior.dtype)
+    plan = full_window_plan(cp, prior.shape[0])
+    return _propagate(cp, prior, geom, ego_yaw, sigmas, faithful_rho, plan.bands,
+                      None)[0].to(prior.dtype)
 
 
 def propagate_uncertainty_batched(cp: CostmapParams, prior: torch.Tensor,
@@ -278,7 +467,7 @@ def propagate_uncertainty_banded(cp: CostmapParams, prior: torch.Tensor,
 
     prior (rows, cols) shared or (B, rows, cols) per scenario; geom, ego_yaw
     and sigmas as in ``prep_fields``, at least one of them batched."""
-    rows, cols = prior.shape[-2:]
+    rows = prior.shape[-2]
     bands = band_plan.bands if isinstance(band_plan, BandPlan) else tuple(band_plan)
     disc_radii = band_plan.disc_radii if isinstance(band_plan, BandPlan) else None
     check_band_plan(bands, rows)
@@ -286,9 +475,8 @@ def propagate_uncertainty_banded(cp: CostmapParams, prior: torch.Tensor,
                or sigmas is not None)
     if not batched:
         raise ValueError("no batched input among (geom, ego_yaw, sigmas)")
-    fields = prep_fields(cp, geom, ego_yaw, sigmas, faithful_rho, rows, cols,
-                         _kernel_dtype(prior))
-    return propagate_banded(cp, prior, fields, bands, disc_radii).to(prior.dtype)
+    return _propagate(cp, prior, geom, ego_yaw, sigmas, faithful_rho, bands,
+                      disc_radii).to(prior.dtype)
 
 
 def _kernel_dtype(prior: torch.Tensor) -> torch.dtype:

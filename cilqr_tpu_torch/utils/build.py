@@ -105,8 +105,11 @@ def load_library() -> ctypes.CDLL:
     lib.cilqr_lm_resources.argtypes = [i, i, i, p]
     lib.cilqr_lm_resources.restype = i
     f, d = ctypes.c_float, ctypes.c_double
-    lib.cilqr_propagate.argtypes = [i, i, i, f, d, f, p, ctypes.c_longlong] + [p] * 7 + [p]
+    lib.cilqr_propagate.argtypes = ([i] * 6 + [f, f, f, p, ctypes.c_longlong] + [p] * 8
+                                    + [p])
     lib.cilqr_propagate.restype = i
+    lib.cilqr_fields.argtypes = [i] * 4 + [p] * 5 + [p]
+    lib.cilqr_fields.restype = i
     lib.cilqr_sample_prior.argtypes = [i] * 5 + [p] * 4 + [p]
     lib.cilqr_sample_prior.restype = i
     lib.cilqr_opchain.argtypes = [i, i, ctypes.c_longlong, p, p, p]
