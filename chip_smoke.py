@@ -19,9 +19,10 @@ that each went through its kernels:
   phases 11-13 the full-stack closed loop
                ``closed_loop_full_stack_batched`` at B=8192, N=50, 5 cycles:
                every cycle each scenario resamples a 256x256 global map into
-               its own 152x104 vehicle frame (kernel K5), propagates it (K4)
-               and replans (K3); also ``closed_loop_batched`` (K1 per cycle)
-               and a short run with the perception channel;
+               its own 152x104 vehicle frame with its obstacle overrides
+               (kernel K5), propagates it (K4) and replans (K3); also
+               ``closed_loop_batched`` (K1 per cycle) and a short run with
+               the perception channel;
   phase 14     the op-throughput probe ``utils.opbench`` (kernel K6).
 
 Every phase prints a line (the profiles one per batch size); any failure
@@ -72,7 +73,7 @@ K6_CHECK_ROUNDS = 8
 MEM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
 PEAK_TFLOPS = FP32_OPS_PER_S / 1e12
-NO_LIBRARY_CALL = None  # no single PyTorch call computes any of these kernels' functions
+NO_LIBRARY_CALL = None  # where no single PyTorch call computes a kernel's function
 
 
 def card_line() -> str:
@@ -270,9 +271,12 @@ def check_lanes(label: str, got, want32, want64, nudged32, chaotic_it_off: int =
     both references, with want32's iteration count; on the chaotic lanes the
     counts differ from want32's by at most ``chaotic_it_off``, plus, with
     ``by_spread``, that lane's spread: the largest distance of a nudged or
-    float64 reference's count from want32's.  With ``calm_it_off`` a calm
-    lane's count may differ by its spread plus that many, as long as nine
-    in ten calm lanes have equal counts.  The closed loop needs it: its
+    float64 reference's count from want32's; or they equal the count of one
+    of those references (a branch the reference itself takes under a 2-ulp
+    nudge: a chaotic lane that either stops on the lambda cap or runs to
+    max_iterations has its two branches two or more iterations apart).
+    With ``calm_it_off`` a calm lane's count may differ by its spread plus
+    that many, as long as nine in ten calm lanes have equal counts.  The closed loop needs it: its
     later cycles start warm, next to the optimum, where J_new - J_old is
     float32 noise, and the LM-iteration kernel's J differs from the plain
     version's by 5e-7 relative.  There the tests J_new < J_old (accept, and
@@ -288,6 +292,8 @@ def check_lanes(label: str, got, want32, want64, nudged32, chaotic_it_off: int =
         spread = torch.maximum(spread, (res[2] - want32[2]).abs())
     calm = ~chaotic
     allowed = chaotic_it_off + (spread if by_spread else 0)
+    on_ref = torch.stack([want64[2].to(got[2].dtype)] + [res[2] for res in nudged32]).eq(
+        got[2]).any(dim=0)
     dev32 = lane_deviation(got, want32)
     dev64 = lane_deviation(got, want64)
     same = got[2] == want32[2]
@@ -299,11 +305,12 @@ def check_lanes(label: str, got, want32, want64, nudged32, chaotic_it_off: int =
     line = (f"chaotic lanes {int(chaotic.sum())} of {chaotic.numel()} | iterations equal on "
             f"{100 * it_share:.2f}% (max off {it_off}, calm lanes "
             f"{100 * float(same[calm].float().mean()):.2f}%{calm_rule}, chaotic lanes held within "
-            f"{'their spread + ' if by_spread else ''}{chaotic_it_off}, max spread "
+            f"{'their spread + ' if by_spread else ''}{chaotic_it_off} or on a reference's count "
+            f"({int((chaotic & (off > allowed) & on_ref).sum())} by the latter), max spread "
             f"{int(spread.max())}) | calm lanes vs float32 plain: "
             f"{describe(dev32, calm)} | vs float64 plain: {describe(dev64, calm)}")
     calm_ok = same if calm_it_off is None else off <= spread + calm_it_off
-    bad = (calm & ~calm_ok) | (chaotic & (off > allowed))
+    bad = (calm & ~calm_ok) | (chaotic & (off > allowed) & ~on_ref)
     if calm_it_off is not None:
         require(float(same[calm].float().mean()) >= 0.9,
                 f"{label}: fewer than 9 in 10 calm lanes have equal iteration counts: {line}")
@@ -390,22 +397,24 @@ def pick(r) -> tuple:
 
 @contextlib.contextmanager
 def plain_versions():
-    """Inside: the wrappers of K3, K4 (fields given and fused) and K5 run
-    their plain versions on the card (the launch functions are swapped;
-    their arguments are the plain versions').  Only the comparisons use it."""
+    """Inside: the wrappers of K3, K4 (fields given and fused) and K5 (alone
+    and with the overrides) run their plain versions on the card (the launch
+    functions are swapped; their arguments are the plain versions').  Only
+    the comparisons use it."""
     from cilqr_tpu_torch.ops import lm_cuda, sample_cuda, uncertainty_cuda
 
     saved = (lm_cuda._launch_iteration, uncertainty_cuda._launch, uncertainty_cuda._launch_fused,
-             sample_cuda._launch)
+             sample_cuda._launch, sample_cuda._launch_vehicle_map)
     lm_cuda._launch_iteration = lm_cuda.fused_iteration_plain
     uncertainty_cuda._launch = uncertainty_cuda.propagate_banded_plain
     uncertainty_cuda._launch_fused = uncertainty_cuda.propagate_fused_plain
     sample_cuda._launch = sample_cuda.sample_prior_batched_plain
+    sample_cuda._launch_vehicle_map = sample_cuda.vehicle_map_batched_plain
     try:
         yield
     finally:
         (lm_cuda._launch_iteration, uncertainty_cuda._launch, uncertainty_cuda._launch_fused,
-         sample_cuda._launch) = saved
+         sample_cuda._launch, sample_cuda._launch_vehicle_map) = saved
 
 
 def require(cond: bool, what: str) -> None:
@@ -444,7 +453,7 @@ def main() -> None:
         for G in lm_cuda.GROUP_SIZES:
             require(any(ln.startswith(f"{kernel}<{G}>:") and "0/0 spill" in ln for ln in ptxas),
                     f"{kernel}<{G}> spills or is missing from the ptxas report: {ptxas}")
-    for kernel in ("riccati_kernel", "propagate_kernel", "fields_kernel"):
+    for kernel in ("riccati_kernel", "propagate_kernel", "fields_kernel", "sample_kernel"):
         found = [ln for ln in ptxas if ln.startswith(kernel)]
         require(found and all("0/0 spill" in ln for ln in found),
                 f"{kernel} spills or is missing from the ptxas report: {ptxas}")
@@ -1087,9 +1096,12 @@ def main() -> None:
                        + np.random.default_rng(9).normal(0, 0.3, (FS_B, 4)),
                        dtype=torch.float32, device=dev)
 
-    # 11. K5 against its plain version: a pure gather, equal on every cell.
-    # Poses inside the global map, across its border and wholly outside it,
-    # yaws in all four quadrants and at 0, +-pi/2 and +-pi.
+    # 11. K5 against its plain version: a pure gather and selects, equal on
+    # every cell, alone (the resample) and with the overrides (the vehicle
+    # map the build launches: bbox, and bbox then semantic).  Poses inside
+    # the global map, across its border and wholly outside it, yaws in all
+    # four quadrants and at 0, +-pi/2 and +-pi; override layers of values
+    # below, at and above 90.
     def k5_poses(B: int, seed: int):
         rng = np.random.default_rng(seed)
         xy = np.stack([rng.uniform(30.0, 190.0, B), rng.uniform(-380.0, -220.0, B)], axis=1)
@@ -1102,46 +1114,124 @@ def main() -> None:
         t = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)
         return costmap_mod.vehicle_geom(cpf, t(centers)), t(xy), t(yaw)
 
-    def k5_plain(geoms, xy, yaw):
-        """The plain version over chunks of the scenario axis (whole, its
-        int64 indices alone take 2 GB at B=8192)."""
-        return torch.cat([sample_cuda.sample_prior_batched_plain(
-            type(geoms)(*(t[c:c + K5_PLAIN_CHUNK] for t in geoms)), fs_rows, fs_cols, gmap, ggeom,
-            xy[c:c + K5_PLAIN_CHUNK], yaw[c:c + K5_PLAIN_CHUNK])
-            for c in range(0, xy.shape[0], K5_PLAIN_CHUNK)])
+    def k5_layers(B: int, seed: int):
+        """bbox and semantic frames, each cell one of 0, 50, 89.99, 90, the
+        next float above 90 and 100."""
+        vals = torch.tensor([0.0, 50.0, 89.99, 90.0, float(np.nextafter(np.float32(90.0),
+                                                                      np.float32(100.0))),
+                             100.0], dtype=torch.float32, device=dev)
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return [vals[torch.randint(0, len(vals), (B, fs_rows, fs_cols), generator=g, device=dev)]
+                for _ in range(2)]
 
-    geoms5, xy5, yaw5 = k5_poses(K5_CHECK_B, seed=10)
-    before = sample_cuda.LAUNCHES
-    got5 = sample_cuda.sample_prior_batched(geoms5, fs_rows, fs_cols, gmap, ggeom, xy5, yaw5)
-    torch.cuda.synchronize()
-    require(sample_cuda.LAUNCHES == before + 1, "K5 launch counter did not move")
-    want5 = k5_plain(geoms5, xy5, yaw5)
-    k5_diff = int((got5 != want5).sum())
-    edge = int(((got5 == gmap[0, 0]) | (got5 == gmap[-1, -1]) | (got5 == gmap[0, -1])
-                | (got5 == gmap[-1, 0])).all(dim=(1, 2)).sum())
-    require(k5_diff == 0, f"K5: {k5_diff} of {got5.numel()} cells differ from the plain version")
-    require(edge >= 4, "K5: the poses wholly outside the map did not read its corner cells")
-    geomsM5, xyM5, yawM5 = k5_poses(FS_B, seed=11)
-    k5_ms, gotM5 = timed(lambda: sample_cuda.sample_prior_batched(
-        geomsM5, fs_rows, fs_cols, gmap, ggeom, xyM5, yawM5), 5)
+    def k5_plain(geoms, xy, yaw, *layers):
+        """The plain version over chunks of the scenario axis (whole, its
+        int64 indices alone take 2 GB at B=8192); with layers, the overrides."""
+        chunk = lambda t, c: t[c:c + K5_PLAIN_CHUNK]
+        fn = (sample_cuda.vehicle_map_batched_plain if layers
+              else sample_cuda.sample_prior_batched_plain)
+        return torch.cat([fn(type(geoms)(*(chunk(t, c) for t in geoms)), fs_rows, fs_cols, gmap,
+                             ggeom, chunk(xy, c), chunk(yaw, c), *(chunk(t, c) for t in layers))
+                          for c in range(0, xy.shape[0], K5_PLAIN_CHUNK)])
+
+    def k5_check(B: int, seed: int) -> tuple:
+        """Both forms at B against the plain version, every cell: (the
+        poses, the layers, the lines)."""
+        geoms_c, xy_c, yaw_c = k5_poses(B, seed)
+        bbox_c, sem_c = k5_layers(B, seed)
+        lines = []
+        for label, layers in (("resample", ()), ("bbox", (bbox_c,)),
+                              ("bbox + semantic", (bbox_c, sem_c))):
+            fn = sample_cuda.vehicle_map_batched if layers else sample_cuda.sample_prior_batched
+            before = sample_cuda.LAUNCHES
+            got_c = fn(geoms_c, fs_rows, fs_cols, gmap, ggeom, xy_c, yaw_c, *layers)
+            torch.cuda.synchronize()
+            require(sample_cuda.LAUNCHES == before + 1, "K5 launch counter did not move")
+            diff = int((got_c != k5_plain(geoms_c, xy_c, yaw_c, *layers)).sum())
+            require(diff == 0, f"K5 B={B} {label}: {diff} of {got_c.numel()} cells differ from the "
+                    "plain version")
+            if not layers:
+                edge = int(((got_c == gmap[0, 0]) | (got_c == gmap[-1, -1]) | (got_c == gmap[0, -1])
+                            | (got_c == gmap[-1, 0])).all(dim=(1, 2)).sum())
+                require(edge >= 4, "K5: the poses wholly outside the map did not read its corner "
+                        "cells")
+                lines.append(f"{label} {diff} differ ({edge} poses read only corner cells)")
+            else:
+                kept = float((got_c == bbox_c).double().mean())
+                lines.append(f"{label} {diff} differ ({100 * kept:.1f}% of cells from bbox)")
+            del got_c
+        return (geoms_c, xy_c, yaw_c), (bbox_c, sem_c), lines
+
+    _, _, lines5 = k5_check(K5_CHECK_B, seed=10)
+    (geomsM5, xyM5, yawM5), (bboxM5, semM5), linesM5 = k5_check(FS_B, seed=11)
+    resample = lambda: sample_cuda.sample_prior_batched(geomsM5, fs_rows, fs_cols, gmap, ggeom,
+                                                        xyM5, yawM5)
+    fused = lambda: sample_cuda.vehicle_map_batched(geomsM5, fs_rows, fs_cols, gmap, ggeom, xyM5,
+                                                    yawM5, bboxM5)
+    # the build's vehicle map before the overrides were fused into K5: the
+    # resample, then the bbox override as its own PyTorch pass
+    unfused = lambda: torch.where(bboxM5 > 90.0, bboxM5, resample())
+    require(torch.equal(fused(), unfused()), "K5: the fused form differs from resample + where")
+    # the old and the new form in turns (old, new, new, old), one call
+    turns = [("unfused", unfused), ("fused", fused), ("fused", fused), ("unfused", unfused)]
+    turn_ms = {"unfused": [], "fused": []}
+    for label, fn in turns:
+        turn_ms[label].append(cuda_ms(fn, 5))
+    k5f_ms, k5_unfused_ms = (sum(v) / len(v) for v in (turn_ms["fused"], turn_ms["unfused"]))
+    k5_ms, gotM5 = timed(resample, 5)
+    k5_kernel_ms, k5_other_ms, _ = kernel_profile(resample, 5, "sample_kernel")
+    k5f_kernel_ms, _, _ = kernel_profile(fused, 5, "sample_kernel")
     k5_plain_ms, wantM5 = timed(lambda: k5_plain(geomsM5, xyM5, yawM5), 1)
-    k5_diff_m = int((gotM5 != wantM5).sum())
-    require(k5_diff_m == 0, f"K5 B={FS_B}: {k5_diff_m} cells differ from the plain version")
-    # bound: the map and 8 scalars per scenario in, B x 152 x 104 floats out;
-    # 20 operations per cell
+    k5f_plain_ms = cuda_ms(lambda: k5_plain(geomsM5, xyM5, yawM5, bboxM5), 1)
+    require(torch.equal(gotM5, wantM5), f"K5 B={FS_B}: the timed output differs from the plain "
+            "version")
+    k5_err = float((gotM5 - wantM5).abs().max())
+    del wantM5
+    # the library call: one grid_sample, nearest cell, border padding, over
+    # the cell positions the plain version computes, as pixel coordinates of
+    # the map (cell centres at integers; align_corners=True), built here
+    # outside the timed window.  Its rounding to the nearest centre and the
+    # plain version's floor of the edge-based index differ on ties.
+    xs5, ys5 = gridmap.cell_positions(geomsM5, fs_rows, fs_cols)
+    c5, s5 = torch.cos(yawM5)[:, None, None], torch.sin(yawM5)[:, None, None]
+    gx5 = xs5[:, :, None] * c5 - ys5[:, None, :] * s5 + xyM5[:, 0, None, None]
+    gy5 = xs5[:, :, None] * s5 + ys5[:, None, :] * c5 + xyM5[:, 1, None, None]
+    top5 = ggeom.center + 0.5 * ggeom.length
+    H5, W5 = gmap.shape
+    u5 = (top5[0] - gx5) / ggeom.resolution - 0.5
+    v5 = (top5[1] - gy5) / ggeom.resolution - 0.5
+    grid5 = torch.stack([2.0 * v5 / (W5 - 1) - 1.0, 2.0 * u5 / (H5 - 1) - 1.0],
+                        dim=-1).reshape(1, FS_B * fs_rows, fs_cols, 2)
+    del xs5, ys5, gx5, gy5, u5, v5
+    k5_lib_ms, lib5 = timed(lambda: torch.nn.functional.grid_sample(
+        gmap[None, None], grid5, mode="nearest", padding_mode="border", align_corners=True), 5)
+    lib_diff = int((lib5.reshape(gotM5.shape) != gotM5).sum())
+    del grid5, lib5
+    # bounds: the map and 32 bytes per scenario (first, ego x/y, cos, sin,
+    # resolution) in, B x 152 x 104 floats out; 20 operations per cell.
+    # Fused: bbox in as well, and a compare and a select per cell.
     k5_bound = bound(nbytes(gmap) + FS_B * 32 + nbytes(gotM5), 20 * gotM5.numel())
+    k5f_bound = bound(nbytes(gmap) + FS_B * 32 + nbytes(bboxM5, gotM5), 22 * gotM5.numel())
+    k5_bound["library_ms"] = k5_lib_ms
     kernels["sample"] = dict(
         name="sample_prior", route="cuda", source="cilqr_tpu_torch/csrc/sample.cu",
         replaces="cilqr_tpu/ops/sample_pallas.py:236",
         also_replaces=["cilqr_tpu/ops/sample_pallas.py:165", "cilqr_tpu/ops/sample_pallas.py:174"],
-        max_abs_err=float((gotM5 - wantM5).abs().max()), ms=k5_ms, plain_ms=k5_plain_ms,
-        **k5_bound)
-    print(f"[11 K5 sample] B={K5_CHECK_B}: {k5_diff} of {got5.numel()} cells differ from the plain "
-          f"version ({edge} poses read only corner cells) | B={FS_B}: {k5_diff_m} of "
-          f"{gotM5.numel()} differ, kernel {k5_ms:.3f} ms, plain (chunks of {K5_PLAIN_CHUNK}) "
-          f"{k5_plain_ms:.3f} ms, bound {k5_bound['bound_ms']:.3f} ms by {k5_bound['bound_by']}",
-          flush=True)
-    del got5, want5, gotM5, wantM5, geomsM5
+        max_abs_err=k5_err, ms=k5_ms, kernel_only_ms=k5_kernel_ms, plain_ms=k5_plain_ms,
+        **k5_bound, library_cells_differing=lib_diff,
+        vehicle_map=dict(ms=k5f_ms, kernel_only_ms=k5f_kernel_ms, plain_ms=k5f_plain_ms,
+                         unfused_ms=k5_unfused_ms, turns_ms=turn_ms, **k5f_bound))
+    print(f"[11 K5 sample] B={K5_CHECK_B}: {' | '.join(lines5)} | B={FS_B}: {' | '.join(linesM5)} "
+          f"| resample: wrapper {k5_ms:.3f} ms, kernel alone {k5_kernel_ms:.3f} ms (other device "
+          f"kernels {k5_other_ms:.3f} ms), plain (chunks of {K5_PLAIN_CHUNK}) "
+          f"{k5_plain_ms:.3f} ms, bound {k5_bound['bound_ms']:.3f} ms by {k5_bound['bound_by']}, grid_sample "
+          f"{k5_lib_ms:.3f} ms ({lib_diff} of {gotM5.numel()} cells differ) | vehicle map (bbox "
+          f"fused, what the build launches): {k5f_ms:.3f} ms, kernel alone {k5f_kernel_ms:.3f} ms, "
+          f"plain {k5f_plain_ms:.3f} ms, bound {k5f_bound['bound_ms']:.3f} ms by "
+          f"{k5f_bound['bound_by']} | resample + torch.where (the build before fusing) "
+          f"{k5_unfused_ms:.3f} ms | in turns (ms): unfused {turn_ms['unfused']}, fused "
+          f"{turn_ms['fused']}", flush=True)
+    del gotM5, geomsM5, bboxM5, semM5
 
     # 12. the costmap build at B=8192: K5 once, K4 once (per-scenario priors,
     # frames and yaws).  Against the same build on the plain versions: the

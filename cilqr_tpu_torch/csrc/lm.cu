@@ -100,7 +100,7 @@ struct LMConfig {
   float q1f, q2f, s1f, s2f, q1r, q2r, s1r, s2r;
   float q1u, q2u, s1u, s2u;
   float efront, erear;
-  float lamb_init, lamb_factor, lamb_max, tol;
+  float lamb_init, lamb_factor, lamb_inv, lamb_max, tol;  // lamb_inv: float32(1 / lamb_factor)
 };
 
 namespace {
@@ -608,7 +608,9 @@ __global__ void lm_opt_kernel(LMConfig cfg,
         float* t = Xc; Xc = Xn; Xn = t;
         t = Uc; Uc = Un; Un = t;
       }
-      const float lamb_n = accept ? lamb / cfg.lamb_factor : lamb * cfg.lamb_factor;
+      // the JAX package's step: XLA turns lamb / lamb_factor into a product
+      // with the rounded reciprocal, and the abort test sits on that bit
+      const float lamb_n = accept ? mul(lamb, cfg.lamb_inv) : mul(lamb, cfg.lamb_factor);
       bool done = accept ? (fabsf(J_new - J_old) < cfg.tol) : (lamb_n > cfg.lamb_max);
       J_old = J_new;
       lamb = lamb_n;

@@ -464,8 +464,8 @@ def build_local_costmap_batched(cp: CostmapParams, global_map, global_geom, wayp
     world; every leaf of the result carries a leading B axis.
 
     ``use_kernels`` (the JAX package's ``use_pallas``): True takes the
-    kernel wrappers: the prior resample ``sample_cuda.sample_prior_batched``
-    (K5), then the bbox / semantic override, then the banded propagation
+    kernel wrappers: the prior resample with the bbox / semantic overrides
+    ``sample_cuda.vehicle_map_batched`` (K5), then the banded propagation
     ``uncertainty_cuda.propagate_uncertainty_banded`` (K4) with per-scenario
     priors, frames and yaws.  For float32 tensors on the card they launch
     their kernels; for CPU tensors of any float dtype they take their plain
@@ -489,16 +489,15 @@ def build_local_costmap_batched(cp: CostmapParams, global_map, global_geom, wayp
         obs_mask, skip_prior=use_kernels)
     xys, yaws = ego_states[:, :2], ego_states[:, 3]
 
-    if use_kernels:
-        from cilqr_tpu_torch.ops import sample_cuda
-
-        prior = sample_cuda.sample_prior_batched(geom, cp.rows, cp.cols, global_map, global_geom,
-                                                 xys, yaws)
-        vehicle_map = torch.where(bbox > 90.0, bbox, prior.to(bbox.dtype))
-
     semantic = None
     if tracked_boxes is not None:
         semantic = rasterize_tracked_bbox(geom, cp.rows, cp.cols, tracked_boxes, tracked_valid)
+    if use_kernels:
+        from cilqr_tpu_torch.ops import sample_cuda
+
+        vehicle_map = sample_cuda.vehicle_map_batched(geom, cp.rows, cp.cols, global_map,
+                                                      global_geom, xys, yaws, bbox, semantic)
+    elif semantic is not None:
         vehicle_map = torch.where(semantic > 90.0, semantic, vehicle_map)
 
     sig_b = None

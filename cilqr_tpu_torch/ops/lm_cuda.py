@@ -282,7 +282,7 @@ class _LMConfig(ctypes.Structure):
         "q1f", "q2f", "s1f", "s2f", "q1r", "q2r", "s1r", "s2r",
         "q1u", "q2u", "s1u", "s2u",
         "efront", "erear",
-        "lamb_init", "lamb_factor", "lamb_max", "tol",
+        "lamb_init", "lamb_factor", "lamb_inv", "lamb_max", "tol",
     )]
 
 
@@ -307,8 +307,9 @@ def _config(p: SolverParams, B: int, M: int, H: int, W: int, has_obs: bool,
         q1u=p.q1_uncertainty, q2u=p.q2_uncertainty, s1u=p.w_uncertainty * p.q2_uncertainty,
         s2u=p.w_uncertainty * p.q2_uncertainty * p.q2_uncertainty,
         efront=p.ego_front, erear=p.ego_rear,
-        lamb_init=p.lamb_init, lamb_factor=p.lamb_factor, lamb_max=p.lamb_max,
-        tol=p.tolerance,
+        lamb_init=p.lamb_init, lamb_factor=p.lamb_factor,
+        lamb_inv=float(torch.tensor(p.lamb_factor, dtype=torch.float32).reciprocal()),
+        lamb_max=p.lamb_max, tol=p.tolerance,
     )
 
 

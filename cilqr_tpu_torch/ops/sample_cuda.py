@@ -4,15 +4,19 @@ Port of ``cilqr_tpu/ops/sample_pallas.py``.  Its two TPU kernels (the shear
 decomposition ``_kernel_shear`` and the per-tile window gather ``_kernel`` /
 ``_kernel_fused``) compute one function, the batched ``costmap.sample_prior``:
 a nearest-cell lookup of one shared global map at every cell of B rotated
-vehicle frames.  Here one CUDA kernel (``csrc/sample.cu``) computes it, one
-thread per output cell; the shear/window split, the eligibility gates
-(``supports``, ``supports_shear``) and the static resolutions they need have
-no counterpart.
+vehicle frames.  Here one CUDA kernel (``csrc/sample.cu``) computes it, a
+block per frame and a run of four cells of a row per thread; the
+shear/window split, the eligibility gates (``supports``,
+``supports_shear``) and the static resolutions they need have no
+counterpart.  The same kernel also applies the costmap build's overrides
+(``vehicle_map_batched``), so the build never holds the prior frame.
 
-``sample_prior_batched`` launches the kernel for CUDA tensors (float32) and
-takes the plain version (``sample_prior_batched_plain`` = the batched
-``costmap.sample_prior``, any float dtype) for CPU tensors.  The result is
-a pure gather: kernel and plain version agree on every cell.
+``sample_prior_batched`` and ``vehicle_map_batched`` launch the kernel for
+CUDA tensors (float32) and take their plain versions
+(``sample_prior_batched_plain`` = the batched ``costmap.sample_prior``;
+``vehicle_map_batched_plain``, any float dtype) for CPU tensors.  The
+result is a pure gather and selects: kernel and plain version agree on
+every cell.
 """
 
 from __future__ import annotations
@@ -22,7 +26,7 @@ import torch
 from cilqr_tpu_torch.ops import costmap as costmap_mod
 from cilqr_tpu_torch.ops import gridmap, riccati_cuda
 
-LAUNCHES = 0  # kernel launches made by this module's wrapper
+LAUNCHES = 0  # kernel launches made by this module's wrappers
 
 
 def sample_prior_batched_plain(geoms: gridmap.GridGeom, rows: int, cols: int,
@@ -33,7 +37,23 @@ def sample_prior_batched_plain(geoms: gridmap.GridGeom, rows: int, cols: int,
     return costmap_mod.sample_prior(geoms, rows, cols, global_map, global_geom, ego_xys, ego_yaws)
 
 
-def _launch(geoms, rows, cols, global_map, global_geom, ego_xys, ego_yaws):
+def vehicle_map_batched_plain(geoms: gridmap.GridGeom, rows: int, cols: int,
+                              global_map: torch.Tensor, global_geom: gridmap.GridGeom,
+                              ego_xys: torch.Tensor, ego_yaws: torch.Tensor, bbox: torch.Tensor,
+                              semantic: torch.Tensor | None = None) -> torch.Tensor:
+    """Plain version of the kernel with the overrides: the prior, then bbox
+    where bbox > 90 (local_costmap.cpp:260-263), then the semantic layer
+    where it is > 90, as ``costmap.build_local_costmap_batched`` applies
+    them.  bbox and semantic (B, rows, cols)."""
+    prior = sample_prior_batched_plain(geoms, rows, cols, global_map, global_geom, ego_xys,
+                                       ego_yaws)
+    vehicle_map = torch.where(bbox > 90.0, bbox, prior.to(bbox.dtype))
+    if semantic is not None:
+        vehicle_map = torch.where(semantic > 90.0, semantic, vehicle_map)
+    return vehicle_map
+
+
+def _kernel_call(geoms, rows, cols, global_map, global_geom, ego_xys, ego_yaws, bbox, semantic):
     global LAUNCHES
     from cilqr_tpu_torch.utils import build
 
@@ -45,28 +65,49 @@ def _launch(geoms, rows, cols, global_map, global_geom, ego_xys, ego_yaws):
     riccati_cuda.check_cuda_f32("ego_xys", ego_xys, (B, 2))
     riccati_cuda.check_cuda_f32("ego_yaws", ego_yaws, (B,))
     riccati_cuda.check_cuda_f32("geometry centers", geoms.center, (B, 2))
-    # first, top, cos and sin come from PyTorch, with the operations of
+    for name, t in (("global center", global_geom.center), ("global length", global_geom.length)):
+        riccati_cuda.check_cuda_f32(name, t, (2,))
+    riccati_cuda.check_cuda_f32("global resolution", global_geom.resolution.reshape(()), ())
+    frames = {}
+    for name, t in (("bbox", bbox), ("semantic", semantic)):
+        if t is not None:
+            riccati_cuda.check_cuda_f32(name, t, (B, rows, cols))
+            frames[name] = t.contiguous()
+    # first, cos and sin come from PyTorch, with the operations of
     # gridmap.cell_positions / costmap.sample_prior, so the kernel starts
-    # from the plain version's own values
-    first = gridmap.first_position(geoms)
+    # from the plain version's own values; the rest is read as it lies
+    first = gridmap.first_position(geoms).contiguous()
     res = geoms.resolution.expand(B)
-    zero = torch.zeros_like(ego_yaws)
-    scl = torch.stack([first[:, 0], first[:, 1], res, ego_xys[:, 0], ego_xys[:, 1],
-                       torch.cos(ego_yaws), torch.sin(ego_yaws), zero], dim=1).contiguous()
-    top = global_geom.center + 0.5 * global_geom.length
-    gscl = torch.stack([top[0], top[1], global_geom.resolution.reshape(()),
-                        torch.zeros_like(top[0])]).contiguous()
-    riccati_cuda.check_cuda_f32("scenario scalars", scl, (B, 8))
-    riccati_cuda.check_cuda_f32("global geometry", gscl, (4,))
+    riccati_cuda.check_cuda_f32("frame resolution", res, (B,))
+    if ego_xys.stride(1) != 1:
+        ego_xys = ego_xys.contiguous()
+    cs, sn = torch.cos(ego_yaws), torch.sin(ego_yaws)
     global_map = global_map.contiguous()
+    gcenter, glength = global_geom.center.contiguous(), global_geom.length.contiguous()
     out = torch.empty((B, rows, cols), dtype=torch.float32, device=global_map.device)
+    bbox_t, sem_t = frames.get("bbox"), frames.get("semantic")
+    vec = cols % 4 == 0 and all(t.data_ptr() % 16 == 0 for t in (out, *frames.values()))
+    ptr = lambda t: None if t is None else t.data_ptr()
     lib = build.load_library()
     stream = torch.cuda.current_stream(global_map.device).cuda_stream
-    rc = lib.cilqr_sample_prior(B, rows, cols, H, W, global_map.data_ptr(), gscl.data_ptr(),
-                                scl.data_ptr(), out.data_ptr(), stream)
+    rc = lib.cilqr_sample_prior(
+        B, rows, cols, H, W, int(vec), global_map.data_ptr(), gcenter.data_ptr(),
+        glength.data_ptr(), global_geom.resolution.data_ptr(), first.data_ptr(), res.data_ptr(),
+        res.stride(0), ego_xys.data_ptr(), ego_xys.stride(0), cs.data_ptr(), sn.data_ptr(),
+        ptr(bbox_t), ptr(sem_t), out.data_ptr(), stream)
     build.check(lib, rc, "prior resample kernel launch")
     LAUNCHES += 1
     return out
+
+
+def _launch(geoms, rows, cols, global_map, global_geom, ego_xys, ego_yaws):
+    return _kernel_call(geoms, rows, cols, global_map, global_geom, ego_xys, ego_yaws, None, None)
+
+
+def _launch_vehicle_map(geoms, rows, cols, global_map, global_geom, ego_xys, ego_yaws, bbox,
+                        semantic=None):
+    return _kernel_call(geoms, rows, cols, global_map, global_geom, ego_xys, ego_yaws, bbox,
+                        semantic)
 
 
 def sample_prior_batched(geoms: gridmap.GridGeom, rows: int, cols: int, global_map: torch.Tensor,
@@ -83,3 +124,19 @@ def sample_prior_batched(geoms: gridmap.GridGeom, rows: int, cols: int, global_m
         return sample_prior_batched_plain(geoms, rows, cols, global_map, global_geom, ego_xys,
                                           ego_yaws)
     return _launch(geoms, rows, cols, global_map, global_geom, ego_xys, ego_yaws)
+
+
+def vehicle_map_batched(geoms: gridmap.GridGeom, rows: int, cols: int, global_map: torch.Tensor,
+                        global_geom: gridmap.GridGeom, ego_xys: torch.Tensor,
+                        ego_yaws: torch.Tensor, bbox: torch.Tensor,
+                        semantic: torch.Tensor | None = None) -> torch.Tensor:
+    """(B, rows, cols) vehicle maps of the batched costmap build: the
+    resample of ``sample_prior_batched``, overridden by ``bbox`` where it is
+    > 90 and then by ``semantic`` (optional) where it is > 90, in one pass
+    (a NaN keeps the value below it).  The kernel for CUDA tensors, the
+    plain version for CPU tensors."""
+    if global_map.device.type == "cpu":
+        return vehicle_map_batched_plain(geoms, rows, cols, global_map, global_geom, ego_xys,
+                                         ego_yaws, bbox, semantic)
+    return _launch_vehicle_map(geoms, rows, cols, global_map, global_geom, ego_xys, ego_yaws,
+                               bbox, semantic)

@@ -110,7 +110,7 @@ def load_library() -> ctypes.CDLL:
     lib.cilqr_propagate.restype = i
     lib.cilqr_fields.argtypes = [i] * 4 + [p] * 5 + [p]
     lib.cilqr_fields.restype = i
-    lib.cilqr_sample_prior.argtypes = [i] * 5 + [p] * 4 + [p]
+    lib.cilqr_sample_prior.argtypes = [i] * 6 + [p] * 6 + [i, p, i] + [p] * 5 + [p]
     lib.cilqr_sample_prior.restype = i
     lib.cilqr_opchain.argtypes = [i, i, ctypes.c_longlong, p, p, p]
     lib.cilqr_opchain.restype = i

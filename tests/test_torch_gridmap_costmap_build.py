@@ -241,6 +241,63 @@ def test_k5_plain_version_matches_pallas_kernels_interpret(algo):
     exact(got, want)
 
 
+OVERRIDE_VALUES = [0.0, 50.0, 89.99, 90.0, np.nextafter(90.0, 100.0), 100.0, np.nan, np.inf,
+                   -np.inf]
+
+
+def _override_layers(rng, shape, with_semantic):
+    """bbox / semantic frames of values below, at and above 90, NaN and
+    +-inf, drawn cell by cell."""
+    pick = lambda: rng.choice(np.array(OVERRIDE_VALUES), size=shape)
+    return pick(), (pick() if with_semantic else None)
+
+
+@pytest.mark.parametrize("with_semantic", [False, True])
+def test_vehicle_map_plain_applies_the_overrides_in_order(with_semantic):
+    """K5 with the overrides, plain version (and the wrapper on CPU tensors,
+    which launches nothing) against the JAX resample with the build's two
+    selects in numpy: bbox where bbox > 90, then semantic where semantic >
+    90 (costmap.py:497, 502; a NaN keeps the value below it)."""
+    rows, cols = 12, 10
+    gmap, jgg, jgs, xy, yaw = _sample_prior_case(jnp.float64, rows, cols, 0.2, 40, 44,
+                                                 (50.0, -80.0), [(50.0, -80.0), (59.5, -80.0)],
+                                                 seed=13)
+    prior = np.asarray(jax.vmap(lambda g, e, y: jcm.sample_prior(
+        g, rows, cols, jnp.asarray(gmap), jgg, e, y))(jgs, jnp.asarray(xy), jnp.asarray(yaw)))
+    bbox, sem = _override_layers(np.random.default_rng(14), prior.shape, with_semantic)
+    want = np.where(bbox > 90.0, bbox, prior)
+    if with_semantic:
+        want = np.where(sem > 90.0, sem, want)
+    args = (tgeom_of(jgs), rows, cols, t64(gmap), tgeom_of(jgg), t64(xy), t64(yaw), t64(bbox),
+            None if sem is None else t64(sem))
+    exact(sample_cuda.vehicle_map_batched_plain(*args), want)
+    before = sample_cuda.LAUNCHES
+    exact(sample_cuda.vehicle_map_batched(*args), want)
+    assert sample_cuda.LAUNCHES == before
+
+
+@pytest.mark.parametrize("tracked", [False, True])
+def test_batched_build_vehicle_map_is_the_overridden_prior(small, tracked):
+    """The kernel route of the batched build on CPU tensors: its vehicle
+    map is still sample_prior overridden by the bbox layer, then by the
+    semantic layer, computed here from the build's own layers."""
+    cp = small["cp"]
+    _, targs, _, tobs = _build_inputs(small)
+    boxes = np.array([[-40.0, 135.0, 6.4, 9.7]] * 4) + np.arange(4)[:, None] * 0.7
+    tkw = dict(tracked_boxes=t64(boxes),
+               tracked_valid=torch.tensor([True, False, True, True])) if tracked else {}
+    egos = t64(small["egos"])
+    got = tcm.build_local_costmap_batched(cp, *targs, egos, *tobs, **tkw)
+    prior = tcm.sample_prior(got.geom, cp.rows, cp.cols, targs[0], targs[1], egos[:, :2],
+                             egos[:, 3])
+    want = torch.where(got.bounding_box_map > 90.0, got.bounding_box_map, prior)
+    if tracked:
+        want = torch.where(got.semantic_lidar_map > 90.0, got.semantic_lidar_map, want)
+        assert bool((got.semantic_lidar_map > 90.0).any())
+    assert bool((got.bounding_box_map > 90.0).any())
+    exact(got.vehicle_map, want)
+
+
 def _build_inputs(small, jnp_dtype=jnp.float64):
     obs = small["obs"]
     jargs = (jnp.asarray(small["gmap"]), small["jgg"], small["jplan"], small["jn"])
@@ -329,21 +386,45 @@ def test_band_plan_sigma_guard(small):
 @pytest.mark.cuda
 @pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA device")
 def test_k5_kernel_matches_plain_on_card():
-    """The CUDA kernel vs its plain version on the card, float32: equal on
-    every cell (chip_smoke.py phase 11 is the full-size check)."""
+    """The CUDA kernel vs its plain version on the card, float32, alone and
+    with the overrides (bbox, and bbox then semantic, of values below, at and
+    above 90, NaN and +-inf): equal on every cell.  Poses inside the map,
+    across its border and wholly outside it beyond each corner and one edge
+    (chip_smoke.py's edge poses), at every quadrant's yaw; a width that is a
+    multiple of 4 (16-byte accesses), one that is not (scalar accesses), and
+    overrides that do not start on 16 bytes; batches of odd sizes.
+    chip_smoke.py phase 11 is the full-size check."""
     dev = torch.device("cuda")
-    rows, cols = 64, 56
-    poses = [(50.0, -80.0), (78.0, -80.0), (120.0, -80.0), (50.0, -200.0), (1e4, 1e4)]
-    gmap, jgg, jgs, xy, yaw = _sample_prior_case(jnp.float32, rows, cols, 0.2, 136, 132,
-                                                 (50.0, -80.0), poses, seed=7)
+    poses = [(50.0, -80.0), (78.0, -80.0), (120.0, -80.0), (50.0, -200.0), (1e4, 1e4),
+             (-1e4, -1e4), (1e4, -1e4), (-1e4, 1e4), (1e4, -80.0), (50.0, 1e5)]
     f32 = lambda a: torch.tensor(np.asarray(a), dtype=torch.float32, device=dev)
-    args = (interop.grid_geom_from_numpy(jgs, device=dev), rows, cols, f32(gmap),
-            interop.grid_geom_from_numpy(jgg, device=dev), f32(xy), f32(yaw))
-    before = sample_cuda.LAUNCHES
-    got = sample_cuda.sample_prior_batched(*args)
-    torch.cuda.synchronize()
-    assert sample_cuda.LAUNCHES == before + 1
-    assert torch.equal(got, sample_cuda.sample_prior_batched_plain(*args))
+    rng = np.random.default_rng(15)
+    for rows, cols, B in ((64, 56, len(poses) * len(YAWS)), (24, 13, 7), (9, 4, 3)):
+        gmap, jgg, jgs, xy, yaw = _sample_prior_case(jnp.float32, rows, cols, 0.2, 136, 132,
+                                                     (50.0, -80.0), poses, seed=7)
+        jgs = jax.tree.map(lambda a: a[:B], jgs)
+        args = (interop.grid_geom_from_numpy(jgs, device=dev), rows, cols, f32(gmap),
+                interop.grid_geom_from_numpy(jgg, device=dev), f32(xy[:B]), f32(yaw[:B]))
+        before = sample_cuda.LAUNCHES
+        got = sample_cuda.sample_prior_batched(*args)
+        torch.cuda.synchronize()
+        assert sample_cuda.LAUNCHES == before + 1
+        assert torch.equal(got, sample_cuda.sample_prior_batched_plain(*args))
+        for with_semantic in (False, True):
+            for offset in (0, 1):  # 1: the layers start 4 bytes past a 16-byte boundary
+                layers = []
+                for layer in _override_layers(rng, (B, rows, cols), with_semantic):
+                    if layer is not None:
+                        flat = torch.empty(layer.size + offset, dtype=torch.float32, device=dev)
+                        layer = flat[offset:].view(B, rows, cols).copy_(f32(layer))
+                    layers.append(layer)
+                before = sample_cuda.LAUNCHES
+                fused = sample_cuda.vehicle_map_batched(*args, *layers)
+                torch.cuda.synchronize()
+                assert sample_cuda.LAUNCHES == before + 1
+                want = sample_cuda.vehicle_map_batched_plain(*args, *layers)
+                assert torch.equal(fused.isnan(), want.isnan())
+                assert torch.equal(fused.nan_to_num(), want.nan_to_num()), (rows, cols, offset)
     with pytest.raises(TypeError, match="float32"):
         sample_cuda.sample_prior_batched(args[0], rows, cols, f32(gmap).double(), *args[4:])
 

@@ -257,6 +257,24 @@ def test_cost_derivs_and_J_match_jax(p, global_plan, world):
           jvmap(lambda pl, x, u: jcosts.total_cost_J(p, pl, x, u))(jp, X, jnp.asarray(U)))
 
 
+def test_backward_pass_matches_jax(p, global_plan, world):
+    """The derivatives and the Riccati recursion in one call, full world,
+    float64, at the Riccati plain version's bar (1e-9 of scale: the gains
+    go through the eigen-clamp inverse)."""
+    jo, to, ju, tu = world
+    jplan, jn, tplan, tn = _padded(p, global_plan)
+    rng = np.random.default_rng(14)
+    egos = _states(rng, 6, 1)[:, 0]
+    U = rng.normal(0, [1.5, 0.4], (6, p.horizon, 2))
+    lamb = rng.uniform(0.1, 10.0, 6)
+    X = jvmap(lambda e, u: jdyn.rollout(p, e, u))(jnp.asarray(egos), jnp.asarray(U))
+    jp = jvmap(lambda e: jrp.get_local_plan(p, jplan, jn, e))(jnp.asarray(egos))
+    want = jvmap(lambda pl, x, u, lam: jsolver.backward_pass(p, pl, x, u, lam, jo, ju))(
+        jp, X, jnp.asarray(U), jnp.asarray(lamb))
+    tp = trp.get_local_plan(p, tplan, tn, T(egos))
+    close(tsolver.backward_pass(p, tp, T(X), T(U), T(lamb), to, tu), tuple(want), rel=1e-9)
+
+
 def test_barrier_matches_jax():
     rng = np.random.default_rng(13)
     c, cd = rng.normal(0, 1, 7), rng.normal(0, 1, (7, 3))

@@ -26,6 +26,7 @@ from cilqr_tpu.models import uncertainty as junc
 from cilqr_tpu.sim.example_scenario import example_scenario as jax_example
 from cilqr_tpu_torch.models import obstacles as tobs, reference_path as trp
 from cilqr_tpu_torch.models import solver as tsolver, solver_batched as tsb
+from cilqr_tpu_torch.ops import lm_cuda
 from cilqr_tpu_torch.sim.example_scenario import example_scenario as torch_example
 from cilqr_tpu_torch.utils import interop
 from oracle import oracle_cilqr as oracle
@@ -78,6 +79,96 @@ def test_run_steps_batched_matches_jax_vmap_run_step(small_world, jax_reference,
     np.testing.assert_allclose(got.J.numpy(), np.asarray(want.J), rtol=1e-9, atol=0)
     np.testing.assert_array_equal(got.ref_x.numpy(), np.asarray(want.ref_x))
     np.testing.assert_allclose(got.ref_y.numpy(), np.asarray(want.ref_y), rtol=0, atol=1e-9)
+
+
+BENCH_LANES = 32
+
+
+def _bench_egos(ego, B=BENCH_LANES):
+    """The first B egos of the JAX benchmark's main path
+    (cilqr_tpu/benchmark.py:133-134)."""
+    return np.asarray(ego, np.float64)[None, :] + np.random.default_rng(2).normal(0, 0.3, (B, 4))
+
+
+@pytest.fixture(scope="module")
+def bench_reference(params):
+    """jax.vmap(solver.run_step) on the benchmark's main path at full size
+    (the example world, N=50, every LM iteration), one result per dtype."""
+    p = dataclasses.replace(params, horizon=50)
+    cache = {}
+
+    def get(dtype):
+        if dtype not in cache:
+            jplan, jn, jego, jU0, jo, ju = jax_example(p, getattr(jnp, dtype))
+            egos = _bench_egos(jego)
+            U0 = np.broadcast_to(np.asarray(jU0), (BENCH_LANES, p.horizon, 2))
+            cache[dtype] = egos, U0, jax.jit(jax.vmap(
+                lambda e, u: jsolver.run_step(p, jplan, jn, e, u, jo, ju)))(
+                jnp.asarray(egos, getattr(jnp, dtype)), jnp.asarray(U0))
+        return cache[dtype]
+
+    return p, get
+
+
+@pytest.mark.parametrize("route", ["two_phase", "fused_optimize_plain"])
+@pytest.mark.parametrize("dtype", ["float32", "float64"])
+def test_damping_and_abort_match_jax_at_full_size(bench_reference, dtype, route):
+    """Where the LM damping reaches its cap.  The reference multiplies lambda
+    by the rounded 1/lamb_factor on accept (XLA folds the division), and the
+    abort test lamb > lamb_max sits on that last bit after chains of x10 and
+    x0.1: iteration counts and the final lambda must be equal on every lane,
+    with at least a quarter of the lanes ending on the abort.  U and X within
+    1e-6 (float64); in float32 at the bars of tests/test_tpu_chip.py:142-200
+    (the first 10 steps within 1e-2 + 1e-2 relative, J 2e-2 relative, the
+    whole horizon's controls within 0.5)."""
+    p, get = bench_reference
+    egos, U0, want = get(dtype)
+    tdtype = getattr(torch, dtype)
+    tplan, tn, _, _, to, tu = torch_example(p, tdtype, device=DEV)
+    te, tU = torch.tensor(egos, dtype=tdtype), torch.tensor(U0, dtype=tdtype)
+    if route == "two_phase":
+        got = tsb.run_steps_batched(p, tplan, tn, te, tU, to, tu, impl="two_phase")
+        X, U, it, J, lamb = got.X, got.U, got.iterations, got.J, got.lamb
+    else:
+        X, U, it, J, lamb = lm_cuda.fused_optimize_plain(
+            p, trp.get_local_plan(p, tplan, tn, te), te, tU, to, tu)
+    np.testing.assert_array_equal(it.numpy(), np.asarray(want.iterations))
+    np.testing.assert_array_equal(lamb.numpy(), np.asarray(want.lamb))
+    assert float((lamb > p.lamb_max).double().mean()) >= 0.25
+    wU, wX, wJ = np.asarray(want.U), np.asarray(want.X), np.asarray(want.J)
+    if dtype == "float64":
+        np.testing.assert_allclose(U.numpy(), wU, rtol=0, atol=1e-6)
+        np.testing.assert_allclose(X.numpy(), wX, rtol=0, atol=1e-6)
+        np.testing.assert_allclose(J.numpy(), wJ, rtol=1e-9, atol=0)
+    else:
+        for got_h, want_h in ((U.numpy()[:, :10], wU[:, :10]), (X.numpy()[:, :10], wX[:, :10])):
+            np.testing.assert_allclose(got_h, want_h, rtol=1e-2, atol=1e-2)
+        np.testing.assert_allclose(J.numpy(), wJ, rtol=2e-2, atol=0)
+        assert float(np.abs(U.numpy() - wU).max()) < 0.5
+
+
+def test_run_step_departs_from_oracle_only_at_the_abort(params):
+    """The oracle divides lambda exactly (oracle_cilqr.py:336, as iLQR.cpp
+    does), the JAX package and the port multiply by the rounded reciprocal:
+    on the benchmark's egos (float64, no obstacles, no costmap) the oracle
+    runs one LM iteration more, and only on lanes where the port stops on the
+    abort test a few ulps above lambda = 1e4; elsewhere the counts are equal,
+    and the controls stay within the 1e-3 control bar everywhere."""
+    p = dataclasses.replace(params, horizon=50)
+    plan, n, ego, U0, _, _ = torch_example(p, torch.float64, device=DEV)
+    egos = _bench_egos(ego.numpy(), 8)
+    res = tsolver.run_step(p, plan, n, torch.tensor(egos), U0.expand(8, p.horizon, 2))
+    plan_xy = plan[:int(n)].numpy()
+    departs = []
+    for b in range(8):
+        _, oU, _, oiters, _, _ = oracle.run_step(p, plan_xy, egos[b], U0.numpy())
+        extra = oiters - int(res.iterations[b])
+        assert extra in (0, 1), (b, oiters, int(res.iterations[b]))
+        if extra:
+            assert float(res.lamb[b]) > p.lamb_max, (b, float(res.lamb[b]))
+            departs.append(b)
+        np.testing.assert_allclose(res.U[b].numpy(), oU, atol=1e-3)
+    assert departs, "no lane shows the departure"
 
 
 @pytest.mark.parametrize("horizon", [30, 40, 50])
