@@ -7,6 +7,9 @@ The library goes to ``build/cilqr_tpu_torch/libcilqr_kernels.so`` at the
 repository root and is rebuilt when the hash of the sources changes.  Only
 the sources in the package are used.  A failed build raises with nvcc's
 output; nothing falls back.
+
+``build_explog`` compiles the experiment log's host library
+(``native/explog.cpp``) with the host compiler into the same directory.
 """
 
 from __future__ import annotations
@@ -120,6 +123,38 @@ def load_library() -> ctypes.CDLL:
     lib.cilqr_lm_config_size.restype = i
     lib.cilqr_error_string.argtypes = [i]
     lib.cilqr_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+EXPLOG_SOURCE = Path(__file__).resolve().parents[2] / "native" / "explog.cpp"
+EXPLOG_LIB = "libexplog.so"
+CXX_FLAGS = ["-O2", "-std=c++17", "-fPIC", "-Wall", "-Wextra"]  # native/Makefile's
+
+
+def build_explog() -> Path:
+    """Compile the experiment log's C ABI (``native/explog.cpp``, shared
+    with the JAX package) with the host compiler and the flags of
+    ``native/Makefile`` into ``BUILD_DIR``, unless a library of the current
+    source exists.  Returns the library path; a failed build raises."""
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    h.update(EXPLOG_SOURCE.read_bytes())
+    digest = h.hexdigest()[:16]
+    lib = BUILD_DIR / EXPLOG_LIB
+    stamp = BUILD_DIR / "explog.sha256"
+    if lib.exists() and stamp.exists() and stamp.read_text() == digest:
+        return lib
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    cxx = os.environ.get("CXX") or shutil.which("g++") or shutil.which("c++")
+    if cxx is None:
+        raise RuntimeError("no C++ compiler (g++ / c++) on PATH; the experiment log cannot be built")
+    # a private name, then an atomic rename: processes may build at once
+    tmp = BUILD_DIR / f"{EXPLOG_LIB}.{os.getpid()}"
+    out = subprocess.run([cxx, *CXX_FLAGS, "-shared", "-o", str(tmp), str(EXPLOG_SOURCE)],
+                         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if out.returncode != 0:
+        raise RuntimeError(f"{cxx} failed on {EXPLOG_SOURCE.name}:\n{out.stdout}")
+    os.replace(tmp, lib)
+    stamp.write_text(digest)
     return lib
 
 

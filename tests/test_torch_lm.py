@@ -193,6 +193,40 @@ def test_kernel_matches_plain_on_card(params, global_plan):
     assert bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all())
 
 
+@pytest.mark.cuda
+@pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA device")
+def test_kernel_on_the_local_costmap_grid_on_card(params, global_plan):
+    """K1 on the local costmap's grid (152 x 104 cells at 0.2 m: the map the
+    single-map build feeds ``run``), smooth blobs as the propagation leaves
+    them, N=40: at B=256 the iteration counts equal the plain version's on
+    >= 99% of lanes and lie within 1 on all; solved alone (B=1), each of 8
+    scenarios gives the bits it gets in the batch."""
+    p = dataclasses.replace(params, horizon=40)
+    rows, cols, res = 152, 104, 0.2
+    rng = np.random.default_rng(7)
+    ii, jj = np.meshgrid(np.arange(rows), np.arange(cols), indexing="ij")
+    vals = np.zeros((rows, cols))
+    for ci, cj, s in zip(rng.uniform(0, rows, 6), rng.uniform(0, cols, 6), rng.uniform(3, 12, 6)):
+        vals += 100.0 * np.exp(-((ii - ci) ** 2 + (jj - cj) ** 2) / (2.0 * s * s))
+    dev = torch.device("cuda")
+    _, _, to, _ = _world(p, jnp.float32, torch.float32)
+    to = tobs.Obstacles(*(t.to(dev) for t in to))
+    tu = tunc.make_uncertainty_map(np.minimum(vals, 100.0), [15.0, 0.0], res, [100.0, -305.6],
+                                   0.05, dtype=torch.float32, device=dev)
+    *_, tplan, tn, teg, tU = _batch(p, global_plan, 256, 9, jnp.float32, torch.float32)
+    teg, tU = teg.to(dev), tU.to(dev)
+    plans = trp.get_local_plan(p, tplan.to(dev), tn.to(dev), teg)
+    got = lm_cuda.fused_optimize(p, plans, teg, tU, to, tu)
+    want = lm_cuda.fused_optimize_plain(p, plans, teg, tU, to, tu)
+    assert float((got[2] == want[2]).float().mean()) >= 0.99
+    assert int((got[2] - want[2]).abs().max()) <= 1
+    assert bool(torch.isfinite(got[0]).all() and torch.isfinite(got[1]).all())
+    for i in range(8):
+        one = lm_cuda.fused_optimize(p, type(plans)(*(t[i:i + 1] for t in plans)),
+                                     teg[i:i + 1], tU[i:i + 1], to, tu)
+        assert all(torch.equal(a, b[i:i + 1]) for a, b in zip(one, got))
+
+
 def _iteration_inputs(p, global_plan, B, seed, jdtype, tdtype):
     """B scenarios at the initial rollout with random lambdas, shared
     obstacles and one random 48x32 map per scenario, in both packages."""
