@@ -26,11 +26,15 @@ that each went through its kernels:
   phase 14     the op-throughput probe ``utils.opbench`` (kernel K6);
   phase 15     the experiment layer through ``python -m cilqr_tpu_torch``,
                in process: ``run --full-stack`` (60 cycles: K4 and K1 at
-               B=1 per cycle), ``compare --full-stack`` (10 runs x 120
-               cycles on two scenarios: K5, K4, and K3 or K1) and ``sweep``
-               (sigmas 0 and 0.5, 50 runs x 160 cycles), with the first
-               cycles held to the same loops on the plain versions and K5
-               held to its plain version on the 1506x1506 synthetic town.
+               B=1 per cycle), ``compare --full-stack`` on the CLI's whole
+               algorithm axis (seven algorithms, 10 runs x 120 cycles on
+               two scenarios: K5 and K4 every cycle; K3 for `cilqr`, K1 for
+               `cilqr_base`, K2 for `ccnmpc`) and ``sweep`` on its six
+               (sigmas 0 and 0.5, 50 runs x 40 cycles), with the first
+               cycles of every algorithm held to the same loops on the plain
+               versions and K5 held to its plain version on the 1506x1506
+               synthetic town, and each algorithm's seconds, launches and
+               device idle share.
 
 Every phase prints a line (the profiles one per batch size); any failure
 raises, so the exit code is nonzero.  The last line is one JSON object:
@@ -271,7 +275,7 @@ def nudged_results(run, egos: torch.Tensor, count: int) -> list:
 
 
 def check_lanes(label: str, got, want32, want64, nudged32, chaotic_it_off: int = 1,
-                by_spread: bool = False, calm_it_off: int | None = None, cold: bool = False):
+                by_spread: bool = False, calm_it_off: int | None = None):
     """Hold a float32 solve result (X, U, it, J, lamb) per lane to a float32
     reference computed another way (want32) and to its float64 counterpart.
 
@@ -293,11 +297,13 @@ def check_lanes(label: str, got, want32, want64, nudged32, chaotic_it_off: int =
     version's by 5e-7 relative.  There the tests J_new < J_old (accept, and
     stop since |dJ| < 1e-4; or reject, multiply lambda by 10 and go on
     until lambda passes its cap) fall either way on a lane whose solution
-    agrees well within the bars.  In a ``cold`` first cycle (every lane
-    from the initial controls) the plain loop's own counts move under a
-    2-ulp nudge on up to half the calm lanes, so there the required share
-    is the median of the nudged references' shares against want32 where
-    that is below nine in ten.
+    agrees well within the bars.  Where the plain version's own counts move
+    under a 2-ulp nudge on more than one calm lane in ten (a cold first
+    cycle, every lane from the initial controls: up to half of them;
+    CCNMPC's two warm-started solves per cycle: 6-30%), the required share
+    is the median of the nudged references' shares against want32: a rule
+    that the plain version fails against its own nudges cannot hold a
+    kernel.
     Returns (summary line, calm-lane mask, share of lanes with equal counts,
     max full-horizon |dU| against want32 on the calm lanes)."""
     chaotic = lane_deviation(want32, want64)["fail"]
@@ -316,7 +322,7 @@ def check_lanes(label: str, got, want32, want64, nudged32, chaotic_it_off: int =
     off = (got[2] - want32[2]).abs()
     it_off = int(off.max())
     ref_shares = [float((res[2] == want32[2])[calm].float().mean()) for res in nudged32]
-    share_req = min(0.9, statistics.median(ref_shares)) if cold else 0.9
+    share_req = min(0.9, statistics.median(ref_shares))
     calm_rule = ("" if calm_it_off is None
                  else f", calm lanes held within their spread + {calm_it_off}, "
                       f"{100 * share_req:.0f}% equal required (nudged references: "
@@ -417,17 +423,21 @@ def pick(r) -> tuple:
 
 @contextlib.contextmanager
 def plain_versions():
-    """Inside: the wrappers of K1, K3, K4 (fields given and fused) and K5
-    (alone and with the overrides) run their plain versions on the card (the
-    launch functions are swapped; their arguments are the plain versions').
-    Only the comparisons use it."""
-    from cilqr_tpu_torch.ops import lm_cuda, sample_cuda, uncertainty_cuda
+    """Inside: the wrappers of K1, K2, K3, K4 (fields given and fused) and
+    K5 (alone and with the overrides) run their plain versions on the card
+    (the launch functions are swapped; their arguments are the plain
+    versions').  Only the comparisons use it."""
+    from cilqr_tpu_torch.ops import lm_cuda, riccati_cuda, sample_cuda, uncertainty_cuda
 
     saved = (lm_cuda._launch, lm_cuda._launch_iteration, uncertainty_cuda._launch,
-             uncertainty_cuda._launch_fused, sample_cuda._launch, sample_cuda._launch_vehicle_map)
+             uncertainty_cuda._launch_fused, sample_cuda._launch, sample_cuda._launch_vehicle_map,
+             riccati_cuda._launch)
     lm_cuda._launch = lambda p, plans, x0s, U_init, obstacles, unc_map, G=None: (
         lm_cuda.fused_optimize_plain(p, plans, x0s, U_init, obstacles, unc_map))
     lm_cuda._launch_iteration = lm_cuda.fused_iteration_plain
+    riccati_cuda._launch = lambda p, d, X, U, lamb, do_forward: (
+        riccati_cuda.backward_forward_plain if do_forward else riccati_cuda.backward_plain)(
+        p, d, X, U, lamb)
     uncertainty_cuda._launch = uncertainty_cuda.propagate_banded_plain
     uncertainty_cuda._launch_fused = uncertainty_cuda.propagate_fused_plain
     sample_cuda._launch = sample_cuda.sample_prior_batched_plain
@@ -436,8 +446,8 @@ def plain_versions():
         yield
     finally:
         (lm_cuda._launch, lm_cuda._launch_iteration, uncertainty_cuda._launch,
-         uncertainty_cuda._launch_fused, sample_cuda._launch,
-         sample_cuda._launch_vehicle_map) = saved
+         uncertainty_cuda._launch_fused, sample_cuda._launch, sample_cuda._launch_vehicle_map,
+         riccati_cuda._launch) = saved
 
 
 def require(cond: bool, what: str) -> None:
@@ -449,7 +459,9 @@ def require(cond: bool, what: str) -> None:
 # reference's experiments
 EXP_RUN_CYCLES = 60        # `run`'s default; horizon 40 is the CLI's default
 EXP_COMPARE_RUNS, EXP_COMPARE_CYCLES = 10, 120
-EXP_SWEEP_RUNS, EXP_SWEEP_CYCLES = 50, 160
+# the sweep's 160 cycles (the CLI's default) are cut to 40 so that the whole
+# algorithm axis fits the script's time
+EXP_SWEEP_RUNS, EXP_SWEEP_CYCLES = 50, 40
 EXP_SIGMAS = (0.0, 0.5)
 
 
@@ -457,20 +469,36 @@ def exp_run_argv() -> list:
     return ["run", "--full-stack", "--scenario", "success1", "--cycles", str(EXP_RUN_CYCLES)]
 
 
+EXP_SCENARIOS = ("compare", "gauntlet")
+
+
 def exp_compare_argv() -> list:
-    return ["compare", "--full-stack", "--scenarios", "compare,gauntlet", "--algorithms",
-            "cilqr,cilqr_base", "--runs", str(EXP_COMPARE_RUNS), "--cycles",
-            str(EXP_COMPARE_CYCLES)]
+    """The CLI's default algorithm axis (no --algorithms)."""
+    return ["compare", "--full-stack", "--scenarios", ",".join(EXP_SCENARIOS), "--runs",
+            str(EXP_COMPARE_RUNS), "--cycles", str(EXP_COMPARE_CYCLES)]
 
 
 def exp_sweep_argv() -> list:
-    return ["sweep", "--sigmas", ",".join(map(str, EXP_SIGMAS)), "--algorithms",
-            "cilqr,cilqr_base", "--runs", str(EXP_SWEEP_RUNS), "--cycles",
-            str(EXP_SWEEP_CYCLES)]
+    return ["sweep", "--sigmas", ",".join(map(str, EXP_SIGMAS)), "--runs", str(EXP_SWEEP_RUNS),
+            "--cycles", str(EXP_SWEEP_CYCLES)]
 
 
 EXP_LANE_CYCLES = 5    # cycles of (b) and (c) held to the loop on the plain versions
+# the sweep's `cilqr` is held on its first 2 cycles (the cold one and a warm
+# one): its float64 reference builds each costmap with the oracle
+# propagation over the sweep's widest window, ~15 s per cycle
+EXP_SWEEP_CILQR_HELD_CYCLES = 2
+EXP_RUN_HELD_EVERY = 2  # every 2nd of `run`'s K1 calls held to its plain version
 EXP_PROFILE_CYCLES = 3
+# the kernels each algorithm's planner launches (K4 and K5 come with the
+# full-stack costmap build); the others launch none
+EXP_PLANNER_KERNELS = {"cilqr": {"K3": "lm_iter_kernel"}, "cilqr_base": {"K1": "lm_opt_kernel"},
+                       "ccnmpc": {"K2": "riccati_kernel"}}
+EXP_BUILD_KERNELS = {"K4": "propagate_kernel", "K5": "sample_kernel"}
+# planners that read no kernel's output but K4's map, which equals its plain
+# version on every cell at these shapes (phase 12): their loops on the kernels
+# and on the plain versions must agree bit for bit
+EXP_EXACT = ("frenet_origin", "frenet_expansion", "frenet_propagation", "nrb_rrt")
 K5_TOWN_B = 1024
 
 
@@ -493,6 +521,80 @@ def recording(module, name: str, store: list, keep=lambda out, args, kw: out):
         setattr(module, name, fn)
 
 
+@contextlib.contextmanager
+def per_call(module, name: str, read_counts, store: list, label):
+    """Inside: every call of ``module.name`` appends (label(its arguments,
+    its keywords) taken as the call starts, its seconds, the kernel launches
+    it made, its result) to store; the device is idle when each call's clock
+    starts and stops."""
+    fn = getattr(module, name)
+
+    def wrapped(*args, **kw):
+        tag = label(args, kw)
+        torch.cuda.synchronize()
+        before, t0 = read_counts(), time.perf_counter()
+        out = fn(*args, **kw)
+        torch.cuda.synchronize()
+        seconds, after = time.perf_counter() - t0, read_counts()
+        store.append((tag, seconds, {k: after[k] - before[k] for k in after}, out))
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield store
+    finally:
+        setattr(module, name, fn)
+
+
+@contextlib.contextmanager
+def steps_recorded(runner, out: list):
+    """Inside: every planner step that ``runner.make_plan_step`` makes
+    appends its result (X, U, iterations, J, lamb) to out."""
+    make = runner.make_plan_step
+
+    def wrapped_make(*args, **kw):
+        step = make(*args, **kw)
+
+        def recorded(*a, **k):
+            res = step(*a, **k)
+            out.append(pick(res))
+            return res
+
+        return recorded
+
+    runner.make_plan_step = wrapped_make
+    try:
+        yield out
+    finally:
+        runner.make_plan_step = make
+
+
+def by_algorithm(calls: list, algorithms) -> dict:
+    """Per algorithm: (seconds, launches) summed over its calls of
+    ``per_call`` (label (algorithm, ...))."""
+    out = {}
+    for a in algorithms:
+        mine = [(s, n) for (label, s, n, _) in calls if label[0] == a]
+        out[a] = (sum(s for s, _ in mine),
+                  {k: sum(n[k] for _, n in mine) for k in mine[0][1]})
+    return out
+
+
+def expect_launches(label: str, algo: str, got: dict, cycles_built: int, lm_iter: int,
+                    cycles_k1: int, k2: int) -> None:
+    """An algorithm's launches in one command: K5 and K4 once per cycle of
+    its full-stack loops, K3 ``lm_iter`` times (`cilqr`), K1 once per cycle
+    of its shared-world solves (`cilqr_base`), K2 ``k2`` times (`ccnmpc`:
+    once per LM iteration of each two-phase solve), nothing else."""
+    want = {"sample": cycles_built, "uncertainty": cycles_built,
+            "lm_iter": lm_iter if algo == "cilqr" else 0,
+            "lm": cycles_k1 if algo == "cilqr_base" else 0,
+            "riccati": k2 if algo == "ccnmpc" else 0}
+    require(got == want, f"{label} {algo}: launches {got}, expected {want}")
+    if algo == "ccnmpc":
+        require(k2 > 0, f"{label} ccnmpc launched no K2")
+
+
 def cli_call(argv: list, dev: torch.device, out_dir=None) -> tuple:
     """(seconds, standard output) of one in-process call of the port's CLI
     (``python -m cilqr_tpu_torch``) on ``dev``, which is idle before the
@@ -512,15 +614,29 @@ def cli_call(argv: list, dev: torch.device, out_dir=None) -> tuple:
     return seconds, buf.getvalue()
 
 
-def check_records(label: str, recs: list, max_iterations: int) -> None:
-    """Every record finite, every LM iteration count in [1, max_iterations]."""
+def check_records(label: str, recs: list, lo: int, hi: int) -> None:
+    """Every record finite, every iteration count (LM iterations; the
+    Frenet lattice's selected candidate; NRB-RRT's node count) in [lo, hi]."""
     for rec in recs:
         for k, v in rec.items():
             require(bool(torch.isfinite(torch.as_tensor(v).double()).all()),
                     f"{label}: non-finite {k}")
         it = torch.as_tensor(rec["iterations"])
-        require(1 <= int(it.min()) and int(it.max()) <= max_iterations,
-                f"{label}: iterations outside [1, {max_iterations}]")
+        require(lo <= int(it.min()) and int(it.max()) <= hi,
+                f"{label}: iterations outside [{lo}, {hi}]")
+
+
+def iteration_range(p, algo: str) -> tuple:
+    """The range of ``algo``'s iterations record: LM iterations for the
+    CILQR solves, the selected candidate for the Frenet lattice, the nodes
+    grown for NRB-RRT."""
+    from cilqr_tpu_torch.models import frenet, nrb_rrt
+
+    if algo.startswith("frenet"):
+        return 0, frenet.FrenetParams().n_candidates - 1
+    if algo == "nrb_rrt":
+        return 1, nrb_rrt.NRBParams().max_nodes
+    return 1, p.max_iterations
 
 
 def hold_loop(label: str, run, x0s: torch.Tensor, draws: torch.Tensor, counts) -> tuple:
@@ -530,7 +646,7 @@ def hold_loop(label: str, run, x0s: torch.Tensor, draws: torch.Tensor, counts) -
     float32, in float64 (plain stages, oracle costmap build) and on egos
     moved by 2 ulps; the float32 plain loop runs the egos and their nudged
     copies as one batch (the loops are launch-bound; the batch moves a
-    lane's result by rounding at most, as the nudges do).  Cycle 1 is cold (``check_lanes``).  A lane
+    lane's result by rounding at most, as the nudges do).  A lane
     found chaotic in one cycle has left its references for good and is left
     out of the later cycles; half the lanes must be calm after cycle 1.
     Returns (the kernel route's launches, its per-cycle results, the
@@ -560,7 +676,7 @@ def hold_loop(label: str, run, x0s: torch.Tensor, draws: torch.Tensor, counts) -
         line, calm, _, _ = check_lanes(
             f"{label}, cycle {t + 1}", sub(got[t]), sub(want32[t]), sub(want64[t]),
             [sub(nc[t]) for nc in nudged], chaotic_it_off=2, by_spread=True,
-            calm_it_off=FS_CALM_IT_OFF, cold=t == 0)
+            calm_it_off=FS_CALM_IT_OFF)
         lines.append(f"cycle {t + 1} ({int(keep.sum())} lanes held): {line}")
         keep[keep.clone()] = calm
         if t == 0:
@@ -609,20 +725,24 @@ def hold_calls(label: str, calls: list) -> str:
     return line
 
 
-def experiment_layer(card: str, counts, dev: torch.device) -> dict:
+def experiment_layer(card: str, counts, dev: torch.device) -> tuple:
     """Phase 15: the experiment layer through the port's CLI, in process, on
     the card, in a temporary directory: (a) `run --full-stack` (K4 in its
     single-map form and K1 at B=1 per cycle), (b) `compare --full-stack` on
-    two scenarios (per cycle K5 and K4; K3 per LM iteration for `cilqr`, K1
-    for `cilqr_base`), (c) `sweep` over two sigmas (the full stack with K5,
-    K4 and K3 for `cilqr`; `closed_loop_batched`, K1 per cycle, for
-    `cilqr_base`).  Launch counts as those routes say, records finite, the
-    first cycles of (b) and (c) held to the same loops on the plain
-    versions, K5 exact on the synthetic town at poses along and off the
-    `long` route, and the time of each command.  Returns the launch counts
-    of each command."""
+    two scenarios and the CLI's seven algorithms (per cycle K5 and K4; K3
+    per LM iteration for `cilqr`, K1 for `cilqr_base`, K2 per LM iteration
+    of each two-phase solve for `ccnmpc`; the Frenet lattice and NRB-RRT
+    launch no kernel of their own), (c) `sweep` over two sigmas and six
+    algorithms (`cilqr` and `frenet_propagation` on the full stack with K5
+    and K4; the others on `closed_loop_batched`).  Launch counts as those
+    routes say, per algorithm, records finite, the first cycles of every
+    algorithm of (b) and (c) held to the same loops on the plain versions,
+    K5 exact on the synthetic town at poses along and off the `long` route,
+    the time of each command and algorithm, and a profile of 3 cycles of
+    each.  Returns (the launch counts of each command, per command and
+    algorithm its seconds, launches and vehicle-cycles/s)."""
     from cilqr_tpu_torch import CostmapParams, NoiseParams, SolverParams
-    from cilqr_tpu_torch.models import reference_path as rp, solver_batched
+    from cilqr_tpu_torch.models import nrb_rrt, reference_path as rp, solver_batched
     from cilqr_tpu_torch.ops import costmap as costmap_mod, sample_cuda
     from cilqr_tpu_torch.sim import plant, runner, scenarios, sweep
 
@@ -632,7 +752,6 @@ def experiment_layer(card: str, counts, dev: torch.device) -> dict:
     cp = CostmapParams()
     noise = NoiseParams()
     launches = {}
-    record = lambda out, *_: out[1]  # a closed loop's record
     with tempfile.TemporaryDirectory(prefix="cilqr_exp_") as tmp_name:
         tmp = pathlib.Path(tmp_name)
 
@@ -652,7 +771,7 @@ def experiment_layer(card: str, counts, dev: torch.device) -> dict:
                 f"run --full-stack launches {launches['run']}, expected K4 and K1 "
                 f"{run_cycles + 1} times")
         rec = runs[0]
-        check_records("run", [rec], p.max_iterations)
+        check_records("run", [rec], 1, p.max_iterations)
         summary = json.loads(run_out)
         for f in ("experiment.log", "metrics.csv"):
             require((tmp / "run" / f).exists(), f"run wrote no {f}")
@@ -670,79 +789,127 @@ def experiment_layer(card: str, counts, dev: torch.device) -> dict:
               f"iterations {summary['mean_iterations']} | {run_s:.3f} s for the command | "
               f"analyze {an_s:.3f} s, velocity_mean {row['velocity_mean']:.3f} on {card}",
               flush=True)
-        # each of the run's K1 calls against K1's plain version on its inputs
+        # every 2nd of the run's K1 calls (the warm-up and cycles 2, 4, ...)
+        # against K1's plain version on its inputs
         t0 = time.perf_counter()
         maps = {tuple(args[6].values.shape) for args, _, _ in k1_calls}
         require(len(k1_calls) == run_cycles + 1 and maps == {(cp.rows, cp.cols)},
                 f"run: {len(k1_calls)} planner calls on maps {maps}")
-        k1_line = hold_calls("run K1", k1_calls)
+        k1_line = hold_calls("run K1", k1_calls[::EXP_RUN_HELD_EVERY])
         require(read_counts() == launches["run"], "run: a plain-version solve launched a kernel")
-        print(f"[15 run K1] the run's {len(k1_calls)} K1 calls (B=1, map {cp.rows} x {cp.cols}) vs "
+        print(f"[15 run K1] {len(k1_calls[::EXP_RUN_HELD_EVERY])} of the run's {len(k1_calls)} "
+              f"K1 calls (B=1, map {cp.rows} x {cp.cols}) vs "
               f"fused_optimize_plain on the same inputs: {k1_line} "
               f"({time.perf_counter() - t0:.1f} s)", flush=True)
         del k1_calls
 
-        # (b) the 10-run batches, full stack: per scenario and algorithm one
-        # batched loop of B = runs, in the order compare/cilqr,
-        # compare/cilqr_base, gauntlet/cilqr, gauntlet/cilqr_base
-        loops = []
+        # (b) the 10-run batches, full stack, on the CLI's whole algorithm
+        # axis: per scenario and algorithm one batched loop of B = runs, in
+        # the order compare/cilqr, ..., compare/nrb_rrt, gauntlet/cilqr, ...
+        # Each loop's seconds and launches are read around its call; the
+        # two-phase solves are recorded, for K2's expected count
+        calls, solves = [], []
         cmp_cycles = EXP_COMPARE_CYCLES
+        two_phase = lambda out, args, kw: (args[5] is not None and args[5].pos.ndim == 4,
+                                           out.iterations.amax())
         zero_counts()
-        with recording(plant, "closed_loop_full_stack_batched", loops, keep=record):
+        with per_call(runner, "run_experiment_batch", read_counts, calls,
+                      lambda args, kw: (kw["algorithm"], args[5].name, len(solves))), \
+                recording(solver_batched, "run_steps_batched", solves, keep=two_phase):
             cmp_s, cmp_out = cli_call(exp_compare_argv(), dev, tmp / "compare")
         launches["compare"] = read_counts()
-        k3 = sum(int(r["iterations"].amax(dim=1).sum()) for r in loops[0::2])
-        require(len(loops) == 4 and launches["compare"] == {
-            "sample": 4 * cmp_cycles, "uncertainty": 4 * cmp_cycles, "lm_iter": k3,
-            "lm": 2 * cmp_cycles, "riccati": 0},
-            f"compare --full-stack launches {launches['compare']}, expected K5 and K4 "
-            f"{4 * cmp_cycles}, K3 {k3}, K1 {2 * cmp_cycles}")
-        check_records("compare", loops, p.max_iterations)
+        algos = runner.ALGORITHMS
+        require([c[0][:2] for c in calls] == [(a, sc) for sc in EXP_SCENARIOS for a in algos],
+                f"compare ran {[c[0][:2] for c in calls]}")
+        ends = [c[0][2] for c in calls[1:]] + [len(solves)]
+        k2_of = lambda i: sum(int(it) for tp, it in solves[calls[i][0][2]:ends[i]] if tp)
+        per_algo = by_algorithm(calls, algos)
+        cmp_algo = {}
+        for a in algos:
+            mine = [i for i, c in enumerate(calls) if c[0][0] == a]
+            recs = [calls[i][3][0]["record"] for i in mine]
+            lm_iter = sum(int(r["iterations"].amax(dim=0).sum()) for r in recs)
+            k2 = sum(k2_of(i) for i in mine)
+            cycles = len(EXP_SCENARIOS) * cmp_cycles
+            expect_launches("compare", a, per_algo[a][1], cycles, lm_iter, cycles, k2)
+            check_records(f"compare {a}", recs, *iteration_range(p, a))
+            secs = per_algo[a][0]
+            cmp_algo[a] = dict(seconds=secs, launches=per_algo[a][1],
+                               vehicle_cycles_per_s=EXP_COMPARE_RUNS * cycles / secs)
+        require(sum(per_algo[a][1]["riccati"] for a in algos) == launches["compare"]["riccati"],
+                "compare: K2 launched outside the loops")
         require((tmp / "compare" / "comparison.csv").exists(), "compare wrote no comparison.csv")
         cmp_summary = json.loads(cmp_out)
-        cmp_vc = 4 * EXP_COMPARE_RUNS * cmp_cycles
+        cmp_vc = len(algos) * len(EXP_SCENARIOS) * EXP_COMPARE_RUNS * cmp_cycles
         print(f"[15 compare] `{' '.join(exp_compare_argv())}`: launches {launches['compare']} | "
-              f"{cmp_s:.3f} s = {cmp_vc / cmp_s:.1f} vehicle-cycles/s ({cmp_vc} cycles) | "
-              + " | ".join(f"{k}: {v['collision_runs']} collision runs, velocity "
-                           f"{v['velocity_mean']}, min obstacle distance "
-                           f"{v['min_obstacle_distance']}" for k, v in cmp_summary.items())
-              + f" on {card}", flush=True)
+              f"{cmp_s:.3f} s = {cmp_vc / cmp_s:.1f} vehicle-cycles/s ({cmp_vc} cycles) on "
+              f"{card}", flush=True)
+        for a, v in cmp_algo.items():
+            rows = [(k, r) for k, r in cmp_summary.items() if k.endswith("/" + a)]
+            print(f"[15 compare {a}] {v['seconds']:.3f} s for {len(EXP_SCENARIOS)} x "
+                  f"{EXP_COMPARE_RUNS} runs x {cmp_cycles} cycles = "
+                  f"{v['vehicle_cycles_per_s']:.1f} vehicle-cycles/s | launches {v['launches']}"
+                  + (f" = {v['launches']['riccati'] / (len(EXP_SCENARIOS) * cmp_cycles):.2f} "
+                     "K2 per cycle" if a == "ccnmpc" else "") + " | "
+                  + " | ".join(f"{k}: {r['collision_runs']} collision runs, velocity "
+                               f"{r['velocity_mean']}, min obstacle distance "
+                               f"{r['min_obstacle_distance']}" for k, r in rows), flush=True)
+        del calls, solves
 
-        # (c) the sigma sweep: cilqr on the full stack, cilqr_base blind
-        fs_loops, blind_loops = [], []
+        # (c) the sigma sweep on its six algorithms: cilqr and
+        # frenet_propagation on the full stack, the others blind
+        calls, solves = [], []
         sw_cycles = EXP_SWEEP_CYCLES
         zero_counts()
-        with recording(plant, "closed_loop_full_stack_batched", fs_loops, keep=record), \
-                recording(plant, "closed_loop_batched", blind_loops, keep=record):
+        with per_call(sweep, "run_cell", read_counts, calls,
+                      lambda args, kw: (args[0], args[8], len(solves))), \
+                recording(solver_batched, "run_steps_batched", solves, keep=two_phase):
             sw_s, sw_out = cli_call(exp_sweep_argv(), dev, tmp / "sweep")
         launches["sweep"] = read_counts()
-        k3 = sum(int(r["iterations"].amax(dim=1).sum()) for r in fs_loops)
+        algos_sw = sweep.SWEEP_ALGORITHMS
         n_sig = len(EXP_SIGMAS)
-        require(len(fs_loops) == n_sig and len(blind_loops) == n_sig and launches["sweep"] == {
-            "sample": n_sig * sw_cycles, "uncertainty": n_sig * sw_cycles, "lm_iter": k3,
-            "lm": n_sig * sw_cycles, "riccati": 0},
-            f"sweep launches {launches['sweep']}, expected K5 and K4 {n_sig * sw_cycles}, K3 "
-            f"{k3}, K1 {n_sig * sw_cycles}")
-        check_records("sweep", fs_loops + blind_loops, p.max_iterations)
+        require(sorted(c[0][:2] for c in calls) == sorted(
+            (a, s) for a in algos_sw for s in EXP_SIGMAS), f"sweep ran {[c[0] for c in calls]}")
+        ends = [c[0][2] for c in calls[1:]] + [len(solves)]
+        per_algo = by_algorithm(calls, algos_sw)
+        sw_algo = {}
+        for a in algos_sw:
+            mine = [i for i, c in enumerate(calls) if c[0][0] == a]
+            recs = [calls[i][3] for i in mine]
+            lm_iter = sum(int(r["iterations"].amax(dim=0).sum()) for r in recs)
+            k2 = sum(k2_of(i) for i in mine)
+            built = n_sig * sw_cycles if a in sweep.MAP_CONSUMERS else 0
+            expect_launches("sweep", a, per_algo[a][1], built, lm_iter, n_sig * sw_cycles, k2)
+            check_records(f"sweep {a}", recs, *iteration_range(p, a))
+            secs = per_algo[a][0]
+            sw_algo[a] = dict(seconds=secs, launches=per_algo[a][1],
+                              vehicle_cycles_per_s=EXP_SWEEP_RUNS * n_sig * sw_cycles / secs)
         rows = json.loads((tmp / "sweep" / "sweep.json").read_text())
-        require(len(rows) == 2 * n_sig and (tmp / "sweep" / "sweep.md").exists(),
+        require(len(rows) == len(algos_sw) * n_sig and (tmp / "sweep" / "sweep.md").exists(),
                 "sweep wrote the wrong rows")
         tests = []
-        for s in EXP_SIGMAS:
-            by = {r["algorithm"]: r for r in rows if r["sigma_xy"] == s}
+        for s_ in EXP_SIGMAS:
+            by = {r["algorithm"]: r for r in rows if r["sigma_xy"] == s_}
             t = sweep.paired_sign_test(by["cilqr"], by["cilqr_base"])
-            tests.append(f"sigma {s}: cilqr {by['cilqr']['collision_runs']} vs cilqr_base "
-                         f"{by['cilqr_base']['collision_runs']} collision runs of "
-                         f"{EXP_SWEEP_RUNS} (only cilqr {t['only_a']}, only cilqr_base "
-                         f"{t['only_b']}, sign test p = {t['p_value']:.3g})")
-        sw_vc = 2 * n_sig * EXP_SWEEP_RUNS * sw_cycles
+            tests.append(f"sigma {s_}: " + ", ".join(
+                f"{a} {by[a]['collision_runs']}" for a in algos_sw)
+                + f" collision runs of {EXP_SWEEP_RUNS} (cilqr vs cilqr_base: only cilqr "
+                f"{t['only_a']}, only cilqr_base {t['only_b']}, sign test p = {t['p_value']:.3g})")
+        sw_vc = len(algos_sw) * n_sig * EXP_SWEEP_RUNS * sw_cycles
         print(f"[15 sweep] `{' '.join(exp_sweep_argv())}`: launches {launches['sweep']} | "
               f"{sw_s:.3f} s = {sw_vc / sw_s:.1f} vehicle-cycles/s ({sw_vc} cycles) | "
               + " | ".join(tests) + f" on {card}", flush=True)
+        for a, v in sw_algo.items():
+            print(f"[15 sweep {a}] {v['seconds']:.3f} s for {n_sig} sigmas x {EXP_SWEEP_RUNS} "
+                  f"runs x {sw_cycles} cycles = {v['vehicle_cycles_per_s']:.1f} vehicle-cycles/s "
+                  f"| launches {v['launches']}", flush=True)
         print("[15 sweep table]\n" + sweep.format_table(rows), flush=True)
+        del calls, solves
 
     # the first cycles of (b) and (c) against the same loops on the plain
-    # versions (K1, K3, K4, K5 swapped), with the draws the commands drew
+    # versions (K1, K2, K3, K4, K5 swapped), with the draws the commands
+    # drew: by hold_loop's rule where the planner goes through a kernel or
+    # reads K4's map, bit for bit where it reads neither
     town32 = sweep.synthetic_town_prior(torch.float32, dev)
     town64 = (town32[0].double(), type(town32[1])(*(t.double() for t in town32[1])))
     sc = scenarios.get_scenario("gauntlet")
@@ -754,19 +921,22 @@ def experiment_layer(card: str, counts, dev: torch.device) -> dict:
 
     def captured(fn):
         out = []
-        with recording(solver_batched, "run_steps_batched", out, keep=lambda o, *_: pick(o)):
+        with steps_recorded(runner, out):
             fn()
         return out
 
     def compare_loop(algo):
+        nrb = runner.nrb_params_for_scenario(p, sc) if algo == "nrb_rrt" else None
+
         def run(x0s, draws, dtype, use_kernels):
             (gm, gg), plan, n = world(dtype)
             ob, obs_xyyaw, obs_size, obs_mask = runner.build_scenario_inputs(p, sc, dtype, dev)
-            step = runner.make_plan_step(algo, p, plan, n, obstacles=ob)
             return captured(lambda: plant.closed_loop_full_stack_batched(
                 p, cp, noise, gm, gg, plan, n, x0s, None, draws.shape[0], obstacles=ob,
                 obs_xyyaw=obs_xyyaw, obs_size=obs_size, obs_mask=obs_mask,
-                use_kernels=use_kernels, plan_step_batched=step, noise_draws=draws))
+                use_kernels=use_kernels, noise_draws=draws,
+                plan_step_batched=runner.make_plan_step(algo, p, noise, plan, n, obstacles=ob,
+                                                        nrb_params=nrb)))
         return run
 
     p_sw = dataclasses.replace(p, w_uncertainty=5.0)  # the sweep's default
@@ -788,18 +958,51 @@ def experiment_layer(card: str, counts, dev: torch.device) -> dict:
         return run
 
     x0 = torch.tensor(sc.start, dtype=torch.float32, device=dev)
-    for label, runs_, cycles, loop in (
-            ("compare", EXP_COMPARE_RUNS, cmp_cycles, compare_loop),
-            (f"sweep sigma {s_hi}", EXP_SWEEP_RUNS, sw_cycles, sweep_loop)):
+    for label, runs_, cycles, loop, algos_ in (
+            ("compare", EXP_COMPARE_RUNS, cmp_cycles, compare_loop, runner.ALGORITHMS),
+            (f"sweep sigma {s_hi}", EXP_SWEEP_RUNS, sw_cycles, sweep_loop,
+             sweep.SWEEP_ALGORITHMS)):
         # the commands' block: runner.noise_block from seed 0 on the card
-        draws = runner.noise_block((cycles, runs_, 3), seed=0, device=dev)[:EXP_LANE_CYCLES]
+        block = runner.noise_block((cycles, runs_, 3), seed=0, device=dev)
         x0s = x0.expand(runs_, 4).contiguous()
-        for algo in ("cilqr", "cilqr_base"):
+        for algo in algos_:
+            held = (EXP_SWEEP_CILQR_HELD_CYCLES if loop is sweep_loop and algo == "cilqr"
+                    else EXP_LANE_CYCLES)
+            draws = block[:held]
+            head = (f"[15 lanes] {label} (gauntlet) {algo}, {runs_} lanes, first {held} cycles "
+                    "vs the loop on the plain versions")
+            if algo in EXP_EXACT:
+                t0 = time.perf_counter()
+                zero_counts()
+                got = loop(algo)(x0s, draws, torch.float32, True)
+                torch.cuda.synchronize()
+                got_launches = read_counts()
+                with plain_versions():
+                    want = loop(algo)(x0s, draws, torch.float32, True)
+                require(read_counts() == got_launches, f"{label} {algo}: a plain-version loop "
+                        "launched a kernel")
+                same = lambda a, b: len(a) == len(b) == held and all(
+                    torch.equal(g, w) for gc, wc in zip(a, b) for g, w in zip(gc, wc))
+                require(same(got, want), f"{label} {algo}: the planner's results differ from "
+                        "the loop on the plain versions")
+                eager = ""
+                if algo == "nrb_rrt":
+                    # the planner replays a CUDA graph: the loop run eagerly
+                    nrb_rrt.GRAPHS = False
+                    try:
+                        require(same(got, loop(algo)(x0s, draws, torch.float32, True)),
+                                f"{label} nrb_rrt: the graph's results differ from the eager run")
+                    finally:
+                        nrb_rrt.GRAPHS = True
+                    eager = ", and to the loop run eagerly (no CUDA graph)"
+                print(f"{head}: launches {got_launches} || every cycle's X, U, iterations, J and "
+                      f"lamb equal bit for bit (the planner reads no kernel's output"
+                      f"{' but K4' if algo == 'frenet_propagation' else ''}){eager} "
+                      f"({time.perf_counter() - t0:.1f} s)", flush=True)
+                continue
             got_launches, _, line = hold_loop(f"{label} {algo}", loop(algo), x0s, draws,
                                               (zero_counts, read_counts))
-            print(f"[15 lanes] {label} (gauntlet) {algo}, {runs_} lanes, first {EXP_LANE_CYCLES} "
-                  f"cycles vs the loop on the plain versions: launches {got_launches} || {line}",
-                  flush=True)
+            print(f"{head}: launches {got_launches} || {line}", flush=True)
 
     # K5 on the synthetic town (1506 x 1506 cells at 0.2 m, unknown cells at
     # 100): exact against its plain version at frames along the `long` route
@@ -834,30 +1037,33 @@ def experiment_layer(card: str, counts, dev: torch.device) -> dict:
           "read occupied or unknown (100)", flush=True)
     del got, want, got_v, want_v, bbox
 
-    # where the time goes: 3 cycles of each command's loop (the maps made
-    # beforehand), device time by kernel against the call's time
+    # where the time goes: 3 cycles of each command's loops (the maps made
+    # beforehand), per algorithm: device time by kernel against the call's
+    # time, and the device's idle share
     cm_kw = dict(costmap_params=cp, global_map=gm, global_geom=gg, device=dev)
     succ = scenarios.get_scenario("success1")
-    profiles = (
-        ("run", lambda: runner.run_experiment(
-            p, noise, scenarios.plan_for("success1"), np.array(succ.start), EXP_PROFILE_CYCLES,
-            scenario=succ, **cm_kw), {"K1": "lm_opt_kernel", "K4": "propagate_kernel"}, None),
-        ("compare", lambda: [runner.run_algorithm_comparison(
+    profiles = [("run", lambda: runner.run_experiment(
+        p, noise, scenarios.plan_for("success1"), np.array(succ.start), EXP_PROFILE_CYCLES,
+        scenario=succ, **cm_kw), {"K1": "lm_opt_kernel", "K4": "propagate_kernel"}, None)]
+    for a in runner.ALGORITHMS:
+        profiles.append((f"compare {a}", lambda a=a: [runner.run_experiment_batch(
             p, noise, scenarios.plan_for(name), np.array(scenarios.get_scenario(name).start),
-            EXP_PROFILE_CYCLES, scenarios.get_scenario(name), n_runs=EXP_COMPARE_RUNS, **cm_kw)
-            for name in ("compare", "gauntlet")],
-         {"K1": "lm_opt_kernel", "K3": "lm_iter_kernel", "K4": "propagate_kernel",
-          "K5": "sample_kernel"}, "uncertainty_sample_batched"),
-        ("sweep", lambda: sweep.run_sigma_sweep(
-            list(EXP_SIGMAS), p=p_sw, n_runs=EXP_SWEEP_RUNS, n_cycles=EXP_PROFILE_CYCLES,
+            EXP_PROFILE_CYCLES, scenarios.get_scenario(name), n_runs=EXP_COMPARE_RUNS,
+            algorithm=a, **cm_kw) for name in EXP_SCENARIOS],
+            {**EXP_BUILD_KERNELS, **EXP_PLANNER_KERNELS.get(a, {})},
+            "uncertainty_sample_batched" if a == "cilqr" else None))
+    for a in sweep.SWEEP_ALGORITHMS:
+        profiles.append((f"sweep {a}", lambda a=a: sweep.run_sigma_sweep(
+            list(EXP_SIGMAS), (a,), p=p_sw, n_runs=EXP_SWEEP_RUNS, n_cycles=EXP_PROFILE_CYCLES,
             global_map=gm, global_geom=gg, device=dev),
-         {"K1": "lm_opt_kernel", "K3": "lm_iter_kernel", "K4": "propagate_kernel",
-          "K5": "sample_kernel"}, "uncertainty_sample_batched"))
+            {**(EXP_BUILD_KERNELS if a in sweep.MAP_CONSUMERS else {}),
+             **EXP_PLANNER_KERNELS.get(a, {})},
+            "uncertainty_sample_batched" if a == "cilqr" else None))
     for label, fn, kern, ann in profiles:
         print(f"[15 profile] {label}, {EXP_PROFILE_CYCLES} cycles: "
               + profile_line(fn, reps=1, kernels=kern, annotation=ann), flush=True)
     print(f"[15 done] phase 15 took {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return launches
+    return launches, {"compare": cmp_algo, "sweep": sw_algo}
 
 
 def main() -> None:
@@ -1969,12 +2175,18 @@ def main() -> None:
     print("[14 report] " + json.dumps(report), flush=True)
 
     # 15. the experiment layer: the CLI's run, compare and sweep
-    exp_launches = experiment_layer(card, (zero_counts, read_counts), dev)
-    for name in ("lm", "lm_iter", "uncertainty", "sample"):
+    exp_launches, exp_algos = experiment_layer(card, (zero_counts, read_counts), dev)
+    for name in ("lm", "riccati", "lm_iter", "uncertainty", "sample"):
         kernels[name]["experiment_launches"] = {cmd: c[name] for cmd, c in exp_launches.items()}
+        kernels[name]["experiment_launches_by_algorithm"] = {
+            cmd: {a: v["launches"][name] for a, v in by.items() if v["launches"][name]}
+            for cmd, by in exp_algos.items()}
 
     kernels["lm"]["launches"] = main_launches["lm"]
-    kernels["riccati"]["launches"] = main_launches["riccati"]
+    # K2's own path: ccnmpc's two-phase solves in `compare --full-stack`
+    kernels["riccati"]["launches"] = exp_launches["compare"]["riccati"]
+    kernels["riccati"]["path"] = "compare --full-stack, ccnmpc, phase 15"
+    kernels["riccati"]["main_path_launches"] = main_launches["riccati"]
     kernels["riccati"]["on_main_path"] = (
         "inside lm_opt: its device functions riccati_backward_step and rollout_step run "
         "in K1, so impl='mega' does not launch it on its own")

@@ -11,7 +11,7 @@ with:
 
     python -m cilqr_tpu_torch analyze /tmp/exp/experiment.log --scenario success1
 
-    python -m cilqr_tpu_torch compare --full-stack --algorithms cilqr,cilqr_base
+    python -m cilqr_tpu_torch compare --full-stack --algorithms cilqr,ccnmpc,nrb_rrt
 
     python -m cilqr_tpu_torch sweep --sigmas 0.0,0.25,0.5 --runs 10
 
@@ -154,8 +154,8 @@ def _cmd_compare(args) -> int:
     out_dir = pathlib.Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
     # per-cycle uncertainty costmaps from the global prior — the complete
-    # map_engine + planner pipeline; without it `cilqr` degrades to its
-    # base algorithm (no costmap to consume)
+    # map_engine + planner pipeline; without it the uncertainty-consuming
+    # variants degrade to their base algorithms (no costmap to consume)
     cm_kwargs = _costmap_kwargs(args, out_dir)
 
     all_rows, summary = [], {}
@@ -234,6 +234,7 @@ def _cmd_sweep(args) -> int:
 
 
 def main(argv=None) -> int:
+    from cilqr_tpu_torch.sim.runner import ALGORITHMS
     from cilqr_tpu_torch.sim.sweep import SWEEP_ALGORITHMS
 
     ap = argparse.ArgumentParser(prog="cilqr_tpu_torch")
@@ -247,7 +248,7 @@ def main(argv=None) -> int:
     r = with_device(sub.add_parser("run", help="closed-loop scenario experiment"))
     r.add_argument("--scenario", default="success1")
     r.add_argument("--algorithm", default="cilqr",
-                   help="one of sim.runner.ALGORITHMS the port has: cilqr, cilqr_base")
+                   help="one of sim.runner.ALGORITHMS")
     r.add_argument("--cycles", type=int, default=60)
     r.add_argument("--horizon", type=int, default=40)
     r.add_argument("--out", default="/tmp/cilqr_exp")
@@ -282,8 +283,8 @@ def main(argv=None) -> int:
     c = with_device(sub.add_parser(
         "compare", help="multi-algorithm closed-loop comparison campaign"))
     c.add_argument("--scenarios", default="success1,success2,success3,compare")
-    c.add_argument("--algorithms", default="cilqr,cilqr_base",
-                   help="comma-separated subset of sim.runner.ALGORITHMS the port has")
+    c.add_argument("--algorithms", default=",".join(ALGORITHMS),
+                   help="comma-separated subset of sim.runner.ALGORITHMS")
     c.add_argument("--runs", type=int, default=10)
     c.add_argument("--cycles", type=int, default=120)
     c.add_argument("--horizon", type=int, default=40)
@@ -307,12 +308,12 @@ def main(argv=None) -> int:
     s = with_device(sub.add_parser(
         "sweep",
         help="sigma-sweep campaign on the gauntlet scenario (uncertainty "
-             "term ablation: cilqr vs cilqr_base)"))
+             "term ablation: cilqr vs cilqr_base, frenet ablations)"))
     s.add_argument("--sigmas", default="0.0,0.125,0.25,0.375,0.5",
                    help="comma-separated sigma_xy grid [m]")
-    s.add_argument("--algorithms", default="cilqr,cilqr_base",
-                   help="comma-separated subset of sim.sweep.SWEEP_ALGORITHMS the port has "
-                        f"(the full axis: {','.join(SWEEP_ALGORITHMS)})")
+    s.add_argument("--algorithms", default=",".join(SWEEP_ALGORITHMS),
+                   help="comma-separated subset of sim.sweep.SWEEP_ALGORITHMS "
+                        "(default: the full batch_dataprocess.py:458-463 axis)")
     s.add_argument("--runs", type=int, default=10)
     s.add_argument("--cycles", type=int, default=160)
     s.add_argument("--horizon", type=int, default=40)

@@ -245,11 +245,13 @@ def closed_loop_full_stack(p: SolverParams, cp: CostmapParams, noise: NoiseParam
 def closed_loop_batched(p: SolverParams, noise: NoiseParams, plan_xy: torch.Tensor, plan_n,
                         x0s: torch.Tensor, generator: Optional[torch.Generator], n_cycles: int,
                         obstacles=None, unc_map=None, obs_xyyaw=None, obs_size=None,
-                        obs_mask=None, noise_draws=None):
+                        obs_mask=None, noise_draws=None, plan_step_batched=None):
     """Closed loop over a scenario batch x0s (B, 4) on the fused path: every
     plan -> act cycle solves the whole batch through
     ``run_steps_batched(impl="mega")`` (kernel K1 on the card), on one
-    shared world.  ``noise_draws`` (T, B, 3).
+    shared world.  ``plan_step_batched(noisy_states, U_warm) -> batched
+    SolveResult-like`` swaps in another batched planner (the baselines of
+    ``sim.runner.make_plan_step``).  ``noise_draws`` (T, B, 3).
 
     Returns (final states (B, 4), dict of (T, B, ...) records)."""
     B = x0s.shape[0]
@@ -259,8 +261,11 @@ def closed_loop_batched(p: SolverParams, noise: NoiseParams, plan_xy: torch.Tens
     states, recs = x0s, []
     for t in range(n_cycles):
         noisy = inject_noise(noise, draws[t], states)
-        res = solver_batched.run_steps_batched(p, plan_xy, plan_n, noisy, U_warm.contiguous(),
-                                               obstacles, unc_map)
+        if plan_step_batched is not None:
+            res = plan_step_batched(noisy, U_warm)
+        else:
+            res = solver_batched.run_steps_batched(p, plan_xy, plan_n, noisy,
+                                                   U_warm.contiguous(), obstacles, unc_map)
         if obs_xyyaw is not None:
             hits = check_collisions(p, states, obs_xyyaw, obs_size, obs_mask)
         else:

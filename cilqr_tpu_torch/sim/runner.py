@@ -11,31 +11,30 @@ map_engine -> ilqr node -> rosbag record) as one function call:
     B=1 (kernel K1 on the card), with ``--full-stack`` a single-map costmap
     build per cycle (K4).
   * ``run_experiment_batch``: the reference's 10-run batch as one batched
-    loop over the runs (``plant.closed_loop_batched``, K1 per cycle; with a
-    costmap, ``plant.closed_loop_full_stack_batched``: K5, K4 and K3 or K1
-    per cycle).
+    loop over the runs (``plant.closed_loop_batched``; with a costmap,
+    ``plant.closed_loop_full_stack_batched``: K5 and K4 per cycle), with
+    the algorithm's batched planner of ``make_plan_step`` in the loop.
 
 **Noise.**  The JAX functions draw from ``seed``'s key; here every entry
 point takes a ``torch.Generator`` or the standard-normal block pre-drawn
 (``noise_draws``), and without either draws from a generator seeded with
 ``seed`` on the card.  The tests reproduce the JAX package's draws: per run
 ``split(split(key(seed), n_runs)[r], T)`` in the batch, ``split`` once per
-cycle in ``run_experiment``.
-
-The baselines of ``ALGORITHMS`` (CCNMPC, the Frenet lattice, NRB-RRT) and
-``nrb_params_for_scenario`` are not ported yet (ROADMAP.md, Queue 1 item
-5): ``make_plan_step`` raises for them.
+cycle in ``run_experiment``.  NRB-RRT's own draws are derived from the
+states it plans from (``utils.prng``), as the JAX package's are.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Optional
 
 import numpy as np
 import torch
 
-from cilqr_tpu_torch.models import dynamics, obstacles as obs_mod, solver, solver_batched
+from cilqr_tpu_torch.models import ccnmpc, dynamics, frenet, nrb_rrt
+from cilqr_tpu_torch.models import obstacles as obs_mod, solver, solver_batched
 from cilqr_tpu_torch.models import reference_path as rp
 from cilqr_tpu_torch.models import uncertainty as unc_mod
 from cilqr_tpu_torch.ops import costmap as costmap_mod
@@ -95,42 +94,84 @@ ALGORITHMS = (
 )
 
 
-def make_plan_step(algorithm: str, p: SolverParams, plan: torch.Tensor, n, obstacles=None):
+def make_plan_step(algorithm: str, p: SolverParams, noise: NoiseParams, plan: torch.Tensor, n,
+                   obstacles=None, unc_map=None, frenet_params=None, cc_params=None,
+                   nrb_params=None):
     """Batched planner factory: ``(noisy (B, 4), U_warm (B, N, 2), umaps=None)
-    -> SolveResult`` with a leading B on every field.
+    -> SolveResult-like`` with a leading B on every field.
 
-    The JAX package returns a single-lane step and vmaps it; the port's
-    closed loops are batched, so its step is too: one
-    ``solver_batched.run_steps_batched(impl="mega")`` call for the whole
-    batch.  With no map or one map shared by the batch (``umaps`` values
-    (H, W), the single-map costmap of ``run_experiment``) that is kernel K1;
-    with one map per scenario (values (B, H, W), the full-stack loop's
-    per-cycle costmaps) it is the hybrid loop with kernel K3
-    (``world_batched=True``).  `cilqr_base` discards the map by definition.
-    The JAX function's ``noise``, ``unc_map`` and parameter arguments are
-    left out: the baselines that read them are not ported yet, and no caller
-    of the port's loops passes a fixed map.
+    One closed-loop / runner code path drives every algorithm of
+    ``ALGORITHMS`` — the analog of swapping which planner node is launched
+    (SURVEY.md §3.4) while CARLA / vehiclepub stay fixed.  The JAX package
+    returns a single-lane step and vmaps it; the port's closed loops are
+    batched, so its steps are too:
+
+      * `cilqr`, `cilqr_base`: one ``solver_batched.run_steps_batched(
+        impl="mega")`` call, K1 with no map or one map shared by the batch,
+        the hybrid loop with K3 with one map per scenario (values
+        (B, H, W), the full-stack loop's per-cycle costmaps); `cilqr_base`
+        discards the map by definition;
+      * `ccnmpc`: ``ccnmpc.run_steps`` with the noise's covariance W (the
+        two-phase solve with K2 on per-lane tightened obstacles);
+      * `frenet_*`: ``frenet.plan_steps`` in the name's mode, the noise's
+        sigmas for expansion, the map for propagation;
+      * `nrb_rrt`: ``nrb_rrt.plan_steps`` with the noise's sigmas.
+
+    ``umaps`` (the per-cycle costmap, else ``unc_map``) is read by `cilqr`
+    and `frenet_propagation` only.
     """
-    check_ported(algorithm)
-    aware = algorithm == "cilqr"
-
-    def step(noisy, U_warm, umaps=None):
-        m = umaps if aware else None
-        return solver_batched.run_steps_batched(
-            p, plan, n, noisy, U_warm.contiguous(), obstacles, m, impl="mega",
-            world_batched=m is not None and m.values.ndim == 3)
-
-    return step
-
-
-def check_ported(algorithm: str) -> None:
-    """Raise unless the port has ``algorithm`` ('cilqr' or 'cilqr_base')."""
+    if algorithm not in ALGORITHMS:
+        raise ValueError(f"unknown algorithm {algorithm!r}; expected one of {ALGORITHMS}")
+    pick = lambda umaps: umaps if umaps is not None else unc_map
     if algorithm in ("cilqr", "cilqr_base"):
-        return
-    if algorithm in ALGORITHMS:
-        raise ValueError(f"algorithm {algorithm!r} is a baseline the port does not have yet "
-                         "(ROADMAP.md, Queue 1 item 5); the port runs 'cilqr' and 'cilqr_base'")
-    raise ValueError(f"unknown algorithm {algorithm!r}; expected one of {ALGORITHMS}")
+        aware = algorithm == "cilqr"
+
+        def step(noisy, U_warm, umaps=None):
+            m = pick(umaps) if aware else None
+            return solver_batched.run_steps_batched(
+                p, plan, n, noisy, U_warm.contiguous(), obstacles, m, impl="mega",
+                world_batched=m is not None and m.values.ndim == 3)
+
+        return step
+    if algorithm == "ccnmpc":
+        cc = cc_params if cc_params is not None else ccnmpc.CCParams()
+        return lambda e, u, umaps=None: ccnmpc.run_steps(p, cc, noise, plan, n, e, u, obstacles)
+    sig = torch.tensor([noise.sigma_x, noise.sigma_y, noise.sigma_theta], dtype=plan.dtype,
+                       device=plan.device)
+    if algorithm == "nrb_rrt":
+        nrbp = nrb_params if nrb_params is not None else nrb_rrt.NRBParams()
+        return lambda e, u, umaps=None: nrb_rrt.plan_steps(p, nrbp, plan, n, e, obstacles,
+                                                           sigmas=sig)
+    mode = algorithm.split("_", 1)[1]
+    fp = frenet_params if frenet_params is not None else frenet.FrenetParams()
+    if fp.mode != mode:
+        fp = dataclasses.replace(fp, mode=mode)
+    if mode == "propagation":
+        return lambda e, u, umaps=None: frenet.plan_steps(p, fp, plan, n, e, obstacles,
+                                                          unc_map=pick(umaps), sigmas=sig)
+    return lambda e, u, umaps=None: frenet.plan_steps(p, fp, plan, n, e, obstacles, sigmas=sig)
+
+
+def nrb_params_for_scenario(p: SolverParams, scenario, base=None):
+    """Corridor-feasible NRB-RRT sampling band for a scenario.
+
+    Restricts lateral target sampling to the scenario's drivable band
+    (``Scenario.lat_band``, the wall inner faces) minus the ego half-width
+    + margin: lane-boundary knowledge every planner has from the route /
+    map, even when its risk model is (by design) blind to the costmap.
+    Without it the 2.1 m gauntlet lane collided 10/10 at sigma=0 because
+    +-3 m lateral targets sat inside the walls.  No band (or a degenerate
+    one) keeps ``base`` unchanged."""
+    base = base if base is not None else nrb_rrt.NRBParams()
+    band = getattr(scenario, "lat_band", None)
+    if band is None:
+        return base
+    half = p.width / 2.0 + base.collision_margin
+    lo = max(-base.lat_max, float(band[0]) + half)
+    hi = min(base.lat_max, float(band[1]) - half)
+    if hi <= lo:
+        return base
+    return dataclasses.replace(base, lat_lo=lo, lat_hi=hi)
 
 
 def noise_block(shape, generator: Optional[torch.Generator] = None, noise_draws=None,
@@ -152,21 +193,25 @@ def runs_first(rec: dict) -> dict:
 def run_experiment_batch(p: SolverParams, noise: NoiseParams, plan_np: np.ndarray, x0: np.ndarray,
                          n_cycles: int, scenario: scenarios.Scenario, n_runs: int = 10,
                          seed: int = 0, dtype=torch.float32, algorithm: str = "cilqr",
+                         frenet_params=None, cc_params=None, nrb_params=None,
                          costmap_params=None, global_map=None, global_geom=None,
                          generator: Optional[torch.Generator] = None, noise_draws=None,
                          device=None):
     """The reference's 10-run experiment batch (batch_dataprocess.py:386-447,
     471) as one batched loop over ``n_runs`` runs of a scenario: B = n_runs,
-    every run from x0 with its own noise (``noise_draws`` (T, n_runs, 3)).
+    every run from x0 with its own noise (``noise_draws`` (T, n_runs, 3)),
+    planned by ``make_plan_step(algorithm)``; `nrb_rrt` samples in the
+    scenario's corridor band (``nrb_params_for_scenario``) unless
+    ``nrb_params`` is given.
 
-    Without ``costmap_params``: ``plant.closed_loop_batched`` (K1 per
-    cycle; no map, so `cilqr` plans as `cilqr_base`).  With
-    ``costmap_params`` / ``global_map`` / ``global_geom``: every cycle
-    rebuilds each run's local uncertainty costmap from the global prior
-    (``plant.closed_loop_full_stack_batched``: K5, then K4 over one full
-    window of ``costmap_params.window_radius``, the JAX single-map build's;
-    their plain versions for CPU tensors) and feeds it to `cilqr` (K3);
-    `cilqr_base` plans blind (K1).
+    Without ``costmap_params``: ``plant.closed_loop_batched`` (no map, so
+    `cilqr` plans as `cilqr_base` and `frenet_propagation` as
+    `frenet_origin`).  With ``costmap_params`` / ``global_map`` /
+    ``global_geom``: every cycle rebuilds each run's local uncertainty
+    costmap from the global prior (``plant.closed_loop_full_stack_batched``:
+    K5, then K4 over one full window of ``costmap_params.window_radius``,
+    the JAX single-map build's; their plain versions for CPU tensors) for
+    every algorithm, and `cilqr` (K3) and `frenet_propagation` read it.
 
     Returns ({"final_states": (n_runs, 4) array, "record": dict of
     (n_runs, n_cycles, ...) tensors}, metrics rows for
@@ -181,15 +226,19 @@ def run_experiment_batch(p: SolverParams, noise: NoiseParams, plan_np: np.ndarra
                           device=device).expand(n_runs, 4).contiguous()
     draws = noise_block((n_cycles, n_runs, 3), generator, noise_draws, seed, dtype, device)
     obs_kw = dict(obs_xyyaw=obs_xyyaw, obs_size=obs_size, obs_mask=obs_mask)
+    if algorithm == "nrb_rrt" and nrb_params is None:
+        nrb_params = nrb_params_for_scenario(p, scenario)
+    plan_step = make_plan_step(algorithm, p, noise, plan, n, obstacles=ob,
+                               frenet_params=frenet_params, cc_params=cc_params,
+                               nrb_params=nrb_params)
     if costmap_params is not None:
-        plan_step = make_plan_step(algorithm, p, plan, n, obstacles=ob)
         xf, rec = plant.closed_loop_full_stack_batched(
             p, costmap_params, noise, global_map, global_geom, plan, n, x0s, None, n_cycles,
             obstacles=ob, plan_step_batched=plan_step, noise_draws=draws, **obs_kw)
     else:
-        check_ported(algorithm)
         xf, rec = plant.closed_loop_batched(p, noise, plan, n, x0s, None, n_cycles, obstacles=ob,
-                                            noise_draws=draws, **obs_kw)
+                                            noise_draws=draws, plan_step_batched=plan_step,
+                                            **obs_kw)
     rec = runs_first(rec)
 
     obs_xy = torch.as_tensor(scenario.obstacles_xyyaw[:, :2], dtype=dtype, device=device)
@@ -209,7 +258,7 @@ def run_experiment_batch(p: SolverParams, noise: NoiseParams, plan_np: np.ndarra
 
 def run_algorithm_comparison(p: SolverParams, noise: NoiseParams, plan_np: np.ndarray,
                              x0: np.ndarray, n_cycles: int, scenario: scenarios.Scenario,
-                             algorithms=("cilqr", "cilqr_base"), n_runs: int = 10, seed: int = 0,
+                             algorithms=ALGORITHMS, n_runs: int = 10, seed: int = 0,
                              dtype=torch.float32, costmap_params=None, global_map=None,
                              global_geom=None, generator: Optional[torch.Generator] = None,
                              noise_draws=None, device=None):
@@ -218,10 +267,9 @@ def run_algorithm_comparison(p: SolverParams, noise: NoiseParams, plan_np: np.nd
     same noise block (drawn once, or ``noise_draws``), returning {algorithm:
     (out, rows)} plus a flat row list ready for ``metrics.export_csv``.
     Pass the costmap/global-map arguments to run the full per-cycle
-    map_engine pipeline (required for `cilqr` vs `cilqr_base` to differ —
-    without a costmap `cilqr` degrades to its base algorithm).  The default
-    axis is the two algorithms the port has (the JAX default is all of
-    ``ALGORITHMS``).
+    map_engine pipeline (required for `cilqr` vs `cilqr_base` and
+    `frenet_propagation` vs `frenet_origin` to differ — without a costmap
+    the uncertainty-consuming variants degrade to their base algorithms).
     """
     device = resolve(device)
     draws = noise_block((n_cycles, n_runs, 3), generator, noise_draws, seed, dtype, device)
@@ -252,15 +300,15 @@ def run_experiment(p: SolverParams, noise: NoiseParams, plan_np: np.ndarray, x0:
     Returns a dict of stacked per-cycle NumPy arrays (the /experiment bag
     payload) including the measured ``planning_time``; optionally appends
     every record to a native ``utils.explog.ExperimentLog``.  Each cycle
-    calls the batched planner of ``make_plan_step`` at B=1 (K1 on the card)
-    and waits for the card before it reads the clock; one warm-up call comes
-    first.  ``noise_draws`` (T, 3).
+    calls the batched planner of ``make_plan_step`` at B=1 (for `cilqr`
+    and `cilqr_base` K1 on the card) and waits for the card before it reads
+    the clock; one warm-up call comes first.  ``noise_draws`` (T, 3).
 
     With ``costmap_params`` / ``global_map`` / ``global_geom`` set, every
     cycle rebuilds the local uncertainty costmap from the global prior at
     the true ego pose (``costmap.build_local_costmap``: K4 in its
     single-map form, its plain version for CPU tensors) and feeds it to the
-    planner; the
+    planner (read by `cilqr` and `frenet_propagation`); the
     separate ``costmap_time`` stream records its wall clock (the reference
     times only the ilqr node, ilqr_uncertainty_node.cpp:116-124, so
     ``planning_time`` stays the solver alone).
@@ -271,7 +319,7 @@ def run_experiment(p: SolverParams, noise: NoiseParams, plan_np: np.ndarray, x0:
         ob, obs_xyyaw, obs_size, obs_mask = build_scenario_inputs(p, scenario, dtype, device)
     else:
         ob = obs_xyyaw = obs_size = obs_mask = None
-    solve = make_plan_step(algorithm, p, plan, n, obstacles=ob)
+    solve = make_plan_step(algorithm, p, noise, plan, n, obstacles=ob)
 
     cm_fn = None
     if costmap_params is not None:

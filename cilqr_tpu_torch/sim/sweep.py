@@ -12,20 +12,23 @@ the reference experiment sets both from the same launch values.
 
 Each cell is one batched loop over the runs, run eagerly (the JAX package
 compiles one program per algorithm with sigma traced; here nothing is
-compiled, so there is no compile cache and no traced sigma):
+compiled, so there is no compile cache and no traced sigma), planned by
+``runner.make_plan_step`` with the cell's noise:
 
-  * map consumers (`cilqr`): ``plant.closed_loop_full_stack_batched`` with
-    the cell's ``costmap_sigmas``: per cycle the resample kernel K5, the
-    propagation kernel K4 over a band plan sized for the sweep's largest
-    sigma (``uncertainty_cuda.make_band_plan_bounds`` over
-    ``costmap.corridor_center_bounds``), and the hybrid solve (K3);
-  * blind cells (`cilqr_base`): ``plant.closed_loop_batched`` (K1).
+  * map consumers (`cilqr`, `frenet_propagation`):
+    ``plant.closed_loop_full_stack_batched`` with the cell's
+    ``costmap_sigmas``: per cycle the resample kernel K5, the propagation
+    kernel K4 over a band plan sized for the sweep's largest sigma
+    (``uncertainty_cuda.make_band_plan_bounds`` over
+    ``costmap.corridor_center_bounds``), and the planner (`cilqr`: the
+    hybrid solve, K3);
+  * blind cells: ``plant.closed_loop_batched`` with the planner as its hook
+    (`cilqr_base`: K1; `ccnmpc`: the two-phase solve, K2).
 
 At each sigma every algorithm gets the same pre-drawn (T, n_runs, 3)
 standard-normal block from ``seed`` (the JAX package's ``per_run_keys``
 gives it the same guarantee), so paired comparisons across algorithm rows
-are exact.  The baselines of ``SWEEP_ALGORITHMS`` are not ported yet
-(``runner.make_plan_step`` raises for them).
+are exact.
 
 Outputs per (sigma, algorithm): collision-run count, min wall clearance,
 min obstacle distance, mean speed — the batch_dataprocess.py metric set
@@ -63,7 +66,8 @@ SWEEP_ALGORITHMS = (
 #: Algorithms that consume the per-cycle uncertainty costmap.  The blind
 #: ablations discard it BY DEFINITION (the CILQR_Base / Frenet-origin /
 #: CCNMPC / NRB-RRT nodes never subscribe to the map topic), so skipping
-#: the build for them is faithful.
+#: the build for them is faithful; CCNMPC and NRB-RRT instead receive the
+#: injected noise sigmas directly (their own uncertainty machinery).
 MAP_CONSUMERS = ("cilqr", "frenet_propagation")
 
 
@@ -143,17 +147,22 @@ def sweep_band_plan(cp: CostmapParams, plan: torch.Tensor, n) -> uncertainty_cud
 
 def run_cell(algorithm: str, p: SolverParams, cp: CostmapParams, scenario: scenarios.Scenario,
              plan: torch.Tensor, n, x0s: torch.Tensor, draws: torch.Tensor, s_xy: float,
-             s_th: float, global_map, global_geom, use_kernels: bool, band_plan=None) -> dict:
+             s_th: float, global_map, global_geom, use_kernels: bool, band_plan=None,
+             nrb_params=None) -> dict:
     """One (sigma, algorithm) cell: ``draws`` (T, runs, 3) through the batched
     loop of the cell's kind.  ``cp`` must already be window-sized for the
     largest sigma the sweep feeds (``matched_costmap_params``), and
-    ``band_plan`` (with ``use_kernels``) sized for it.  Returns the record
-    as (runs, T, ...) tensors."""
+    ``band_plan`` (with ``use_kernels``) sized for it.  `nrb_rrt` samples in
+    the scenario's corridor band (``runner.nrb_params_for_scenario``) unless
+    ``nrb_params`` is given.  Returns the record as (runs, T, ...) tensors."""
     dtype, dev = x0s.dtype, x0s.device
     ob, obs_xyyaw, obs_size, obs_mask = runner.build_scenario_inputs(p, scenario, dtype, dev)
     noise = NoiseParams(s_xy, s_xy, s_th)
     obs_kw = dict(obs_xyyaw=obs_xyyaw, obs_size=obs_size, obs_mask=obs_mask)
-    plan_step = runner.make_plan_step(algorithm, p, plan, n, obstacles=ob)
+    if algorithm == "nrb_rrt" and nrb_params is None:
+        nrb_params = runner.nrb_params_for_scenario(p, scenario)
+    plan_step = runner.make_plan_step(algorithm, p, noise, plan, n, obstacles=ob,
+                                      nrb_params=nrb_params)
     if algorithm in MAP_CONSUMERS:
         sig3 = torch.tensor([s_xy, s_xy, s_th], dtype=dtype, device=dev)
         _, rec = plant.closed_loop_full_stack_batched(
@@ -162,13 +171,14 @@ def run_cell(algorithm: str, p: SolverParams, cp: CostmapParams, scenario: scena
             use_kernels=use_kernels, plan_step_batched=plan_step, noise_draws=draws, **obs_kw)
     else:
         _, rec = plant.closed_loop_batched(p, noise, plan, n, x0s, None, draws.shape[0],
-                                           obstacles=ob, noise_draws=draws, **obs_kw)
+                                           obstacles=ob, noise_draws=draws,
+                                           plan_step_batched=plan_step, **obs_kw)
     return runner.runs_first(rec)
 
 
 def run_sigma_sweep(
     sigmas_xy: Sequence[float],
-    algorithms: Sequence[str] = ("cilqr", "cilqr_base"),
+    algorithms: Sequence[str] = SWEEP_ALGORITHMS,
     scenario: Optional[scenarios.Scenario] = None,
     p: Optional[SolverParams] = None,
     cp: Optional[CostmapParams] = None,
@@ -181,6 +191,7 @@ def run_sigma_sweep(
     use_kernels: bool = True,
     dtype=torch.float32,
     plan=None,
+    nrb_params=None,
     noise_draws=None,
     device=None,
 ) -> list[dict]:
@@ -195,9 +206,7 @@ def run_sigma_sweep(
     synthetic Town02-style prior is made (``synthetic_town_prior``).
 
     ``plan`` overrides the scenario's default global route (pass the
-    rotated route when sweeping a rotated-corridor site).  The default
-    algorithm axis is the two the port has (the JAX default is
-    ``SWEEP_ALGORITHMS``).
+    rotated route when sweeping a rotated-corridor site).
     """
     device = resolve(device)
     sc = scenario if scenario is not None else scenarios.make_gauntlet()
@@ -224,7 +233,7 @@ def run_sigma_sweep(
         for s_xy in sigmas_xy:
             s_th = s_xy * sigma_theta_ratio
             rec = run_cell(algo, p, cp_max, sc, plan_t, n, x0s, draws, float(s_xy), float(s_th),
-                           global_map, global_geom, use_kernels, band_plan)
+                           global_map, global_geom, use_kernels, band_plan, nrb_params)
             rows.append(summarize_cell(rec, sc, p, algo, float(s_xy), float(s_th), n_runs))
     rows.sort(key=lambda r: (r["sigma_xy"], SWEEP_ALGORITHMS.index(r["algorithm"])
                              if r["algorithm"] in SWEEP_ALGORITHMS else 99))

@@ -98,19 +98,19 @@ def test_run_with_map_then_analyze(tmp_path, capsys, monkeypatch):
 
 
 def test_compare_and_sweep(tmp_path, capsys, monkeypatch):
-    """`compare` (blind, 2 runs x 3 cycles) and `sweep` (2 sigmas x
-    (cilqr, cilqr_base) x 2 runs x 3 cycles on the synthetic town); the JAX
-    CLI writes the same summary and the same files from the port's results."""
+    """`compare` (blind, 2 runs x 3 cycles) and `sweep` (2 sigmas x 2 runs x
+    3 cycles on the synthetic town) on their default algorithm axes, the JAX
+    CLI's (all of ALGORITHMS; SWEEP_ALGORITHMS); the JAX CLI writes the same
+    summary and the same files from the port's results."""
     results = []
     real = trunner.run_algorithm_comparison
     monkeypatch.setattr(trunner, "run_algorithm_comparison",
                         lambda *a, **kw: results.append(real(*a, **kw)) or results[-1])
-    argv = ["compare", "--scenarios", "compare,gauntlet", "--algorithms", "cilqr,cilqr_base",
-            "--runs", "2", "--cycles", "3"]
+    argv = ["compare", "--scenarios", "compare,gauntlet", "--runs", "2", "--cycles", "3"]
     assert main(argv + SMALL + ["--out", str(tmp_path / "cmp_port")]) == 0
     got = out_json(capsys)
-    assert list(got) == ["compare/cilqr", "compare/cilqr_base", "gauntlet/cilqr",
-                         "gauntlet/cilqr_base"]
+    assert trunner.ALGORITHMS == jrunner.ALGORITHMS
+    assert list(got) == [f"{sc}/{a}" for sc in ("compare", "gauntlet") for a in trunner.ALGORITHMS]
     replay = iter(results)
     monkeypatch.setattr(jrunner, "run_algorithm_comparison", lambda *a, **kw: next(replay))
     assert jcli.main(argv + ["--horizon", "10", "--out", str(tmp_path / "cmp_jax")]) == 0
@@ -122,8 +122,7 @@ def test_compare_and_sweep(tmp_path, capsys, monkeypatch):
     real_sweep = tsweep.run_sigma_sweep
     monkeypatch.setattr(tsweep, "run_sigma_sweep",
                         lambda *a, **kw: rows.append(real_sweep(*a, **kw)) or rows[-1])
-    argv = ["sweep", "--sigmas", "0.0,0.2", "--algorithms", "cilqr,cilqr_base", "--runs", "2",
-            "--cycles", "3"]
+    argv = ["sweep", "--sigmas", "0.0,0.2", "--runs", "2", "--cycles", "3"]
     assert main(argv + SMALL + ["--out", str(tmp_path / "sw_port")]) == 0
     table = capsys.readouterr().out
     monkeypatch.setattr(jsweep, "run_sigma_sweep", lambda *a, **kw: rows[0])
@@ -132,8 +131,9 @@ def test_compare_and_sweep(tmp_path, capsys, monkeypatch):
     for f in ("sweep.json", "sweep.md"):
         assert (tmp_path / "sw_port" / f).read_text() == (tmp_path / "sw_jax" / f).read_text()
     got = json.loads((tmp_path / "sw_port" / "sweep.json").read_text())
+    assert tsweep.SWEEP_ALGORITHMS == jsweep.SWEEP_ALGORITHMS
     assert [(r["sigma_xy"], r["algorithm"]) for r in got] == [
-        (0.0, "cilqr"), (0.0, "cilqr_base"), (0.2, "cilqr"), (0.2, "cilqr_base")]
+        (s, a) for s in (0.0, 0.2) for a in tsweep.SWEEP_ALGORITHMS]
     assert all(np.isfinite(r["velocity_mean"]) and r["n_runs"] == 2 for r in got)
 
 
