@@ -34,7 +34,15 @@ that each went through its kernels:
                cycles of every algorithm held to the same loops on the plain
                versions and K5 held to its plain version on the 1506x1506
                synthetic town, and each algorithm's seconds, launches and
-               device idle share.
+               device idle share;
+  phase 16     the scale-out layer (``parallel.batch``, ``multihost``,
+               ``campaign``, ``dryrun``): a one-rank NCCL process group, the
+               sharded solve (K1 per shard) on 1 and 4 shards of the card at
+               B=32768 and the sharded Monte-Carlo (K4, K3) at B=8192, each
+               equal bit for bit to its unsharded call; the sharded full
+               stack (K5, K4, K3) on 4 shards against the per-chunk runs; a
+               campaign resumed after 2 of 4 rounds; the dry run; then
+               ``backward_impl="pscan"`` against "seq" at B=1.
 
 Every phase prints a line (the profiles one per batch size); any failure
 raises, so the exit code is nonzero.  The last line is one JSON object:
@@ -1064,6 +1072,289 @@ def experiment_layer(card: str, counts, dev: torch.device) -> tuple:
               + profile_line(fn, reps=1, kernels=kern, annotation=ann), flush=True)
     print(f"[15 done] phase 15 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches, {"compare": cmp_algo, "sweep": sw_algo}
+
+
+# Phase 16, the scale-out layer and the parallel-prefix Riccati option
+SO_SHARDS = (1, 4)        # a mesh of cuda:0 alone and of 4 virtual shards of it
+SO_FS_SHARDS = 4
+SO_SEED = 16              # the sharded full stack's noise seed
+SO_ROUNDS = 4             # campaign rounds (then 2 + a resume to 4)
+PSCAN_CALLS = 5           # warm B=1 solves timed one by one, the median kept
+
+
+def same_bits(a, b) -> bool:
+    """Every field of two SolveResults equal bit for bit."""
+    return all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def metric_excess(got, want, rtol: float) -> float:
+    """Largest relative difference of two BatchMetrics, over rtol (> 1 fails)."""
+    return max(abs(float(g) - float(w)) / (rtol * max(abs(float(w)), 1e-30))
+               for g, w in zip(got, want))
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def scale_out(card: str, counts, dev: torch.device) -> dict:
+    """Phase 16: the port's scale-out layer on the card, then the pscan
+    option at B=1.  (a) a one-rank NCCL process group, so that every metric
+    reduction below runs ``all_reduce`` on the card; (b) the sharded solve
+    (K1 per shard) at the main path's size, on 1 and 4 shards, equal bit for
+    bit to ``run_steps_batched(impl="mega")``; (c) the sharded Monte-Carlo
+    (K4 and K3 per shard) at the phase-10 size, equal bit for bit to
+    ``monte_carlo(impl="fast")``; (d) the sharded full stack (K5, K4, K3 per
+    shard and cycle) at the phase-13 size on 4 shards against the 4
+    per-chunk runs on the shards' generators; (e) the checkpointed campaign,
+    resumed after 2 of 4 rounds; (f) ``dryrun_multichip(4)``; (g)
+    ``backward_impl="pscan"`` against "seq" at B=1.  Every check raises.
+    Returns the launches per sharded call by kernel."""
+    from cilqr_tpu_torch import CostmapParams, NoiseParams, SolverParams
+    from cilqr_tpu_torch.models import solver, solver_batched
+    from cilqr_tpu_torch.ops import costmap as costmap_mod, gridmap, uncertainty_cuda
+    from cilqr_tpu_torch.parallel import batch as pbatch, campaign, dryrun, multihost
+    from cilqr_tpu_torch.parallel import monte_carlo as mc
+    from cilqr_tpu_torch.sim import plant
+    from cilqr_tpu_torch.sim.example_scenario import example_scenario
+
+    zero_counts, read_counts = counts
+    t_phase = time.perf_counter()
+    p = dataclasses.replace(SolverParams(), horizon=HORIZON)
+    plan, n, ego, U0, obstacles, unc = example_scenario(p, device=dev)
+    rng = np.random.default_rng(3)
+    egos = torch.tensor(ego.cpu().numpy()[None, :] + rng.normal(0, 0.3, (MAIN_B, 4)),
+                        dtype=torch.float32, device=dev)
+    U0s = U0.expand(MAIN_B, HORIZON, 2).contiguous()
+    out = {}
+
+    def counted(fn):
+        zero_counts()
+        r = fn()
+        torch.cuda.synchronize()
+        return r, read_counts()
+
+    # (b) without the group first: the reference of (a)
+    ref, ref_c = counted(lambda: solver_batched.run_steps_batched(
+        p, plan, n, egos, U0s, obstacles, unc, impl="mega"))
+    ref_m = pbatch._metrics_local(p, ref)
+    solve1, _ = pbatch.make_sharded_solver(p, pbatch.make_mesh([dev]), obstacles, unc, fused=True)
+    (_, m_alone) = solve1(plan, n, egos, U0s)
+
+    # (a) a one-rank NCCL process group on the card
+    port = free_port()
+    require(multihost.initialize(f"127.0.0.1:{port}", 1, 0, device=dev),
+            "multihost.initialize made no process group")
+    try:
+        import torch.distributed as dist
+
+        require(dist.get_backend() == "nccl" and multihost.process_count() == 1,
+                f"process group {dist.get_backend()} of {multihost.process_count()}")
+        (_, m_group) = solve1(plan, n, egos, U0s)
+        torch.cuda.synchronize()
+        require(all(torch.equal(a, b) for a, b in zip(m_group, m_alone)),
+                f"metrics under the group {multihost.gather_metrics(m_group)} differ from "
+                f"{multihost.gather_metrics(m_alone)} without it")
+        print(f"[16a process group] {dist.get_backend()}, 1 rank on {dev} (tcp://127.0.0.1:{port}): the sharded "
+              f"solve's metrics under the group equal those without it bit for bit: "
+              f"{multihost.gather_metrics(m_group)}", flush=True)
+
+        # (b) the sharded solve, K1 per shard
+        base_ms = cuda_ms(lambda: solver_batched.run_steps_batched(
+            p, plan, n, egos, U0s, obstacles, unc, impl="mega"), 3)
+        parts = [f"unsharded run_steps_batched(impl='mega') {base_ms:.3f} ms/call, launches {ref_c}"]
+        out["solve"] = {}
+        for shards in SO_SHARDS:
+            fn, mesh = pbatch.make_sharded_solver(p, pbatch.make_mesh([dev] * shards), obstacles,
+                                                  unc, fused=True)
+            (res, m), c = counted(lambda: fn(plan, n, egos, U0s))
+            require(c == {**ref_c, "lm": shards},
+                    f"sharded solve on {shards} shards launched {c}, expected K1 {shards} times")
+            require(same_bits(res, ref), f"sharded solve on {shards} shards differs from the "
+                    f"unsharded call: " + ", ".join(f"{f} max |d| {float((a.double() - w.double()).abs().max()):.3e}"
+                                                    for f, a, w in zip(res._fields, res, ref)))
+            ex = metric_excess(m, ref_m, 1e-6)
+            require(ex <= 1.0, f"sharded metrics on {shards} shards beyond 1e-6 relative: {ex:.3f}")
+            ms = cuda_ms(lambda: fn(plan, n, egos, U0s), 3)
+            out["solve"][shards] = c["lm"]
+            parts.append(f"{shards} shard(s) {ms:.3f} ms/call, K1 {c['lm']} launches per call, "
+                         f"equal bit for bit, metrics within {ex * 1e-6:.1e} relative")
+        print(f"[16b sharded solve] fused, B={MAIN_B} N={HORIZON}: " + " | ".join(parts)
+              + f" on {card}", flush=True)
+        print(f"[16b profile] {SO_SHARDS[-1]} shards: " + profile_line(
+            lambda: fn(plan, n, egos, U0s), reps=2, kernels={"K1": "lm_opt"}), flush=True)
+        del egos, U0s, ref, res
+
+        # (c) the sharded Monte-Carlo: K4 once and K3 per LM iteration per shard
+        cp = CostmapParams()
+        center = (cp.x_position, cp.y_position)
+        cpw = mc.ensure_window_covers(cp, cp.rows, cp.cols, center, SIGMA_HI)
+        band_plan = uncertainty_cuda.make_band_plan(cpw, cp.rows, cp.cols, center, SIGMA_HI)
+        prior = torch.tensor(np.random.default_rng(4).uniform(0.0, 100.0, (cp.rows, cp.cols)),
+                             dtype=torch.float32, device=dev)
+        geom = gridmap.make_geom(center, cp.resolution, cp.rows, cp.cols, torch.float32, dev)
+        world = (prior, geom, ego[:2], ego[3], plan, n)
+        samples = mc.sample_scenarios(torch.Generator().manual_seed(0), MC_B, ego.cpu(),
+                                      sigma_hi=SIGMA_HI, device=dev)
+
+        def mc_fast():
+            return mc.monte_carlo(p, cpw, *world, samples, obstacles, sigma_hi=SIGMA_HI,
+                                  impl="fast", band_plan=band_plan)
+
+        mref, mref_c = counted(mc_fast)
+        mref_m = pbatch._metrics_local(p, mref)
+        base_ms = cuda_ms(mc_fast, 3)
+        parts = [f"unsharded monte_carlo(impl='fast') {base_ms:.3f} ms/call, launches {mref_c}"]
+        out["mc"] = {}
+        for shards in SO_SHARDS:
+            fn, _ = mc.make_sharded_monte_carlo(p, cp, pbatch.make_mesh([dev] * shards), obstacles,
+                                                map_shape=(cp.rows, cp.cols), map_center=center,
+                                                sigma_hi=SIGMA_HI, impl="fast")
+            (res, m), c = counted(lambda: fn(*world, samples.sigmas, samples.egos))
+            b = MC_B // shards
+            k3 = sum(int(res.iterations[i * b:(i + 1) * b].max()) for i in range(shards))
+            require(c == {"sample": 0, "uncertainty": shards, "lm_iter": k3, "lm": 0, "riccati": 0},
+                    f"sharded MC on {shards} shards launched {c}, expected K4 {shards}, K3 {k3}")
+            require(same_bits(res, mref), f"sharded MC on {shards} shards differs from the "
+                    f"unsharded call: " + ", ".join(f"{f} max |d| {float((a.double() - w.double()).abs().max()):.3e}"
+                                                    for f, a, w in zip(res._fields, res, mref)))
+            ex = metric_excess(m, mref_m, 1e-6)
+            require(ex <= 1.0, f"sharded MC metrics on {shards} shards beyond 1e-6 relative: {ex:.3f}")
+            ms = cuda_ms(lambda: fn(*world, samples.sigmas, samples.egos), 3)
+            out["mc"][shards] = {"uncertainty": c["uncertainty"], "lm_iter": c["lm_iter"]}
+            parts.append(f"{shards} shard(s) {ms:.3f} ms/call, launches K4 {c['uncertainty']} K3 "
+                         f"{c['lm_iter']} per call, equal bit for bit, metrics within "
+                         f"{ex * 1e-6:.1e} relative")
+        print(f"[16c sharded MC] B={MC_B} N={HORIZON}, {len(band_plan.bands)} bands: "
+              + " | ".join(parts) + f" on {card}", flush=True)
+        del mref, res
+
+        # (d) the sharded full stack on 4 shards against the per-chunk runs
+        cpf = CostmapParams()
+        ggeom = gridmap.make_geom([110.0, -300.0], 0.5, 256, 256, torch.float32, dev)
+        gmap = torch.tensor(np.random.default_rng(8).uniform(0.0, 100.0, (256, 256)),
+                            dtype=torch.float32, device=dev)
+        obs = dict(obstacles=obstacles,
+                   obs_xyyaw=torch.tensor([[115.0, -305.0, 0.0], [130.0, -304.0, 0.2]], device=dev),
+                   obs_size=torch.tensor([3.63, 1.84], device=dev),
+                   obs_mask=torch.ones(2, device=dev))
+        xr, yr = costmap_mod.corridor_center_bounds(cpf, plan, n)
+        fs_band = uncertainty_cuda.make_band_plan_bounds(
+            cpf, cpf.rows, cpf.cols, xr, yr, (cpf.sigma_x, cpf.sigma_y, cpf.sigma_theta))
+        x0s = torch.tensor(ego.cpu().numpy()[None, :]
+                           + np.random.default_rng(9).normal(0, 0.3, (FS_B, 4)),
+                           dtype=torch.float32, device=dev)
+        fs_fn, _ = pbatch.make_sharded_full_stack(p, cpf, pbatch.make_mesh([dev] * SO_FS_SHARDS),
+                                                  FS_CYCLES, band_plan=fs_band, global_res=0.5,
+                                                  **obs)
+        (xf, rec, summary), c = counted(lambda: fs_fn(gmap, ggeom, plan, n, x0s, SO_SEED))
+        b = FS_B // SO_FS_SHARDS
+        k3 = sum(int(v) for i in range(SO_FS_SHARDS)
+                 for v in rec["iterations"][:, i * b:(i + 1) * b].amax(dim=1))
+        require(c == {"sample": SO_FS_SHARDS * FS_CYCLES, "uncertainty": SO_FS_SHARDS * FS_CYCLES,
+                      "lm_iter": k3, "lm": 0, "riccati": 0},
+                f"sharded full stack launched {c}, expected K5 and K4 {SO_FS_SHARDS * FS_CYCLES}, "
+                f"K3 {k3}")
+        require(bool(torch.isfinite(xf).all()) and tuple(rec["J"].shape) == (FS_CYCLES, FS_B),
+                "sharded full stack: non-finite states or record shape")
+
+        def per_chunk():
+            return [plant.closed_loop_full_stack_batched(
+                p, cpf, NoiseParams(), gmap, ggeom, plan, n, x0s[i * b:(i + 1) * b],
+                pbatch.shard_generator(SO_SEED, i, dev), FS_CYCLES, band_plan=fs_band,
+                global_res=0.5, **obs) for i in range(SO_FS_SHARDS)]
+
+        chunks = per_chunk()
+        xf_ref = torch.cat([x for x, _ in chunks])
+        j_sum = sum(float(r["J"][-1].double().sum()) for _, r in chunks)
+        col_sum = sum(float(r["collided"].any(dim=0).double().sum()) for _, r in chunks)
+        fs_diff = float((xf - xf_ref).abs().max())
+        require(fs_diff <= 1e-5, f"sharded full stack vs the per-chunk runs: max |d| {fs_diff:.3e}")
+        mean_J, col = float(summary[0]), float(summary[1])
+        require(abs(mean_J - j_sum / FS_B) <= 1e-4 * max(1.0, abs(j_sum / FS_B))
+                and abs(col - col_sum / FS_B) <= 1e-6,
+                f"sharded full-stack summary ({mean_J}, {col}) vs ({j_sum / FS_B}, {col_sum / FS_B})")
+        fs_ms = cuda_ms(lambda: fs_fn(gmap, ggeom, plan, n, x0s, SO_SEED), 1)
+        chunk_ms = cuda_ms(per_chunk, 1)
+        out["full_stack"] = {"sample": c["sample"], "uncertainty": c["uncertainty"],
+                             "lm_iter": c["lm_iter"]}
+        print(f"[16d sharded full stack] B={FS_B} N={HORIZON} {FS_CYCLES} cycles, random map, "
+              f"{SO_FS_SHARDS} shards: {fs_ms:.3f} ms/call ({FS_CYCLES * FS_B / fs_ms * 1e3:.0f} "
+              f"cycles/s), the 4 per-chunk runs {chunk_ms:.3f} ms | launches {c} per call | final "
+              f"states vs the per-chunk runs max |d| {fs_diff:.1e} | summary mean_J {mean_J:.6g} "
+              f"(per-chunk {j_sum / FS_B:.6g}), collision share {col:.6g} on {card}", flush=True)
+        del xf, rec, chunks, xf_ref, gmap, x0s
+
+        # (e) the campaign on the (c) world, one shard: 4 rounds, then 2 + a
+        # resume to 4
+        with tempfile.TemporaryDirectory() as tmp:
+            run = lambda name, rounds, resume: campaign.run_campaign(
+                p, cp, pbatch.make_mesh([dev]), prior, geom, ego[:2], ego[3], plan, n, ego.cpu(),
+                n_rounds=rounds, batch=MC_B, out_dir=f"{tmp}/{name}", seed=7, obstacles=obstacles,
+                resume=resume)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            full = run("full", SO_ROUNDS, False)
+            torch.cuda.synchronize()
+            round_ms = (time.perf_counter() - t0) * 1e3 / SO_ROUNDS
+            run("int", SO_ROUNDS // 2, False)
+            resumed = run("int", SO_ROUNDS, True)
+            merged = campaign.merge_analysis(f"{tmp}/int")
+        require(resumed["rounds"] == full["rounds"] == SO_ROUNDS
+                and resumed["solves"] == full["solves"] == SO_ROUNDS * MC_B,
+                f"campaign rounds/solves {resumed} vs {full}")
+        for k in ("mean_J", "max_J", "mean_iterations", "converged_frac"):
+            require(abs(resumed[k] - full[k]) <= 1e-6 * abs(full[k]),
+                    f"campaign {k}: resumed {resumed[k]} vs uninterrupted {full[k]}")
+        require(merged["rounds"] == SO_ROUNDS and merged["solves"] == SO_ROUNDS * MC_B
+                and sorted(r["round"] for r in merged["rows"]) == list(range(SO_ROUNDS)),
+                f"merge_analysis counted {merged['rounds']} rounds, {merged['solves']} solves")
+        print(f"[16e campaign] {SO_ROUNDS} rounds of B={MC_B} on the (c) world: {round_ms:.3f} "
+              f"ms/round (wall clock: the draws on the host, the sharded MC, the log and the "
+              f"checkpoint) | resumed after {SO_ROUNDS // 2} = uninterrupted: "
+              + ", ".join(f"{k} {full[k]:.6g}" for k in ("mean_J", "max_J", "mean_iterations",
+                                                          "converged_frac"))
+              + f" | merge_analysis: {merged['rounds']} rounds, {merged['solves']} solves on {card}",
+              flush=True)
+        del samples, prior
+    finally:
+        multihost.shutdown()
+
+    # (f) the dry run on 4 virtual shards of the card
+    t0 = time.perf_counter()
+    dr = dryrun.dryrun_multichip(4, device=dev)
+    require(dr["fs_max_abs_diff_vs_unsharded"] <= 1e-5, f"dryrun: {dr}")
+    print(f"[16f dryrun] dryrun_multichip(4, device='{dev}') in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+
+    # (g) backward_impl="pscan" against "seq" at B=1 on the serving world
+    pp = dataclasses.replace(p, backward_impl="pscan")
+    def median_ms(params):
+        # each warm call timed alone (timed's warm-up call before each)
+        runs = [timed(lambda: solver.run_step(params, plan, n, ego, U0, obstacles, unc), 1)
+                for _ in range(PSCAN_CALLS)]
+        return statistics.median(ms for ms, _ in runs), runs[-1][1]
+
+    ms_seq, r_seq = median_ms(p)
+    ms_ps, r_ps = median_ms(pp)
+    du = float((r_ps.U - r_seq.U).abs().max())
+    x_err, x_excess = max_excess(r_ps.X, r_seq.X, rtol=5e-2, atol=5e-2)
+    dJ = abs(float(r_ps.J) - float(r_seq.J))
+    # the bars of tests/test_riccati_pscan.py::test_full_solve_with_pscan_backward
+    require(bool(torch.isfinite(r_ps.X).all()) and int(r_ps.iterations) <= p.max_iterations
+            and x_excess <= 0.0 and dJ < 5e-2 * max(1.0, float(r_seq.J)),
+            f"pscan solve: iterations {int(r_ps.iterations)}, max |dX| {x_err:.3e}, |dJ| {dJ:.3e}")
+    print(f"[16g pscan B=1] N={HORIZON}, solver.run_step, median of {PSCAN_CALLS} warm calls: "
+          f"seq {ms_seq:.3f} ms ({int(r_seq.iterations)} LM iterations), pscan {ms_ps:.3f} ms "
+          f"({int(r_ps.iterations)} LM iterations) | max |U_pscan - U_seq| {du:.3e}, max |dX| "
+          f"{x_err:.3e}, J {float(r_ps.J):.6g} vs {float(r_seq.J):.6g} on {card}", flush=True)
+    out["pscan"] = {"seq_ms": ms_seq, "pscan_ms": ms_ps}
+    print(f"[16 done] phase 16 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
 
 
 def main() -> None:
@@ -2181,6 +2472,15 @@ def main() -> None:
         kernels[name]["experiment_launches_by_algorithm"] = {
             cmd: {a: v["launches"][name] for a, v in by.items() if v["launches"][name]}
             for cmd, by in exp_algos.items()}
+
+    # 16. the scale-out layer (sharded solve, Monte-Carlo, full stack,
+    # campaign, dry run) and the pscan option at B=1
+    so = scale_out(card, (zero_counts, read_counts), dev)
+    kernels["lm"]["sharded_solve_launches_by_shards"] = so["solve"]
+    for name in ("uncertainty", "lm_iter"):
+        kernels[name]["sharded_mc_launches_by_shards"] = {k: v[name] for k, v in so["mc"].items()}
+    for name in ("sample", "uncertainty", "lm_iter"):
+        kernels[name]["sharded_full_stack_launches"] = so["full_stack"][name]
 
     kernels["lm"]["launches"] = main_launches["lm"]
     # K2's own path: ccnmpc's two-phase solves in `compare --full-stack`

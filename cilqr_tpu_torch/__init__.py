@@ -9,6 +9,8 @@ JAX reference at the same path under ``cilqr_tpu/``.  Entry points:
   models.solver_batched.run_steps_batched      batched fast path (CUDA kernels)
   parallel.monte_carlo.monte_carlo             sampled covariances, one batch
   sim.plant.closed_loop_full_stack_batched     costmap rebuild + solve per cycle
+  parallel.batch.make_sharded_solver           scenario sharding over a mesh
+  parallel.campaign.run_campaign               checkpointed Monte-Carlo rounds
   sim.example_scenario.example_scenario        the benchmark world
 
 The port imports ``torch`` and never ``jax``, and nothing of ``cilqr_tpu``:

@@ -30,6 +30,7 @@ CPU; for CUDA tensors they launch the kernel or raise.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from typing import NamedTuple
 
@@ -234,10 +235,12 @@ def launch_shape(B: int, S: int) -> tuple:
 def fused_iteration_plain(p: SolverParams, world: WorldPrep, plans, X, U, lamb, uext=None):
     """Plain version of K3: ``costs.all_cost_derivs_and_J`` at (X, U) (the
     uncertainty sample from ``uext`` (B, N, 3) when given), then the
-    backward recursion and the rollout.  Returns (X_new, U_new, J, k, K)."""
+    sequential backward recursion (``solver.backward_seq``, whatever
+    ``p.backward_impl`` says, as the kernel) and the rollout.  Returns
+    (X_new, U_new, J, k, K)."""
     d, J = costs.all_cost_derivs_and_J(p, plans, X, U, world.obstacles, world.unc_map,
                                        unc_planes=uext)
-    k, K = solver.backward_from_derivs(p, d, X, U, lamb)
+    k, K = solver.backward_seq(p, d, X, U, lamb)
     X_new, U_new = solver.forward_pass(p, X, U, k, K)
     return X_new, U_new, J, k, K
 
@@ -259,12 +262,14 @@ def _check_sampler(unc_sampler, unc_map) -> None:
 def fused_optimize_plain(p: SolverParams, plans, x0s, U_init, obstacles=None, unc_map=None,
                          unc_sampler=None):
     """Plain version of ``fused_optimize``: ``solver.optimize``, the batched
-    LM loop with per-lane masks, on the plain iteration (with
-    ``unc_sampler``: on ``fused_iteration_plain`` fed by the sampler).
+    LM loop with per-lane masks, on the plain iteration with the sequential
+    backward recursion, as the kernel (with ``unc_sampler``: on
+    ``fused_iteration_plain`` fed by the sampler).
     Returns (X, U, iterations, J, lamb)."""
     _check_sampler(unc_sampler, unc_map)
     if unc_sampler is None:
-        return solver.optimize(p, plans, x0s, U_init, obstacles, unc_map)
+        return solver.optimize(dataclasses.replace(p, backward_impl="seq"), plans, x0s, U_init,
+                               obstacles, unc_map)
     world = prep_world(p, obstacles, None, x0s.dtype, x0s.device)
     return solver.optimize(p, plans, x0s, U_init, iteration=_hybrid_iteration(
         p, world, plans, unc_sampler, fused_iteration_plain))

@@ -8,8 +8,9 @@ chains the rollout after the recursion, ``backward_batched`` stops after it.
 
 For a tensor on the CPU both take the plain PyTorch version
 (``backward_forward_plain`` / ``backward_plain``: the port's
-``solver.backward_from_derivs`` + ``forward_pass`` on a leading batch
-dimension, in any float dtype).  For a CUDA tensor they launch the kernel
+``solver.backward_seq`` + ``forward_pass`` on a leading batch dimension, in
+any float dtype; sequential whatever ``p.backward_impl`` says, as the
+kernel is).  For a CUDA tensor they launch the kernel
 (float32 only) or raise.
 """
 
@@ -38,12 +39,12 @@ class _RiccatiConfig(ctypes.Structure):
 
 def backward_plain(p: SolverParams, d: CostDerivs, X, U, lamb):
     """Plain version of the backward-only kernel -> (k (B,N,2), K (B,N,2,4))."""
-    return solver.backward_from_derivs(p, d, X, U, lamb)
+    return solver.backward_seq(p, d, X, U, lamb)
 
 
 def backward_forward_plain(p: SolverParams, d: CostDerivs, X, U, lamb):
     """Plain version of the backward + rollout kernel -> (X_new, U_new)."""
-    k, K = solver.backward_from_derivs(p, d, X, U, lamb)
+    k, K = solver.backward_seq(p, d, X, U, lamb)
     return solver.forward_pass(p, X, U, k, K)
 
 

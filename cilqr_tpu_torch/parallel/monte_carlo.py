@@ -8,7 +8,8 @@ The fast path runs the propagation kernel K4 (``ops.uncertainty_cuda``)
 once for all scenarios, then the hybrid solve: the LM-iteration kernel K3
 (``ops.lm_cuda``) per iteration, fed each scenario's map sample.  The
 reference path is ``mc_solve_one`` on the batch: the plain propagation
-oracle and the faithful per-lane solve.
+oracle and the faithful per-lane solve.  ``make_sharded_monte_carlo``
+(config 5) runs either per shard of a mesh (``parallel.batch``).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ from cilqr_tpu_torch.models import solver, solver_batched
 from cilqr_tpu_torch.models import uncertainty as unc_mod
 from cilqr_tpu_torch.ops import costmap as costmap_mod
 from cilqr_tpu_torch.ops import uncertainty_cuda
+from cilqr_tpu_torch.parallel import batch as pbatch
 from cilqr_tpu_torch.utils.device import resolve
 
 
@@ -96,7 +98,8 @@ def mc_solve_one(p: SolverParams, cp: CostmapParams, prior: torch.Tensor, geom, 
 def monte_carlo(p: SolverParams, cp: CostmapParams, prior: torch.Tensor, geom, origin_xy,
                 origin_yaw, plan_xy, plan_n, samples: MCSample, obstacles=None,
                 sigma_hi=DEFAULT_SIGMA_HI, impl: str = "auto",
-                band_plan: uncertainty_cuda.BandPlan | None = None) -> solver.SolveResult:
+                band_plan: uncertainty_cuda.BandPlan | None = None,
+                center=None) -> solver.SolveResult:
     """Config-3 batch: per-scenario costmap + solve, (B, ...) results.
 
     impl:
@@ -109,10 +112,13 @@ def monte_carlo(p: SolverParams, cp: CostmapParams, prior: torch.Tensor, geom, o
 
     ``sigma_hi`` must bound the sampled sigmas: the window is enlarged to
     cover its 95% ellipse (``ensure_window_covers``), and a ``band_plan``
-    built for a smaller bound is refused.
+    built for a smaller bound is refused.  ``center``: the map centre
+    ``geom.center`` as host numbers (x, y); when unset it is read from
+    ``geom``, one device-to-host copy per call.
     """
-    cp = ensure_window_covers(cp, prior.shape[0], prior.shape[1],
-                              (float(geom.center[0]), float(geom.center[1])), sigma_hi)
+    if center is None:
+        center = tuple(float(c) for c in geom.center.tolist())
+    cp = ensure_window_covers(cp, prior.shape[0], prior.shape[1], center, sigma_hi)
     B = samples.egos.shape[0]
     if impl == "auto":
         impl = "fast" if B >= 256 else "reference"
@@ -139,3 +145,42 @@ def monte_carlo(p: SolverParams, cp: CostmapParams, prior: torch.Tensor, geom, o
     umaps = per_scenario_map(unc_vals, geom, origin_xy, origin_yaw)
     return solver_batched.run_steps_batched(p, plan_xy, plan_n, samples.egos, U0s, obstacles,
                                             umaps, impl="mega", world_batched=True)
+
+
+def make_sharded_monte_carlo(p: SolverParams, cp: CostmapParams, mesh: list, obstacles=None,
+                             map_shape=None, map_center=None, sigma_hi=DEFAULT_SIGMA_HI,
+                             impl: str = "auto"):
+    """Config 5: scenario-sharded Monte-Carlo with per-scenario
+    costmap propagation, the metrics reduced over the shards and processes
+    (``parallel.batch``).
+
+    Pass ``map_shape=(rows, cols)`` and ``map_center=(x, y)``: the window is
+    then sized for the sampling bound ``sigma_hi`` and the band plan built
+    once, here, and no call reads the map centre back from the device.
+
+    Returns ``(fn, mesh)``: ``fn(prior, geom, origin_xy, origin_yaw, plan_xy,
+    plan_n, sigmas, egos) -> (SolveResult of this process's rows on mesh[0],
+    BatchMetrics)``; sigmas and egos are tensors or ``ProcessBlock``s, each
+    shard runs ``monte_carlo(impl=impl)`` on its rows."""
+    band_plan, center = None, None
+    if map_shape is not None and map_center is not None:
+        center = (float(map_center[0]), float(map_center[1]))
+        cp = ensure_window_covers(cp, map_shape[0], map_shape[1], center, sigma_hi)
+        band_plan = uncertainty_cuda.make_band_plan(cp, map_shape[0], map_shape[1], center,
+                                                    sigma_hi)
+    obs = {dev: pbatch.to_device(obstacles, dev) for dev in set(mesh)}
+
+    def fn(prior, geom, origin_xy, origin_yaw, plan_xy, plan_n, sigmas, egos):
+        # read once per call here rather than once per shard
+        c = center if center is not None else tuple(float(v) for v in geom.center.tolist())
+        _, blocks = pbatch.shard_blocks(mesh, pbatch.local_rows(sigmas), pbatch.local_rows(egos))
+        results, parts = [], []
+        for dev, (s, e) in zip(mesh, blocks):
+            world = pbatch.to_device((prior, geom, origin_xy, origin_yaw, plan_xy, plan_n), dev)
+            res = monte_carlo(p, cp, *world, MCSample(s.to(dev), e.to(dev)), obs[dev],
+                              sigma_hi=sigma_hi, impl=impl, band_plan=band_plan, center=c)
+            results.append(res)
+            parts.append(pbatch.metric_sums(p, res))
+        return pbatch.concat_shards(results, mesh[0]), pbatch.reduce_metrics(parts, mesh[0])
+
+    return fn, mesh

@@ -118,8 +118,8 @@ class SolverParams:
     scan_unroll: int = 1
     # Backward-pass implementation: "seq" = reference-faithful sequential
     # recursion (iLQR.cpp:133-191); "pscan" = the JAX package's O(log N)-depth
-    # associative-scan Riccati for B=1 latency (not ported yet:
-    # ``solver.backward_from_derivs`` raises on it)
+    # associative-scan Riccati for B=1 latency (``ops.riccati_pscan``; the
+    # kernels K1, K2 and K3 and their plain versions always run "seq")
     backward_impl: str = "seq"
 
     @property

@@ -61,6 +61,16 @@ def fold_in(keys: torch.Tensor, data) -> torch.Tensor:
     return torch.stack([b0, b1], dim=-1)
 
 
+def stream_seed(seed: int, stream: int) -> int:
+    """The seed of a ``torch.Generator`` for stream ``stream`` under
+    ``seed``: the two words of ``fold_in(key(seed), stream)`` as one 64-bit
+    integer, the first word high.  The scale-out layer seeds each shard's
+    and each campaign round's generator by this one rule (the counterpart of
+    the JAX package's ``fold_in(key, axis_index)`` / ``fold_in(key, r)``)."""
+    w = fold_in(key(seed), stream)
+    return (int(w[0]) << 32) | int(w[1])
+
+
 def split(keys: torch.Tensor, num: int = 2) -> torch.Tensor:
     """``jax.random.split(key, num)`` for keys (..., 2) -> (..., num, 2)."""
     counts = torch.arange(num, dtype=torch.int64, device=keys.device)
