@@ -42,7 +42,14 @@ that each went through its kernels:
                equal bit for bit to its unsharded call; the sharded full
                stack (K5, K4, K3) on 4 shards against the per-chunk runs; a
                campaign resumed after 2 of 4 rounds; the dry run; then
-               ``backward_impl="pscan"`` against "seq" at B=1.
+               ``backward_impl="pscan"`` against "seq" at B=1;
+  phase 17     the benchmark driver, ``python -m cilqr_tpu_torch bench`` in
+               process with its default knobs (main path B=32768, the
+               Monte-Carlo path and the full stack at B=8192, the closed
+               loop at B=32768): its one JSON line whole and finite, the
+               launches each of its calls implies, its mean LM iterations
+               against phase 5's; then once more with ``BENCH_TRACE`` on the
+               headline alone, whose trace must name K1.
 
 Every phase prints a line (the profiles one per batch size); any failure
 raises, so the exit code is nonzero.  The last line is one JSON object:
@@ -57,6 +64,7 @@ import dataclasses
 import io
 import json
 import math
+import os
 import pathlib
 import re
 import statistics
@@ -67,6 +75,12 @@ import time
 
 import numpy as np
 import torch
+
+# The bound of a kernel (utils/roofline.py): the larger of its bytes (each input
+# read once, each output written once) over the H100's memory rate and its
+# float32 operations over the rate outside the tensor cores.
+from cilqr_tpu_torch.utils.roofline import (FP32_OPS_PER_S, RICCATI_STEP_OPS, ROLLOUT_STEP_OPS,
+                                           bound, k4_bound, lm_step_ops, nbytes)
 
 MAIN_B = 32768      # main-path batch (the benchmark's B)
 HORIZON = 50
@@ -89,12 +103,6 @@ K5_CHECK_B = 256
 K5_PLAIN_CHUNK = 1024  # the plain resample makes (chunk, 152, 104) int64 indices
 CL_CYCLES = 10      # closed_loop_batched: the JAX benchmark's 10 cycles at MAIN_B
 K6_CHECK_ROUNDS = 8
-# Published peaks of one H100 SXM: the bound of a kernel is the larger of
-# its bytes (each input read once, each output written once) over the
-# memory rate and its float32 operations over the rate outside the tensor
-# cores.
-MEM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
 PEAK_TFLOPS = FP32_OPS_PER_S / 1e12
 NO_LIBRARY_CALL = None  # where no single PyTorch call computes a kernel's function
 
@@ -368,60 +376,6 @@ def iteration_spread(iterations: torch.Tensor, per_warp: int) -> tuple:
     hist = {int(c): int(n) for c, n in enumerate(torch.bincount(it)) if n}
     full = it[: it.numel() // per_warp * per_warp].reshape(-1, per_warp).double()
     return hist, float((full.amax(dim=1) / full.mean(dim=1)).mean())
-
-
-def bound(n_bytes: float, n_ops: float) -> dict:
-    """The least time the card could take: the larger of bytes over the
-    memory rate and float32 operations over the peak rate, and which."""
-    by_bytes, by_ops = n_bytes / MEM_BYTES_PER_S * 1e3, n_ops / FP32_OPS_PER_S * 1e3
-    return dict(bound_ms=max(by_bytes, by_ops), bound_by="bytes" if by_bytes >= by_ops
-                else "operations", library_ms=NO_LIBRARY_CALL)
-
-
-def nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors)
-
-
-# Float operations of the solver's algorithm per horizon step (adds,
-# multiplies, compares, and one each for exp, division, square root, sine
-# and cosine), counted from the plain version's dense arithmetic:
-RICCATI_STEP_OPS = 646  # Jacobians 20; Q_x 32, Q_u 16, V_xx fx 112, Q_xx 128, Q_ux 56,
-                        # Q_uu 88; the eigen-clamp inverse 40; k 8, K 32; V_x 26, V_xx 88
-ROLLOUT_STEP_OPS = 45   # K dx 16, the sum 4, one dynamics step with its clamps 25
-
-
-def lm_step_ops(S: int, M: int, unc_ops: int) -> int:
-    """One LM iteration's operations per horizon step: the closest-point
-    tournament over S samples (5 each) and its 3-candidate refine (26), the
-    tracking and control terms with four barriers (80), M obstacles of two
-    discs (70 each), the uncertainty term (50 from the map, 20 from given
-    planes), J (10), the Riccati step and the rollout step."""
-    return 5 * S + 26 + 80 + 70 * M + unc_ops + 10 + RICCATI_STEP_OPS + ROLLOUT_STEP_OPS
-
-
-# A cell's covariance fields from the scenario table, as the function needs
-# them (cell_fields without the plain version's `0.0 * Cx` broadcast terms).
-# Default rho formula: Cx 2, Cy 2, g1 = -Cy 1, t = g1 g2 1, sx 4 and sy 4 (a
-# square, two more operations and the root), rho 4 (one division), psd and
-# its select 3.  Faithful formula: g1 and g2 3 each and -s 1, t 7.
-FIELD_OPS = {False: 21, True: 33}
-
-
-def k4_bound(cp, prior_t: torch.Tensor, fields, fused: bool = False, faithful: bool = False) -> dict:
-    """Bound of one propagation: the prior and the four fields in (fused:
-    the prior and 12 floats per scenario; the fields are computed,
-    FIELD_OPS[faithful] per cell), the maps out; per cell 15 operations of
-    set-up and 11 (the ellipse test 6, the weight and its accumulation 5) per
-    offset inside its own 95% ellipse, whose cell count pi chi^2 sx sy
-    sqrt(1 - rho^2) / res^2 comes from this run's fields.  The offsets that a
-    cell's scan visits outside the ellipse are the implementation's, not work
-    the function needs."""
-    sx_f, sy_f, rho_f, _ = fields
-    inside = float((math.pi * cp.chisquare_val ** 2 / cp.resolution ** 2 * sx_f.double()
-                    * sy_f.double() * torch.sqrt(1.0 - rho_f.double() ** 2)).sum())
-    ops = (15 + (FIELD_OPS[faithful] if fused else 0)) * sx_f.numel() + 11 * inside
-    given = sx_f.shape[0] * 12 * 4 if fused else nbytes(*fields)
-    return bound(nbytes(prior_t) + given + sx_f.numel() * 4, ops)
 
 
 def pick(r) -> tuple:
@@ -1357,6 +1311,194 @@ def scale_out(card: str, counts, dev: torch.device) -> dict:
     return out
 
 
+# Phase 17, the benchmark driver (cilqr_tpu_torch.benchmark) at its defaults
+BENCH_FIELDS = ("metric", "value", "value_spread", "unit", "path", "batch", "batched_step_ms",
+                "device_p99_single_solve_ms", "p99_under_budget", "device_single_solve_ms",
+                "device_single_solve_ms_pscan", "device_single_solve_ms_mega_b1",
+                "mean_lm_iterations", "mega_pct_of_sol", "mega_sol_binding_resource", "device",
+                "peak_memory_gb", "mc_scenarios_per_sec", "mc_scenarios_per_sec_spread",
+                "mc_window_radius", "full_stack_cycles_per_sec",
+                "full_stack_cycles_per_sec_spread", "closed_loop_cycles_per_sec",
+                "closed_loop_cycles_per_sec_spread")
+BENCH_MEAN_IT_OFF = 0.15  # two draws of B=32768 egos: each mean's standard error ~0.02
+
+
+@contextlib.contextmanager
+def bench_env(**knobs):
+    """Inside: the BENCH_* environment holds ``knobs`` alone, every other
+    knob at the benchmark's default."""
+    saved = {k: v for k, v in os.environ.items() if k.startswith("BENCH_")}
+    for k in saved:
+        del os.environ[k]
+    os.environ.update({k: str(v) for k, v in knobs.items()})
+    try:
+        yield
+    finally:
+        for k in [k for k in os.environ if k.startswith("BENCH_")]:
+            del os.environ[k]
+        os.environ.update(saved)
+
+
+@contextlib.contextmanager
+def outermost_calls(entries, read_counts, store: list):
+    """Inside: every call of ``module.name``, for (module, name, keep) in
+    entries, that no other of these calls encloses appends (name, the kernel
+    launches it made, keep(its arguments, its result)) to store.  Nothing
+    is synchronised: a wrapper counts its launch on the host as it launches."""
+    depth = [0]
+    saved = []
+    for module, name, keep in entries:
+        fn = getattr(module, name)
+        saved.append((module, name, fn))
+
+        def wrapped(*args, _fn=fn, _name=name, _keep=keep, **kw):
+            if depth[0]:
+                return _fn(*args, **kw)
+            before = read_counts()
+            depth[0] += 1
+            try:
+                out = _fn(*args, **kw)
+            finally:
+                depth[0] -= 1
+            after = read_counts()
+            store.append((_name, {k: after[k] - before[k] for k in after}, _keep(args, out)))
+            return out
+
+        setattr(module, name, wrapped)
+    try:
+        yield store
+    finally:
+        for module, name, fn in saved:
+            setattr(module, name, fn)
+
+
+def bench_sections(calls: list, B: int) -> dict:
+    """{section: (calls, launches by kernel)} of the benchmark's calls, each
+    call held to the launches its section implies: a batched solve K1 once
+    (the main path at B, the serving path at B=1); the unfused single solve
+    none; a Monte-Carlo call K4 once and K3 once per LM iteration of its
+    slowest lane; a full-stack call K5 and K4 once per cycle and K3 once per
+    LM iteration of each cycle's slowest lane; a closed-loop call K1 once
+    per cycle."""
+    from cilqr_tpu_torch import benchmark
+
+    zero = {"sample": 0, "uncertainty": 0, "lm_iter": 0, "lm": 0, "riccati": 0}
+    sections = {}
+    for name, got, kept in calls:
+        if name == "run_steps_batched":
+            section = {B: "main_path", 1: "mega_b1"}.get(kept, f"run_steps_batched at B={kept}")
+            want = dict(zero, lm=1)
+        elif name == "run_step":
+            section, want = "single_solve", dict(zero)
+        elif name == "monte_carlo":
+            section, want = "mc", dict(zero, uncertainty=1, lm_iter=int(kept))
+        elif name == "closed_loop_full_stack_batched":
+            section, want = "full_stack", dict(zero, sample=benchmark.FS_CYCLES,
+                                               uncertainty=benchmark.FS_CYCLES, lm_iter=int(kept))
+        else:
+            section, want = "closed_loop", dict(zero, lm=benchmark.CL_CYCLES)
+        require(got == want, f"bench {section}: a call launched {got}, expected {want}")
+        n, total = sections.get(section, (0, dict(zero)))
+        sections[section] = (n + 1, {k: total[k] + got[k] for k in zero})
+    return sections
+
+
+def bench_run(dev: torch.device, counts, **knobs) -> tuple:
+    """(the benchmark's JSON line, its sections (``bench_sections``), its
+    seconds) of one in-process ``python -m cilqr_tpu_torch bench`` with
+    ``knobs``; every launch it makes is one of its sections'."""
+    from cilqr_tpu_torch import benchmark
+    from cilqr_tpu_torch.models import solver, solver_batched
+    from cilqr_tpu_torch.parallel import monte_carlo as mc
+    from cilqr_tpu_torch.sim import plant
+
+    zero_counts, read_counts = counts
+    entries = [(solver, "run_step", lambda a, out: None),
+               (solver_batched, "run_steps_batched", lambda a, out: a[3].shape[0]),
+               (mc, "monte_carlo", lambda a, out: out.iterations.max()),
+               (plant, "closed_loop_full_stack_batched",
+                lambda a, out: out[1]["iterations"].amax(dim=1).sum()),
+               (plant, "closed_loop_batched", lambda a, out: None)]
+    calls = []
+    with bench_env(**knobs), outermost_calls(entries, read_counts, calls):
+        # the knobs as the benchmark reads them, with its defaults
+        B, iters, passes = (int(os.environ.get(k, d)) for k, d in (
+            ("BENCH_BATCH", "32768"), ("BENCH_ITERS", "10"), ("BENCH_PASSES", "5")))
+        zero_counts()
+        seconds, out = cli_call(["bench"], dev)
+        totals = read_counts()
+    lines = out.strip().splitlines()
+    require(len(lines) == 1, f"bench printed {len(lines)} lines, expected one JSON line: {out[:2000]}")
+    line = json.loads(lines[0])
+    sections = bench_sections(calls, B)
+    summed = {k: sum(l[k] for _, l in sections.values()) for k in totals}
+    require(summed == totals, f"bench: launches {totals}, its calls' {summed}")
+    W = benchmark.WARM_CALLS
+    want_calls = {"single_solve": 2 * W + benchmark.SINGLE_REPS + benchmark.PSCAN_REPS,
+                  "mega_b1": W + benchmark.MEGA_B1_REPS, "main_path": 1 + passes * iters}
+    got_calls = {k: n for k, (n, _) in sections.items()}
+    require(all(got_calls.get(k) == n for k, n in want_calls.items()),
+            f"bench calls per section {got_calls}, expected {want_calls}")
+    return line, sections, seconds
+
+
+def finite_field(v) -> bool:
+    """A JSON value with no NaN, infinity, null or empty string in it."""
+    if isinstance(v, (bool, str)):
+        return v != ""
+    if isinstance(v, (int, float)):
+        return math.isfinite(v)
+    if isinstance(v, list):
+        return len(v) > 0 and all(finite_field(x) for x in v)
+    if isinstance(v, dict):
+        return len(v) > 0 and all(finite_field(x) for x in v.values())
+    return False
+
+
+def benchmark_phase(card: str, counts, dev: torch.device, main_mean_it: float) -> dict:
+    """17. ``python -m cilqr_tpu_torch bench`` in process with the default
+    knobs: the line holds every field, each finite; each call launched what
+    its section implies and nothing launched outside them; its mean LM
+    iterations (off its last ego batch, another draw of phase 5's
+    distribution) within BENCH_MEAN_IT_OFF of phase 5's.  Then the headline
+    alone with ``BENCH_TRACE``: the trace names K1.  Returns the launches
+    by section and kernel."""
+    t_phase = time.perf_counter()
+    line, sections, seconds = bench_run(dev, counts)
+    missing = [k for k in BENCH_FIELDS if k not in line]
+    require(not missing, f"bench line lacks {missing}")
+    bad = [k for k in BENCH_FIELDS if not finite_field(line[k])]
+    require(not bad, f"bench fields not finite: {[(k, line[k]) for k in bad]}")
+    require(set(sections) == {"single_solve", "mega_b1", "main_path", "mc", "full_stack",
+                              "closed_loop"}, f"bench sections {sorted(sections)}")
+    require(line["batch"] == MAIN_B and line["path"] == "mega" and line["device"] == card,
+            f"bench: batch {line['batch']}, path {line['path']}, device {line['device']}")
+    require(abs(line["mean_lm_iterations"] - main_mean_it) <= BENCH_MEAN_IT_OFF,
+            f"bench mean LM iterations {line['mean_lm_iterations']}, phase 5 {main_mean_it:.3f}")
+    print(f"[17 bench] {card} | " + json.dumps(line), flush=True)
+    print(f"[17 bench] {seconds:.1f} s | calls and launches by section: "
+          + " | ".join(f"{k}: {n} calls, " + ", ".join(f"{kk} {v}" for kk, v in l.items() if v)
+                       for k, (n, l) in sections.items())
+          + f" | mean LM iterations {line['mean_lm_iterations']} (phase 5 {main_mean_it:.2f})",
+          flush=True)
+
+    with tempfile.TemporaryDirectory() as trace_dir:
+        _, trace_sections, trace_s = bench_run(
+            dev, counts, BENCH_TRACE=trace_dir, BENCH_MC=0, BENCH_FULL_STACK=0,
+            BENCH_CLOSED_LOOP=0, BENCH_PASSES=1)
+        files = sorted(pathlib.Path(trace_dir).rglob("*.json"))
+        require(len(files) == 1, f"BENCH_TRACE wrote {[f.name for f in files]}")
+        events = json.loads(files[0].read_text())["traceEvents"]
+        k1_events = sum("lm_opt" in str(e.get("name", "")) for e in events)
+        require(k1_events > 0, f"the trace's {len(events)} events name no lm_opt")
+        trace_mb = files[0].stat().st_size / 1e6
+    print(f"[17 bench trace] BENCH_TRACE, headline alone, one pass: {trace_s:.1f} s, "
+          f"{len(events)} events in {trace_mb:.1f} MB, {k1_events} name lm_opt "
+          f"(K1 launches {trace_sections['main_path'][1]['lm']} on the main path)", flush=True)
+    print(f"[17 done] phase 17 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return {section: l for section, (_, l) in sections.items()}
+
+
 def main() -> None:
     t_script = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1491,6 +1633,7 @@ def main() -> None:
         name="riccati_backward_forward", route="cuda", source="cilqr_tpu_torch/csrc/riccati.cu",
         replaces="cilqr_tpu/ops/riccati_pallas.py:84", max_abs_err=k2_err,
         ms=k2_ms, kernel_only_ms=k2_kernel_ms, plain_ms=k2_plain_ms, **k2_bound,
+        library_ms=NO_LIBRARY_CALL,
         backward_only=dict(replaces="cilqr_tpu/ops/riccati_pallas.py:296", ms=k2b_ms,
                            kernel_only_ms=k2b_kernel_ms, plain_ms=k2b_plain_ms, **k2b_bound))
     print(f"[3 K2 riccati] B={K2_CHECK_B} max|kernel-plain| {k2_err:.3e} (k/K bar 1e-4 rel + "
@@ -1571,7 +1714,7 @@ def main() -> None:
         name="lm_opt", route="cuda", source="cilqr_tpu_torch/csrc/lm.cu",
         replaces="cilqr_tpu/ops/lm_pallas.py:682", max_abs_err=k1_err,
         max_abs_err_of="full-horizon U against the float32 plain version, calm lanes",
-        ms=k1_ms, plain_ms=k1_plain_ms, **k1_bound)
+        ms=k1_ms, plain_ms=k1_plain_ms, **k1_bound, library_ms=NO_LIBRARY_CALL)
     k1_shape = lm_cuda.launch_shape(MAIN_B, S)
     kernels["lm"]["launch_shape"] = dict(T=k1_shape[0], G=k1_shape[1],
                                          **lm_cuda.kernel_resources(True, k1_shape[1], S))
@@ -1597,7 +1740,7 @@ def main() -> None:
             "main-path output shape")
     it_min, it_max = int(res.iterations.min()), int(res.iterations.max())
     require(1 <= it_min and it_max <= p.max_iterations, f"iterations outside [1, 20]: {it_min}..{it_max}")
-    mean_it = float(res.iterations.float().mean())
+    mean_it = main_mean_it = float(res.iterations.float().mean())
     # the first lanes against the unfused per-lane solve (the port's
     # reference), in float32 and float64, by the per-lane rule of phase 4
     R = 64
@@ -1801,7 +1944,7 @@ def main() -> None:
         also_replaces=["cilqr_tpu/ops/uncertainty_pallas.py:199",
                        "cilqr_tpu/ops/uncertainty_pallas.py:283"],
         max_abs_err=k4_err, ms=k4_ms, kernel_only_ms=k4_kernel_ms, plain_ms=k4_plain_ms,
-        **mc_k4_bound,
+        **mc_k4_bound, library_ms=NO_LIBRARY_CALL,
         fields_given=dict(ms=k4_given_ms, prep_fields_ms=fields_ms, **mc_given_bound),
         single_map=dict(replaces="cilqr_tpu/ops/uncertainty_pallas.py:199", ms=k4a_ms,
                         kernel_only_ms=k4a_kernel_ms, plain_ms=k4a_plain_ms, **k4a_bound))
@@ -1929,7 +2072,8 @@ def main() -> None:
         name="lm_iter", route="cuda", source="cilqr_tpu_torch/csrc/lm.cu",
         replaces="cilqr_tpu/ops/lm_pallas.py:663", max_abs_err=max(k3_err, k3_err_m),
         max_abs_err_of="one iteration's gains k, K against the float32 plain version",
-        ms=k3_ms, ms_called_alone=k3_alone_ms, plain_ms=k3_plain_ms, **k3_bound)
+        ms=k3_ms, ms_called_alone=k3_alone_ms, plain_ms=k3_plain_ms, **k3_bound,
+        library_ms=NO_LIBRARY_CALL)
     k3_shape = lm_cuda.launch_shape(MC_B, S)
     kernels["lm_iter"]["launch_shape"] = dict(T=k3_shape[0], G=k3_shape[1],
                                               **lm_cuda.kernel_resources(False, k3_shape[1], S))
@@ -2448,6 +2592,7 @@ def main() -> None:
         name="opchain", route="cuda", source="cilqr_tpu_torch/csrc/opchain.cu",
         replaces="scripts/microbench_vpu.py:57", max_abs_err=k6_err,
         ms=report["kernels"]["rot"]["t_r0_us"] / 1e3, plain_ms=k6_plain_ms, **k6_bound,
+        library_ms=NO_LIBRARY_CALL,
         launches=k6_launches, path="utils.opbench.measure(), phase 14",
         timed_body=f"rot, {r0} rounds, {n6} elements")
     c6 = report["constants"]
@@ -2481,6 +2626,12 @@ def main() -> None:
         kernels[name]["sharded_mc_launches_by_shards"] = {k: v[name] for k, v in so["mc"].items()}
     for name in ("sample", "uncertainty", "lm_iter"):
         kernels[name]["sharded_full_stack_launches"] = so["full_stack"][name]
+
+    # 17. the benchmark driver at its defaults, and its trace
+    bench = benchmark_phase(card, (zero_counts, read_counts), dev, main_mean_it)
+    for name in ("lm", "riccati", "lm_iter", "uncertainty", "sample"):
+        kernels[name]["benchmark_launches"] = {
+            section: launches[name] for section, launches in bench.items() if launches[name]}
 
     kernels["lm"]["launches"] = main_launches["lm"]
     # K2's own path: ccnmpc's two-phase solves in `compare --full-stack`

@@ -15,10 +15,14 @@ with:
 
     python -m cilqr_tpu_torch sweep --sigmas 0.0,0.25,0.5 --runs 10
 
+    python -m cilqr_tpu_torch bench
+
 Every subcommand runs on the card unless ``--device cpu`` says otherwise;
 without a card the first allocation fails with PyTorch's own error.  The
 flags are the JAX CLI's, but ``--no-pallas`` is ``--no-kernels`` (the
-oracle propagation in the costmap build) and ``bench`` is not ported yet.
+oracle propagation in the costmap build).  ``bench`` runs
+``cilqr_tpu_torch.benchmark`` (one JSON line; its knobs are the BENCH_*
+environment variables).
 """
 
 from __future__ import annotations
@@ -140,6 +144,12 @@ def _cmd_analyze(args) -> int:
         return 1
     print(json.dumps(metrics.summary_row(args.log, res), indent=2))
     return 0
+
+
+def _cmd_bench(args) -> int:
+    from cilqr_tpu_torch.benchmark import main as bench_main
+
+    return bench_main(["--device", str(args.device)])
 
 
 def _cmd_compare(args) -> int:
@@ -279,6 +289,9 @@ def main(argv=None) -> int:
     a.add_argument("--window", type=int, default=None, choices=[1, 2, 3, 4],
                    help="spatial evaluation window (dataprocess.py:311-322)")
     a.set_defaults(fn=_cmd_analyze)
+
+    b = with_device(sub.add_parser("bench", help="run the benchmark (one JSON line)"))
+    b.set_defaults(fn=_cmd_bench)
 
     c = with_device(sub.add_parser(
         "compare", help="multi-algorithm closed-loop comparison campaign"))
