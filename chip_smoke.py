@@ -49,7 +49,16 @@ that each went through its kernels:
                loop at B=32768): its one JSON line whole and finite, the
                launches each of its calls implies, its mean LM iterations
                against phase 5's; then once more with ``BENCH_TRACE`` on the
-               headline alone, whose trace must name K1.
+               headline alone, whose trace must name K1;
+  phase 18     the plain LM loop as CUDA graphs (``solver.GRAPHS``):
+               ``solver.run_step`` unbatched and at B=64, "seq" and "pscan",
+               graphed against eager bit for bit, a call on new egos
+               replaying without a capture; ms per solve both ways, ms and
+               device kernels per replay of the step graph;
+  phase 19     the JAX package's programs on the port
+               (``cilqr_tpu_torch.scripts``), cut small: the wall-vs-car
+               classification (K5, K4, K3), the NRB budget table and one
+               cell of the rotated production grid (K5, K4, K3).
 
 Every phase prints a line (the profiles one per batch size); any failure
 raises, so the exit code is nonzero.  The last line is one JSON object:
@@ -1463,7 +1472,10 @@ def benchmark_phase(card: str, counts, dev: torch.device, main_mean_it: float) -
     distribution) within BENCH_MEAN_IT_OFF of phase 5's.  Then the headline
     alone with ``BENCH_TRACE``: the trace names K1.  Returns the launches
     by section and kernel."""
+    from cilqr_tpu_torch.models import solver
+
     t_phase = time.perf_counter()
+    solver.CAPTURED.clear()  # the peaks below hold the benchmark's own graphs only
     line, sections, seconds = bench_run(dev, counts)
     missing = [k for k in BENCH_FIELDS if k not in line]
     require(not missing, f"bench line lacks {missing}")
@@ -1497,6 +1509,200 @@ def benchmark_phase(card: str, counts, dev: torch.device, main_mean_it: float) -
           f"(K1 launches {trace_sections['main_path'][1]['lm']} on the main path)", flush=True)
     print(f"[17 done] phase 17 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return {section: l for section, (_, l) in sections.items()}
+
+
+# Phase 18, the plain LM loop as CUDA graphs (models/solver.py, GRAPHS)
+GRAPH_BATCHES = (1, 64)   # the unbatched solve the benchmark times, and a batch
+GRAPH_CALLS = 6           # graphed calls on new egos after the capture
+GRAPH_EAGER_CALLS = 2     # of them also solved eagerly, bit for bit
+GRAPH_REPLAYS = 50
+
+
+def device_kernels(fn) -> tuple:
+    """(device kernels and copies, their device ms) of one fn() by
+    ``torch.profiler``, after a warm-up call."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+              and not getattr(e, "is_user_annotation", False)]
+    return len(events), sum(e.time_range.elapsed_us() for e in events) / 1e3
+
+
+def graph_phase(card: str, counts, dev: torch.device) -> dict:
+    """18. ``solver.run_step`` on the plain LM loop, replayed as CUDA graphs
+    (``solver.GRAPHS``) against the eager loop, ``backward_impl`` "seq" and
+    "pscan", unbatched (B=1, what the benchmark's single solve times) and
+    at B=64, on the example world with its obstacles and uncertainty map:
+    every field of every graphed solve equal to the eager solve bit for bit;
+    a call on new egos replays the captured graphs (no capture); no kernel
+    of the port launched.  Prints ms per solve graphed and eager, ms per
+    replay of the step graph, kernels per replay and per eager step, LM
+    iterations.  Returns the numbers by (impl, B)."""
+    from cilqr_tpu_torch import SolverParams
+    from cilqr_tpu_torch.models import solver
+    from cilqr_tpu_torch.models.reference_path import get_local_plan
+    from cilqr_tpu_torch.sim.example_scenario import example_scenario
+
+    t_phase = time.perf_counter()
+    zero_counts, read_counts = counts
+    solver.CAPTURED.clear()  # phase 17 captured the same shapes: each case here captures anew
+    p0 = dataclasses.replace(SolverParams(), horizon=HORIZON)
+    plan, n, ego, U0, obstacles, unc = example_scenario(p0, device=dev)
+    rng = np.random.default_rng(18)
+    out = {}
+
+    def inputs(B: int):
+        e = torch.tensor(ego.cpu().numpy()[None, :] + rng.normal(0, 0.3, (B, 4)),
+                         dtype=torch.float32, device=dev)
+        return (e[0], U0) if B == 1 else (e, U0.expand(B, HORIZON, 2).contiguous())
+
+    def wall_ms(solve, graphed: bool, e, u) -> tuple:
+        solver.GRAPHS = graphed
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = solve(e, u)
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3, r
+
+    try:
+        for impl in ("seq", "pscan"):
+            p = dataclasses.replace(p0, backward_impl=impl)
+            solve = lambda e, u, p=p: solver.run_step(p, plan, n, e, u, obstacles, unc)
+            for B in GRAPH_BATCHES:
+                e, u = inputs(B)
+                known = set(solver.CAPTURED)
+                zero_counts()
+                capture_ms, r_g = wall_ms(solve, True, e, u)
+                launches = read_counts()
+                new_keys = [k for k in solver.CAPTURED if k not in known]
+                require(len(new_keys) == 1, f"{impl} B={B}: {len(new_keys)} captures")
+                require(not any(launches.values()),
+                        f"{impl} B={B}: the plain solve launched {launches}")
+                _, r_e = wall_ms(solve, False, e, u)
+                require(same_bits(r_g, r_e), f"{impl} B={B}: graphed != eager at the capture")
+                graphed, eager, its = [], [], []
+                for i in range(GRAPH_CALLS):
+                    e, u = inputs(B)
+                    held = dict(solver.CAPTURED)
+                    ms, r_g = wall_ms(solve, True, e, u)
+                    require(held.keys() == solver.CAPTURED.keys() and all(
+                        solver.CAPTURED[k] is g for k, g in held.items()),
+                        f"{impl} B={B}: a call on new egos captured again")
+                    graphed.append(ms)
+                    its.append(float(r_g.iterations.float().mean()))
+                    if i < GRAPH_EAGER_CALLS:
+                        ms, r_e = wall_ms(solve, False, e, u)
+                        require(same_bits(r_g, r_e), f"{impl} B={B}: graphed != eager, call {i}")
+                        eager.append(ms)
+                solver.GRAPHS = True
+                step_graph = solver.CAPTURED[new_keys[0]].graphs[1]
+                replay_ms = cuda_ms(step_graph.replay, GRAPH_REPLAYS)
+                replay_kernels, replay_busy = device_kernels(step_graph.replay)
+                pl = get_local_plan(p, plan, n, e)
+                state = solver.start_state(p, e, u)
+                step = solver.plain_iteration(p, pl, obstacles, unc)
+                lamb_inv = solver.damping_inverse(p, torch.float32, dev)
+                step_kernels, step_busy = device_kernels(
+                    lambda: solver.lm_step(p, step, lamb_inv, *state))
+                row = dict(capture_ms=capture_ms, graphed_ms=statistics.median(graphed),
+                           graphed_max_ms=max(graphed), eager_ms=statistics.median(eager),
+                           replay_ms=replay_ms, replay_kernels=replay_kernels,
+                           replay_busy_ms=replay_busy, step_kernels=step_kernels,
+                           step_busy_ms=step_busy, iterations=statistics.mean(its))
+                out[(impl, B)] = row
+                print(f"[18 graph {impl} B={B}] N={HORIZON}, solver.run_step, obstacles + map: "
+                      f"graphed = eager bit for bit on {1 + GRAPH_EAGER_CALLS} ego draws, "
+                      f"{GRAPH_CALLS} calls on new egos replayed (no capture), launches "
+                      f"{launches} | per solve (host clock, synchronised): graphed median "
+                      f"{row['graphed_ms']:.3f} ms (max {row['graphed_max_ms']:.3f}, first "
+                      f"call with the capture {capture_ms:.3f}), eager median {row['eager_ms']:.3f}"
+                      f" ms | step graph: {replay_ms:.4f} ms per replay (CUDA events, "
+                      f"{GRAPH_REPLAYS} replays), {replay_kernels} device kernels per replay "
+                      f"({replay_busy:.4f} ms busy); eager lm_step {step_kernels} kernels "
+                      f"({step_busy:.4f} ms busy) | mean LM iterations {row['iterations']:.2f} "
+                      f"on {card}", flush=True)
+    finally:
+        solver.GRAPHS = True
+    print(f"[18 done] phase 18 took {time.perf_counter() - t_phase:.1f} s", flush=True)
+    return out
+
+
+# Phase 19, the JAX package's programs on the port (cilqr_tpu_torch/scripts), cut small
+SCRIPT_RUNS, SCRIPT_CYCLES = 5, 20      # classification and the sweep cell
+NRB_BUDGET, NRB_RUNS = 96, 2             # one budget, its three slaloms
+
+
+def scripts_phase(card: str, counts, dev: torch.device) -> dict:
+    """19. Each of ``python -m cilqr_tpu_torch.scripts.*`` once at a small
+    size on the JAX package's noise block, in process: the classification
+    (its four cells, SCRIPT_RUNS x SCRIPT_CYCLES: K5 and K4 once per cycle
+    of each cell, K3 per LM iteration), the NRB budget table (NRB_BUDGET x
+    NRB_RUNS runs x SCRIPT_CYCLES cycles on success1-3, one CUDA graph per
+    tree shape, no kernel of the port), and one cell of the r5 rotated grid
+    (`cilqr` at sigma 0.5).  Every row well formed and finite.  Returns the
+    launches by script."""
+    from cilqr_tpu_torch.scripts import classify_failure_modes as cls
+    from cilqr_tpu_torch.scripts import nrb_budget_sensitivity as nrb
+    from cilqr_tpu_torch.scripts import production_sweeps as ps
+    from cilqr_tpu_torch.sim import sweep
+
+    t_phase = time.perf_counter()
+    zero_counts, read_counts = counts
+    launches = {}
+    town = sweep.synthetic_town_prior(torch.float32, dev)
+    R, T = SCRIPT_RUNS, SCRIPT_CYCLES
+
+    t0 = time.perf_counter()
+    zero_counts()
+    rows = cls.run(R, T, device=dev, global_map=town[0], global_geom=town[1])
+    torch.cuda.synchronize()
+    launches["classify"] = l_cls = read_counts()
+    cells = len(cls.WEIGHTS) * len(cls.SIGMAS)
+    require(len(rows) == cells and all(
+        0 <= r["wall_hits"] <= r["collided"] <= R and 0 <= r["car_hits"] <= r["collided"]
+        for r in rows), f"classification rows {rows}")
+    require(l_cls["sample"] == l_cls["uncertainty"] == cells * T
+            and l_cls["lm_iter"] >= cells * T and not l_cls["lm"] and not l_cls["riccati"],
+            f"classification launches {l_cls} for {cells} cells x {T} cycles")
+    cls_s = time.perf_counter() - t0
+    print(f"[19a classify_failure_modes] {R} runs x {T} cycles, {cls_s:.1f} s, launches {l_cls}: "
+          + " | ".join(cls.line(r) for r in rows), flush=True)
+
+    t0 = time.perf_counter()
+    zero_counts()
+    nrows = nrb.rows((NRB_BUDGET,), n_runs=NRB_RUNS, n_cycles=T, device=dev)
+    torch.cuda.synchronize()
+    launches["nrb_budget"] = l_nrb = read_counts()
+    require(len(nrows) == len(nrb.NAMES) and all(
+        0 <= r["collision_runs"] <= NRB_RUNS and math.isfinite(r["min_obstacle_distance"])
+        and math.isfinite(r["velocity_mean"]) for r in nrows), f"NRB rows {nrows}")
+    require(not any(l_nrb.values()), f"NRB launched {l_nrb}")
+    print(f"[19b nrb_budget_sensitivity] n_iters {NRB_BUDGET}, {NRB_RUNS} runs x {T} cycles, "
+          f"{time.perf_counter() - t0:.1f} s: "
+          + " ".join(nrb.table_line(r) for r in nrows), flush=True)
+
+    t0 = time.perf_counter()
+    zero_counts()
+    srows = ps.run_grid("r5_rot25", R, T, sigmas=(0.5,), algorithms=("cilqr",), device=dev)
+    torch.cuda.synchronize()
+    launches["production_sweeps"] = l_ps = read_counts()
+    (row,) = srows
+    require(row["algorithm"] == "cilqr" and row["n_runs"] == R and len(row["collided_mask"]) == R
+            and all(math.isfinite(row[k]) for k in ("velocity_mean", "min_obstacle_distance",
+                                                     "mean_jerk")),
+            f"sweep row {row}")
+    require(l_ps["sample"] == l_ps["uncertainty"] == T and l_ps["lm_iter"] >= T,
+            f"sweep cell launches {l_ps} for {T} cycles")
+    print(f"[19c production_sweeps] r5_rot25, cilqr at sigma 0.5, {R} runs x {T} cycles, "
+          f"{time.perf_counter() - t0:.1f} s, launches {l_ps}: {json.dumps(row)}", flush=True)
+    print(f"[19 done] phase 19 took {time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
+    return launches
 
 
 def main() -> None:
@@ -1699,6 +1905,9 @@ def main() -> None:
         lambda: lm_cuda.fused_optimize(p, plans_m, egos_m, U0_m, obstacles, unc), 3)
     k1_plain_ms = cuda_ms(
         lambda: lm_cuda.fused_optimize_plain(p, plans_m, egos_m, U0_m, obstacles, unc), 2)
+    # the plain loop replayed as CUDA graphs (solver.GRAPHS): their memory
+    # pool at B=32768 would stay held until later captures evict it
+    solver.CAPTURED.clear()
     # bound: fit payload, x0, U_init and the shared world in; X, U,
     # iterations, J and lambda out; the iterations this run's lanes took,
     # each of N steps, plus the sample table (30 per sample) and the initial
@@ -2632,6 +2841,14 @@ def main() -> None:
     for name in ("lm", "riccati", "lm_iter", "uncertainty", "sample"):
         kernels[name]["benchmark_launches"] = {
             section: launches[name] for section, launches in bench.items() if launches[name]}
+
+    # 18. the plain LM loop as CUDA graphs against its eager loop
+    graph_phase(card, (zero_counts, read_counts), dev)
+
+    # 19. the JAX package's programs on the port, cut small
+    script_launches = scripts_phase(card, (zero_counts, read_counts), dev)
+    for name in ("lm_iter", "uncertainty", "sample"):
+        kernels[name]["scripts_launches"] = {k: v[name] for k, v in script_launches.items()}
 
     kernels["lm"]["launches"] = main_launches["lm"]
     # K2's own path: ccnmpc's two-phase solves in `compare --full-stack`

@@ -7,6 +7,7 @@ horizon (and any leading batch) at once.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -26,6 +27,29 @@ class CostDerivs(NamedTuple):
     l_ux: torch.Tensor  # (..., N, 2, 4) — identically zero (Constraints.cpp:501-506)
 
 
+class Consts(NamedTuple):
+    """The cost stack's constant tensors of one (params, dtype, device)."""
+
+    e1: torch.Tensor  # (2,) [1, 0]: d acc / d u
+    e2: torch.Tensor  # (2,) [0, 1]: d yaw-rate / d u
+    R: torch.Tensor   # (2, 2) diag(w_acc, w_yawrate)
+    Q: torch.Tensor   # (4, 4) diag(w_pos, w_pos, w_vel, 0)
+    q: torch.Tensor   # (4,) the diagonal of Q
+    r: torch.Tensor   # (2,) the diagonal of R
+
+
+@functools.lru_cache(maxsize=64)
+def consts(p: SolverParams, dtype, device) -> Consts:
+    """The constants, built once per (p, dtype, device): a tensor made from
+    host values is a copy from the host, which a CUDA graph capture may not
+    hold (``solver.optimize`` replays the iteration as one).  Every caller
+    shares the same tensors, so none may write to them."""
+    f = lambda v: torch.tensor(v, dtype=dtype, device=device)
+    q = f([p.w_pos, p.w_pos, p.w_vel, 0.0])
+    return Consts(f([1.0, 0.0]), f([0.0, 1.0]), f([[p.w_acc, 0.0], [0.0, p.w_yawrate]]),
+                  torch.diag(q), q, f([p.w_acc, p.w_yawrate]))
+
+
 def barrier(q1: float, q2: float, c: torch.Tensor, c_dot: torch.Tensor):
     """Exponential barrier b = q1*exp(q2*c) with gradient and Gauss-Newton
     Hessian (Constraints.cpp:67-78).  c: (...,); c_dot: (..., D)."""
@@ -40,12 +64,12 @@ def control_cost_derivs(p: SolverParams, X: torch.Tensor, U: torch.Tensor):
     barriers (Constraints.cpp:86-137), the yaw-rate bounds at the concurrent
     state X[i] (Constraints.cpp:119-121)."""
     N = U.shape[-2]
-    kw = dict(dtype=U.dtype, device=U.device)
+    c = consts(p, U.dtype, U.device)
     v = X[..., :N, 2]
     acc = U[..., 0]
     yr = U[..., 1]
-    e1 = torch.tensor([1.0, 0.0], **kw).expand(U.shape)
-    e2 = torch.tensor([0.0, 1.0], **kw).expand(U.shape)
+    e1 = c.e1.expand(U.shape)
+    e2 = c.e2.expand(U.shape)
 
     _, v1, m1 = barrier(p.q1_acc, p.q2_acc, acc - p.acc_max, e1)
     _, v2, m2 = barrier(p.q1_acc, p.q2_acc, p.acc_min - acc, -e1)
@@ -54,9 +78,8 @@ def control_cost_derivs(p: SolverParams, X: torch.Tensor, U: torch.Tensor):
     _, v3, m3 = barrier(p.q1_yawrate, p.q2_yawrate, yr - yr_hi, e2)
     _, v4, m4 = barrier(p.q1_yawrate, p.q2_yawrate, yr_lo - yr, -e2)
 
-    R = torch.tensor([[p.w_acc, 0.0], [0.0, p.w_yawrate]], **kw)
-    l_u = v1 + v2 + v3 + v4 + 2.0 * (U @ R)
-    l_uu = m1 + m2 + m3 + m4 + 2.0 * R
+    l_u = v1 + v2 + v3 + v4 + 2.0 * (U @ c.R)
+    l_uu = m1 + m2 + m3 + m4 + 2.0 * c.R
     return l_u, l_uu
 
 
@@ -75,8 +98,7 @@ def tracking_cost_derivs(p: SolverParams, plan: LocalPlan, X: torch.Tensor, cp=N
         ],
         dim=-1,
     )
-    Q = torch.diag(torch.tensor([p.w_pos, p.w_pos, p.w_vel, 0.0], dtype=X.dtype,
-                                device=X.device))
+    Q = consts(p, X.dtype, X.device).Q
     l_x = 2.0 * (err @ Q)
     l_xx = (2.0 * Q).expand(X.shape[:-1] + (4, 4))
     return l_x, l_xx
@@ -127,11 +149,9 @@ def total_cost_J(p: SolverParams, plan: LocalPlan, X: torch.Tensor, U: torch.Ten
          Xh[..., 3]],
         dim=-1,
     )
-    kw = dict(dtype=X.dtype, device=X.device)
-    Q = torch.tensor([p.w_pos, p.w_pos, p.w_vel, 0.0], **kw)
-    R = torch.tensor([p.w_acc, p.w_yawrate], **kw)
-    x_cost = (err * err * Q).sum(dim=(-2, -1))
-    u_cost = (U * U * R).sum(dim=(-2, -1))
+    c = consts(p, X.dtype, X.device)
+    x_cost = (err * err * c.q).sum(dim=(-2, -1))
+    u_cost = (U * U * c.r).sum(dim=(-2, -1))
     return x_cost + u_cost
 
 

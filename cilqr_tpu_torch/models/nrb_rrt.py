@@ -41,13 +41,13 @@ import torch
 from cilqr_tpu_torch.models import dynamics, frenet
 from cilqr_tpu_torch.models import obstacles as obs_mod
 from cilqr_tpu_torch.models import reference_path as rp
-from cilqr_tpu_torch.utils import prng
+from cilqr_tpu_torch.utils import graphs, prng
 from cilqr_tpu_torch.utils.params import SolverParams
 
 #: run the planner as a CUDA graph on the card (False: eagerly, as on the CPU)
 GRAPHS = True
-_GRAPHS: dict = {}    # key -> (graph, static inputs, outputs, the captured function)
-_GRAPHS_KEPT = 8
+#: the captures by parameters, dtype, device and shapes (``graphs.GraphCache``)
+CAPTURED = graphs.GraphCache(kept=8)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -223,25 +223,17 @@ def _replay(key, fn, args: list) -> tuple:
     (after one warm-up run on a side stream), then replayed on each call's
     inputs copied into the captured ones.  Returns copies of the outputs
     (the graph overwrites its own on the next replay)."""
-    entry = _GRAPHS.get(key)
-    if entry is None:
-        if len(_GRAPHS) >= _GRAPHS_KEPT:
-            _GRAPHS.pop(next(iter(_GRAPHS)))
-        static = [a.clone() for a in args]
-        main, side = torch.cuda.current_stream(), torch.cuda.Stream()
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            fn(*static)
-        main.wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            out = fn(*static)
-        entry = _GRAPHS[key] = (graph, static, out, fn)
-    graph, static, out, _ = entry
-    for s, a in zip(static, args):
-        s.copy_(a)
-    graph.replay()
-    return tuple(o.clone() for o in out)
+    def make(inputs):
+        dev = inputs[0].device
+        with graphs.side_stream(dev):
+            fn(*inputs)
+        out = []
+        graph = graphs.capture(lambda: out.extend(fn(*inputs)), dev)
+        return (graph,), out, fn
+
+    g = CAPTURED.load(key, args, make)
+    g.graphs[0].replay()
+    return tuple(o.clone() for o in g.out)
 
 
 def _tree(p: SolverParams, np_: NRBParams, c: _Consts, egos: torch.Tensor, wx: torch.Tensor,

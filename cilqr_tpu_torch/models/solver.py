@@ -27,14 +27,21 @@ from __future__ import annotations
 from typing import NamedTuple
 
 import torch
+from torch.utils._pytree import tree_flatten, tree_unflatten
 
 from cilqr_tpu_torch.utils.params import SolverParams
+from cilqr_tpu_torch.utils import graphs
 from cilqr_tpu_torch.utils.device import resolve
 from cilqr_tpu_torch.models import costs as costs_mod
 from cilqr_tpu_torch.models import dynamics
 from cilqr_tpu_torch.models.reference_path import LocalPlan, get_local_plan
 from cilqr_tpu_torch.ops import riccati_pscan
 from cilqr_tpu_torch.ops.eig2x2 import regularized_inverse
+
+#: run the plain LM loop as CUDA graphs on the card (False: eagerly, as on the CPU)
+GRAPHS = True
+#: the captures by parameters, device and shapes (``graphs.GraphCache``)
+CAPTURED = graphs.GraphCache(kept=8)
 
 
 class SolveResult(NamedTuple):
@@ -123,56 +130,86 @@ def forward_pass(p: SolverParams, X: torch.Tensor, U: torch.Tensor, k: torch.Ten
     return torch.stack(xs, dim=-2), torch.stack(us, dim=-2)
 
 
+def plain_iteration(p: SolverParams, plan: LocalPlan, obstacles=None, unc_map=None):
+    """The default LM iteration of ``optimize``, (X, U, lamb) -> (X_new,
+    U_new, J): the cost derivatives and J at (X, U) on (plan, obstacles,
+    unc_map), the backward recursion and the rollout, in plain PyTorch."""
+    def iteration(X, U, lamb):
+        d, J = costs_mod.all_cost_derivs_and_J(p, plan, X, U, obstacles, unc_map)
+        k, K = backward_from_derivs(p, d, X, U, lamb)
+        return (*forward_pass(p, X, U, k, K), J)
+    return iteration
+
+
+def start_state(p: SolverParams, x0: torch.Tensor, U_init: torch.Tensor) -> tuple:
+    """The LM loop's state before its first iteration: (X, U, lamb, J_old,
+    it, done), X the rollout of U_init from x0."""
+    X = dynamics.rollout(p, x0, U_init)
+    batch = U_init.shape[:-2]
+    kw = dict(dtype=X.dtype, device=X.device)
+    return (X, U_init, torch.full(batch, p.lamb_init, **kw),
+            torch.full(batch, torch.finfo(X.dtype).max, **kw),
+            torch.zeros(batch, dtype=torch.int32, device=X.device),
+            torch.zeros(batch, dtype=torch.bool, device=X.device))
+
+
+def damping_inverse(p: SolverParams, dtype, device) -> torch.Tensor:
+    """1 / lamb_factor rounded to ``dtype``: the damping step of the
+    reference as XLA compiles it.  XLA folds ``lamb / p.lamb_factor`` into a
+    multiplication by the constant's reciprocal rounded to the working
+    dtype (the HLO of ``jax.jit(lambda l: l / 10.0)`` is ``multiply(l,
+    constant(0.1))``).  The abort test lamb_n > lamb_max sits exactly on 1e4
+    after chains of x10 and x0.1, so the last bit decides whether a lane
+    stops: an exact division ends on 9999.999 and runs one iteration more
+    than the reference, which ends on 10000.001."""
+    return torch.tensor(p.lamb_factor, dtype=dtype, device=device).reciprocal()
+
+
+def lm_step(p: SolverParams, iteration, lamb_inv: torch.Tensor, X, U, lamb, J_old, it,
+            done) -> tuple:
+    """One LM iteration and the mask update (iLQR.cpp:211-239), a function
+    of tensors only: (X, U, lamb, J_old, it, done) -> the same.  A lane with
+    ``done`` set keeps its state bit for bit, so a step after every lane
+    has stopped changes nothing."""
+    X_new, U_new, J_new = iteration(X, U, lamb)
+    accept = J_new < J_old
+    take = (accept & ~done)[..., None, None]
+    X = torch.where(take, X_new, X)
+    U = torch.where(take, U_new, U)
+    lamb_n = torch.where(accept, lamb * lamb_inv, lamb * p.lamb_factor)
+    stop = torch.where(accept, (J_new - J_old).abs() < p.tolerance, lamb_n > p.lamb_max)
+    J_old = torch.where(done, J_old, J_new)
+    lamb = torch.where(done, lamb, lamb_n)
+    it = torch.where(done, it, it + 1)
+    return X, U, lamb, J_old, it, done | stop
+
+
 def optimize(p: SolverParams, plan: LocalPlan, x0: torch.Tensor, U_init: torch.Tensor,
              obstacles=None, unc_map=None, iteration=None):
     """Levenberg-Marquardt solve (iLQR.cpp:201-245) from x0 (..., 4) and
     U_init (..., N, 2), with per-lane masks: a lane that has stopped keeps
     its state, so every lane gets the result it would get alone.
 
-    iteration(X, U, lamb) -> (X_new, U_new, J) is one LM iteration: by
-    default the cost derivatives and J at (X, U) on (plan, obstacles,
-    unc_map), the backward recursion and the rollout, in plain PyTorch; the
-    batched paths pass their kernels' iteration instead.  The loop ends
+    iteration(X, U, lamb) -> (X_new, U_new, J) is one LM iteration:
+    ``plain_iteration`` by default; the batched paths pass their kernels'
+    iteration instead.  Each pass of the loop is ``lm_step``.  The loop ends
     when every lane has stopped, which reads the done mask on the host once
-    per iteration.  Returns (X, U, iterations, J, lamb)."""
+    per iteration.  On the card the default iteration runs as CUDA graphs
+    (``GRAPHS``): the start and the step, captured once per parameters and
+    shapes and replayed, the same kernels on the same inputs, so the same
+    bits as the eager loop.  Returns (X, U, iterations, J, lamb)."""
+    if iteration is None and x0.is_cuda and GRAPHS:
+        return _optimize_graphed(p, plan, x0, U_init, obstacles, unc_map)
     if iteration is None:
-        def iteration(X, U, lamb):
-            d, J = costs_mod.all_cost_derivs_and_J(p, plan, X, U, obstacles, unc_map)
-            k, K = backward_from_derivs(p, d, X, U, lamb)
-            return (*forward_pass(p, X, U, k, K), J)
-
-    X, U = dynamics.rollout(p, x0, U_init), U_init
-    batch = U_init.shape[:-2]
-    kw = dict(dtype=X.dtype, device=X.device)
-    J_old = torch.full(batch, torch.finfo(X.dtype).max, **kw)
-    lamb = torch.full(batch, p.lamb_init, **kw)
-    it = torch.zeros(batch, dtype=torch.int32, device=X.device)
-    done = torch.zeros(batch, dtype=torch.bool, device=X.device)
-    # The damping step of the reference as XLA compiles it: XLA folds
-    # ``lamb / p.lamb_factor`` into a multiplication by the constant's
-    # reciprocal rounded to the working dtype (the HLO of
-    # ``jax.jit(lambda l: l / 10.0)`` is ``multiply(l, constant(0.1))``).
-    # The abort test lamb_n > lamb_max sits exactly on 1e4 after chains of
-    # x10 and x0.1, so the last bit decides whether a lane stops: an exact
-    # division ends on 9999.999 and runs one iteration more than the
-    # reference, which ends on 10000.001.
-    lamb_inv = torch.tensor(p.lamb_factor, **kw).reciprocal()
+        iteration = plain_iteration(p, plan, obstacles, unc_map)
+    state = start_state(p, x0, U_init)
+    lamb_inv = damping_inverse(p, state[0].dtype, x0.device)
     for _ in range(p.max_iterations):
-        if bool(done.all()):
+        if bool(state[-1].all()):
             break
-        X_new, U_new, J_new = iteration(X, U, lamb)
-
-        accept = J_new < J_old
-        take = (accept & ~done)[..., None, None]
-        X = torch.where(take, X_new, X)
-        U = torch.where(take, U_new, U)
-        lamb_n = torch.where(accept, lamb * lamb_inv, lamb * p.lamb_factor)
-        stop = torch.where(accept, (J_new - J_old).abs() < p.tolerance, lamb_n > p.lamb_max)
-        J_old = torch.where(done, J_old, J_new)
-        lamb = torch.where(done, lamb, lamb_n)
-        it = torch.where(done, it, it + 1)
-        done = done | stop
-    return X, U, it, J_old, lamb
+        state = lm_step(p, iteration, lamb_inv, *state)
+    X, U, lamb, J, it, _ = state
+    return X, U, it, J, lamb
 
 
 def run_step(p: SolverParams, plan_xy: torch.Tensor, plan_n, ego_state: torch.Tensor,
@@ -187,3 +224,51 @@ def run_step(p: SolverParams, plan_xy: torch.Tensor, plan_n, ego_state: torch.Te
     plan = get_local_plan(p, plan_xy, plan_n, ego_state)
     X, U, it, J, lamb = optimize(p, plan, ego_state, U_warm, obstacles, unc_map)
     return SolveResult(X, U, plan.x_wpts, plan.y_fit, it, J, lamb)
+
+
+def _optimize_graphed(p: SolverParams, plan: LocalPlan, x0, U_init, obstacles, unc_map):
+    """``optimize`` with the plain iteration as CUDA graphs: the inputs are
+    copied into the capture's own, the start graph replayed once, then the
+    step graph once per iteration until the done mask, read on the host
+    after each replay, says every lane has stopped."""
+    leaves, spec = tree_flatten((plan, obstacles, unc_map))
+    args = [x0, U_init] + [t for t in leaves if isinstance(t, torch.Tensor)]
+    key = (p, x0.device, obstacles is None, unc_map is None,
+           tuple((a.shape, a.dtype) for a in args))
+    g = CAPTURED.load(key, args, lambda inputs: _capture(p, leaves, spec, inputs))
+    start, step = g.graphs
+    start.replay()
+    for _ in range(p.max_iterations):
+        if bool(g.out[-1].all()):
+            break
+        step.replay()
+    X, U, lamb, J, it, _ = (t.clone() for t in g.out)
+    return X, U, it, J, lamb
+
+
+def _assign(dst: tuple, src: tuple) -> None:
+    for d, s in zip(dst, src):
+        d.copy_(s)
+
+
+def _capture(p: SolverParams, leaves: list, spec, inputs: list) -> tuple:
+    """The start and the step captured on ``inputs`` (x0, U_init, then the
+    world's tensors in the order of ``leaves``), after one warm-up of each
+    on a side stream (which also builds the constants: a copy from the host
+    cannot be captured).  Returns (graphs, the state they write, the
+    constants they read).  A failed capture raises."""
+    x0, U_init, *world = inputs
+    world = iter(world)
+    plan, obstacles, unc_map = tree_unflatten(
+        [next(world) if isinstance(t, torch.Tensor) else t for t in leaves], spec)
+    iteration = plain_iteration(p, plan, obstacles, unc_map)
+    dev = x0.device
+    with graphs.side_stream(dev):
+        state = tuple(t.clone() for t in start_state(p, x0, U_init))
+        dtype = state[0].dtype
+        held = (damping_inverse(p, dtype, dev), costs_mod.consts(p, dtype, dev),
+                costs_mod.consts(p, U_init.dtype, dev))
+        lm_step(p, iteration, held[0], *state)
+    start = graphs.capture(lambda: _assign(state, start_state(p, x0, U_init)), dev)
+    step = graphs.capture(lambda: _assign(state, lm_step(p, iteration, held[0], *state)), dev)
+    return (start, step), state, held

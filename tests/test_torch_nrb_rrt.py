@@ -263,3 +263,25 @@ def test_graph_replay_equals_eager_on_card():
     for g, kept in zip(*first):
         assert torch.equal(g, kept)
     assert float(first[0].lamb.sum()) >= 5
+
+
+def test_tree_follows_the_ego_bits(global_plan):
+    """The tree's draws are keyed by the ego's float32 bit pattern, in the
+    port as in JAX: an ego moved by one float32 ulp in one component grows
+    another tree (controls metres per second squared apart, not a rounding
+    apart), a float64 ego moved without changing its float32 bits the same
+    tree, and the two packages the same tree from the same bits.  So a
+    closed loop whose egos differ in the last bit at some cycle (another
+    backend's rounding) draws unrelated trees from there on, and its
+    per-world outcome does too."""
+    w = world(20, global_plan)
+    np_ = tnrb.NRBParams(n_iters=40)
+    sig = [0.16, 0.16, 0.017]
+    ego = np.array([100.0, -305.6, 4.0, 0.05], np.float32)
+    moved = ego.copy()
+    moved[0] = np.nextafter(ego[0], np.float32(np.inf))
+    a = both(w, np_, ego.astype(np.float64), sig)
+    b = both(w, np_, moved.astype(np.float64), sig)
+    c = both(w, np_, ego.astype(np.float64) + [1e-12, 0.0, 0.0, 0.0], sig)
+    assert float((a.U - b.U).abs().max()) > 0.5
+    assert torch.equal(a.U, c.U) and torch.equal(a.X[..., 1:, 2:], c.X[..., 1:, 2:])
