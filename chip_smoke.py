@@ -1493,6 +1493,10 @@ def benchmark_phase(card: str, counts, dev: torch.device, main_mean_it: float) -
                        for k, (n, l) in sections.items())
           + f" | mean LM iterations {line['mean_lm_iterations']} (phase 5 {main_mean_it:.2f})",
           flush=True)
+    print(f"[17 bench budget] p99_under_budget {line['p99_under_budget']}: single solve median "
+          f"{line['device_single_solve_ms']} ms, p99 {line['device_p99_single_solve_ms']} ms "
+          f"(budget 100 ms), pscan {line['device_single_solve_ms_pscan']} ms, the fused "
+          f"kernel at B=1 {line['device_single_solve_ms_mega_b1']} ms on {card}", flush=True)
 
     with tempfile.TemporaryDirectory() as trace_dir:
         _, trace_sections, trace_s = bench_run(
@@ -1536,14 +1540,19 @@ def device_kernels(fn) -> tuple:
 
 def graph_phase(card: str, counts, dev: torch.device) -> dict:
     """18. ``solver.run_step`` on the plain LM loop, replayed as CUDA graphs
-    (``solver.GRAPHS``) against the eager loop, ``backward_impl`` "seq" and
-    "pscan", unbatched (B=1, what the benchmark's single solve times) and
-    at B=64, on the example world with its obstacles and uncertainty map:
-    every field of every graphed solve equal to the eager solve bit for bit;
-    a call on new egos replays the captured graphs (no capture); no kernel
-    of the port launched.  Prints ms per solve graphed and eager, ms per
-    replay of the step graph, kernels per replay and per eager step, LM
-    iterations.  Returns the numbers by (impl, B)."""
+    (``solver.GRAPHS``; the plan fit in the start graph) against the eager
+    loop, ``backward_impl`` "seq" and "pscan", unbatched (B=1, what the
+    benchmark's single solve times) and at B=64, on the example world with
+    its obstacles and uncertainty map, the graphs captured on
+    ``solver.STREAMS`` streams and on one: every field of every graphed
+    solve equal to the eager solve bit for bit; a call on new egos replays
+    the captured graphs (no capture); no kernel of the port launched.
+    Prints ms per solve graphed and eager; per capture (1 and
+    ``solver.STREAMS`` streams) ms per replay of the step graph (in turns),
+    device kernels per replay, the plan's longest chain and the bytes its
+    pool took; kernels per eager step, LM iterations; then the worst case,
+    B=1 "seq" with every lane running all ``max_iterations``.  Returns the
+    numbers by (impl, B)."""
     from cilqr_tpu_torch import SolverParams
     from cilqr_tpu_torch.models import solver
     from cilqr_tpu_torch.models.reference_path import get_local_plan
@@ -1556,6 +1565,7 @@ def graph_phase(card: str, counts, dev: torch.device) -> dict:
     plan, n, ego, U0, obstacles, unc = example_scenario(p0, device=dev)
     rng = np.random.default_rng(18)
     out = {}
+    streams = solver.STREAMS
 
     def inputs(B: int):
         e = torch.tensor(ego.cpu().numpy()[None, :] + rng.normal(0, 0.3, (B, 4)),
@@ -1601,9 +1611,30 @@ def graph_phase(card: str, counts, dev: torch.device) -> dict:
                         require(same_bits(r_g, r_e), f"{impl} B={B}: graphed != eager, call {i}")
                         eager.append(ms)
                 solver.GRAPHS = True
-                step_graph = solver.CAPTURED[new_keys[0]].graphs[1]
-                replay_ms = cuda_ms(step_graph.replay, GRAPH_REPLAYS)
-                replay_kernels, replay_busy = device_kernels(step_graph.replay)
+                # the same solve captured on one stream, then both step graphs in turns
+                solver.STREAMS, known = 1, set(solver.CAPTURED)
+                _, r_1 = wall_ms(solve, True, e, u)
+                keys_1 = [k for k in solver.CAPTURED if k not in known]
+                require(len(keys_1) == 1, f"{impl} B={B}: {len(keys_1)} captures on one stream")
+                _, r_e = wall_ms(solve, False, e, u)
+                require(same_bits(r_1, r_e), f"{impl} B={B}: one-stream graph != eager")
+                solver.GRAPHS, solver.STREAMS = True, streams
+                steps = {1: solver.CAPTURED[keys_1[0]].graphs[1],
+                         streams: solver.CAPTURED[new_keys[0]].graphs[1]}
+                turns = {1: [], streams: []}
+                for k in (1, streams, streams, 1):
+                    turns[k].append(cuda_ms(steps[k].replay, GRAPH_REPLAYS))
+                per = {}
+                for k, g in steps.items():
+                    kernels, busy = device_kernels(g.replay)
+                    st = g.stats
+                    per[k] = dict(replay_ms=statistics.mean(turns[k]), replay_kernels=kernels,
+                                  replay_busy_ms=busy, pool_bytes=g.pool_bytes,
+                                  chain=st.plan_chain if st else None,
+                                  dag_chain=st.dag_chain if st else None,
+                                  ops=st.ops if st else None, waits=st.waits if st else 0)
+                replay_ms, replay_kernels = per[streams]["replay_ms"], per[streams]["replay_kernels"]
+                replay_busy = per[streams]["replay_busy_ms"]
                 pl = get_local_plan(p, plan, n, e)
                 state = solver.start_state(p, e, u)
                 step = solver.plain_iteration(p, pl, obstacles, unc)
@@ -1614,7 +1645,8 @@ def graph_phase(card: str, counts, dev: torch.device) -> dict:
                            graphed_max_ms=max(graphed), eager_ms=statistics.median(eager),
                            replay_ms=replay_ms, replay_kernels=replay_kernels,
                            replay_busy_ms=replay_busy, step_kernels=step_kernels,
-                           step_busy_ms=step_busy, iterations=statistics.mean(its))
+                           step_busy_ms=step_busy, iterations=statistics.mean(its),
+                           streams=per)
                 out[(impl, B)] = row
                 print(f"[18 graph {impl} B={B}] N={HORIZON}, solver.run_step, obstacles + map: "
                       f"graphed = eager bit for bit on {1 + GRAPH_EAGER_CALLS} ego draws, "
@@ -1627,10 +1659,62 @@ def graph_phase(card: str, counts, dev: torch.device) -> dict:
                       f"({replay_busy:.4f} ms busy); eager lm_step {step_kernels} kernels "
                       f"({step_busy:.4f} ms busy) | mean LM iterations {row['iterations']:.2f} "
                       f"on {card}", flush=True)
+                ops = per[streams]["ops"]
+                for k, v in per.items():
+                    chain = v["chain"] if v["chain"] is not None else ops
+                    print(f"[18 streams {impl} B={B}] {k} stream(s): {v['replay_ms']:.4f} ms per "
+                          f"replay (turns {', '.join(f'{x:.4f}' for x in turns[k])}), "
+                          f"{v['replay_kernels']} device kernels per replay "
+                          f"({v['replay_busy_ms']:.4f} ms busy), plan's longest chain {chain} of "
+                          f"{ops} ops (data's {per[streams]['dag_chain']}), {v['waits']} "
+                          f"cross-stream waits, graph pool {v['pool_bytes']} bytes on {card}",
+                          flush=True)
+        out["worst"] = worst_case_solve(card, p0, plan, n, obstacles, unc, inputs)
     finally:
-        solver.GRAPHS = True
+        solver.GRAPHS, solver.STREAMS = True, streams
     print(f"[18 done] phase 18 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return out
+
+
+def worst_case_solve(card: str, p0, plan, n, obstacles, unc, inputs) -> dict:
+    """18, the worst case of the single solve: B=1 "seq" on the example
+    world with ``tolerance=0`` and ``lamb_max`` out of reach, so that every
+    solve runs all ``max_iterations``; on ``solver.STREAMS`` streams and on
+    one, graphed equal to eager bit for bit; ms per solve (host clock,
+    synchronised, median and max of GRAPH_CALLS calls on new egos after
+    the capturing call)."""
+    from cilqr_tpu_torch.models import solver
+
+    p = dataclasses.replace(p0, tolerance=0.0, lamb_max=1e30)
+    streams = solver.STREAMS
+    res = {}
+    try:
+        for k in (streams, 1):
+            solver.STREAMS = k
+            ms = []
+            for i in range(GRAPH_CALLS + 1):
+                e, u = inputs(1)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r = solver.run_step(p, plan, n, e, u, obstacles, unc)
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t0) * 1e3)
+                require(int(r.iterations) == p.max_iterations,
+                        f"worst case: {int(r.iterations)} LM iterations")
+            solver.GRAPHS = False
+            require(same_bits(r, solver.run_step(p, plan, n, e, u, obstacles, unc)),
+                    f"worst case on {k} stream(s): graphed != eager")
+            solver.GRAPHS = True
+            res[k] = dict(median_ms=statistics.median(ms[1:]), max_ms=max(ms[1:]),
+                          capture_ms=ms[0])
+            print(f"[18 worst case] seq B=1, {p.max_iterations} LM iterations per solve, {k} "
+                  f"stream(s): median {res[k]['median_ms']:.3f} ms, max {res[k]['max_ms']:.3f} ms "
+                  f"over {GRAPH_CALLS} calls on new egos (first call with the capture "
+                  f"{ms[0]:.3f} ms), graphed = eager bit for bit, budget 100 ms on {card}",
+                  flush=True)
+    finally:
+        solver.GRAPHS, solver.STREAMS = True, streams
+    return res
 
 
 # Phase 19, the JAX package's programs on the port (cilqr_tpu_torch/scripts), cut small

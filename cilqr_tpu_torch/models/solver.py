@@ -40,6 +40,9 @@ from cilqr_tpu_torch.ops.eig2x2 import regularized_inverse
 
 #: run the plain LM loop as CUDA graphs on the card (False: eagerly, as on the CPU)
 GRAPHS = True
+#: streams the graphs are captured on (``graphs.capture``): the iteration's
+#: independent kernels overlap in the replay; 1 captures on one stream
+STREAMS = 4
 #: the captures by parameters, device and shapes (``graphs.GraphCache``)
 CAPTURED = graphs.GraphCache(kept=8)
 
@@ -220,30 +223,49 @@ def run_step(p: SolverParams, plan_xy: torch.Tensor, plan_n, ego_state: torch.Te
     (..., 4) with noise already injected; U_warm (..., N, 2) warm start.
     ``unc_map`` is one shared map or, for ego_state (B, 4), one map per
     scenario (values (B, H, W), geometry and frame leaves with leading B).
+    On the card (``GRAPHS``) the plan fit runs inside the start graph.
     """
+    if ego_state.is_cuda and GRAPHS:
+        return _run_step_graphed(p, plan_xy, plan_n, ego_state, U_warm, obstacles, unc_map)
     plan = get_local_plan(p, plan_xy, plan_n, ego_state)
     X, U, it, J, lamb = optimize(p, plan, ego_state, U_warm, obstacles, unc_map)
     return SolveResult(X, U, plan.x_wpts, plan.y_fit, it, J, lamb)
 
 
 def _optimize_graphed(p: SolverParams, plan: LocalPlan, x0, U_init, obstacles, unc_map):
-    """``optimize`` with the plain iteration as CUDA graphs: the inputs are
-    copied into the capture's own, the start graph replayed once, then the
-    step graph once per iteration until the done mask, read on the host
-    after each replay, says every lane has stopped."""
-    leaves, spec = tree_flatten((plan, obstacles, unc_map))
+    """``optimize`` with the plain iteration as CUDA graphs (``_replay``)."""
+    (X, U, lamb, J, it, _), _ = _replay(p, x0, U_init, plan, None, obstacles, unc_map)
+    return X, U, it, J, lamb
+
+
+def _run_step_graphed(p: SolverParams, plan_xy, plan_n, ego_state, U_warm, obstacles, unc_map):
+    """``run_step`` as CUDA graphs: the plan fit in the start graph."""
+    (X, U, lamb, J, it, _), plan = _replay(p, ego_state, U_warm, None, (plan_xy, plan_n),
+                                           obstacles, unc_map)
+    return SolveResult(X, U, plan.x_wpts.clone(), plan.y_fit.clone(), it, J, lamb)
+
+
+def _replay(p: SolverParams, x0, U_init, plan, fit, obstacles, unc_map) -> tuple:
+    """The plain LM loop as CUDA graphs on the local ``plan``, or on the
+    plan that ``fit`` = (plan_xy, plan_n) gives at x0: the inputs are copied
+    into the capture's own, the start graph replayed once, then the step
+    graph once per iteration until the done mask, read on the host after
+    each replay, says every lane has stopped.  Returns copies of the state
+    (X, U, lamb, J, it, done) and the capture's plan."""
+    leaves, spec = tree_flatten((plan, fit, obstacles, unc_map))
     args = [x0, U_init] + [t for t in leaves if isinstance(t, torch.Tensor)]
     key = (p, x0.device, obstacles is None, unc_map is None,
-           tuple((a.shape, a.dtype) for a in args))
+           tuple((a.shape, a.dtype) for a in args), fit is None,
+           tuple(t for t in leaves if not isinstance(t, torch.Tensor)), STREAMS)
     g = CAPTURED.load(key, args, lambda inputs: _capture(p, leaves, spec, inputs))
     start, step = g.graphs
+    state, plan = g.out
     start.replay()
     for _ in range(p.max_iterations):
-        if bool(g.out[-1].all()):
+        if bool(state[-1].all()):
             break
         step.replay()
-    X, U, lamb, J, it, _ = (t.clone() for t in g.out)
-    return X, U, it, J, lamb
+    return tuple(t.clone() for t in state), plan
 
 
 def _assign(dst: tuple, src: tuple) -> None:
@@ -253,22 +275,33 @@ def _assign(dst: tuple, src: tuple) -> None:
 
 def _capture(p: SolverParams, leaves: list, spec, inputs: list) -> tuple:
     """The start and the step captured on ``inputs`` (x0, U_init, then the
-    world's tensors in the order of ``leaves``), after one warm-up of each
-    on a side stream (which also builds the constants: a copy from the host
-    cannot be captured).  Returns (graphs, the state they write, the
-    constants they read).  A failed capture raises."""
+    tensors of (plan, fit, obstacles, unc_map) in the order of ``leaves``)
+    on ``STREAMS`` streams, after one warm-up of each on a side stream
+    (which also builds the constants: a copy from the host cannot be
+    captured).  With ``fit`` the start graph fits the plan into buffers of
+    its own, which the step graph reads.  Returns (graphs, (the state, the
+    plan) they write, the constants they read).  A failed capture raises."""
     x0, U_init, *world = inputs
     world = iter(world)
-    plan, obstacles, unc_map = tree_unflatten(
+    plan, fit, obstacles, unc_map = tree_unflatten(
         [next(world) if isinstance(t, torch.Tensor) else t for t in leaves], spec)
-    iteration = plain_iteration(p, plan, obstacles, unc_map)
     dev = x0.device
     with graphs.side_stream(dev):
+        if fit is not None:
+            plan = LocalPlan(*(t.clone() for t in get_local_plan(p, *fit, x0)))
         state = tuple(t.clone() for t in start_state(p, x0, U_init))
         dtype = state[0].dtype
         held = (damping_inverse(p, dtype, dev), costs_mod.consts(p, dtype, dev),
                 costs_mod.consts(p, U_init.dtype, dev))
+        iteration = plain_iteration(p, plan, obstacles, unc_map)
         lm_step(p, iteration, held[0], *state)
-    start = graphs.capture(lambda: _assign(state, start_state(p, x0, U_init)), dev)
-    step = graphs.capture(lambda: _assign(state, lm_step(p, iteration, held[0], *state)), dev)
-    return (start, step), state, held
+
+    def begin():
+        if fit is not None:
+            _assign(plan, get_local_plan(p, *fit, x0))
+        _assign(state, start_state(p, x0, U_init))
+
+    start = graphs.capture(begin, dev, STREAMS)
+    step = graphs.capture(lambda: _assign(state, lm_step(p, iteration, held[0], *state)), dev,
+                          STREAMS)
+    return (start, step), (state, plan), held

@@ -20,24 +20,34 @@ Each grid's rows are written as ``sweep.json`` and ``sweep.md``
 with the JAX rows cell by cell: collision runs,
 the worlds whose outcome differs (from ``collided_mask``), and whether the
 difference lies within the 4 of 50 worlds by which the JAX package's own
-two paths differ (``docs/BASELINES.md``: 160-cycle float32 chaos).
+two paths differ (``docs/BASELINES.md``: 160-cycle float32 chaos), or
+within a grid's own measured bar (``spread``).
+
+To tell float32 chaos from a bias, a grid runs in float64 (the kernels
+compute in float32, so K1 and K3 run their plain versions and the costmap
+its oracle: ``--no-kernels``), on a subset of its cells (``--algorithms``,
+``--sigmas``), or on the noise block moved by K units in the last place
+(``--nudge-ulps``).
 
     python -m cilqr_tpu_torch.scripts.production_sweeps [--grids r4_n50,...] [--no-kernels]
-        [--out DIR] [--device cuda]
+        [--dtype float32|float64] [--algorithms cilqr,...] [--sigmas 0.375,...]
+        [--nudge-ulps K] [--out DIR] [--device cuda]
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
+import math
 import pathlib
 import sys
 
 import numpy as np
 import torch
 
-from cilqr_tpu_torch.ops import gridmap
+from cilqr_tpu_torch.ops import gridmap, lm_cuda
 from cilqr_tpu_torch.scripts import jax_noise
 from cilqr_tpu_torch.sim import scenarios, sweep
 from cilqr_tpu_torch.utils.device import resolve
@@ -53,25 +63,61 @@ GRIDS = {
     "r5_refratio": dict(sigmas=ENDPOINTS, algorithms=AWARE_BLIND, ratio=REF_RATIO,
                         free_prior=False, rotate=0.0,
                         reference="docs/sweep_r5_pallas_n50/refratio/sweep.json"),
+    # its aware cells' counts move by up to 3 of 50 when the noise moves by
+    # 1-2 ulps (docs/sweep_torch_h100/r5_theta02_diag/): its bar is the JAX
+    # paths' 4 plus that measured spread
     "r5_theta02": dict(sigmas=ENDPOINTS, algorithms=AWARE_BLIND, ratio=0.2, free_prior=True,
-                       rotate=0.0, reference="docs/sweep_r5_pallas_n50/theta02/sweep.json"),
+                       rotate=0.0, reference="docs/sweep_r5_pallas_n50/theta02/sweep.json",
+                       spread=7),
     "r5_rot25": dict(sigmas=ENDPOINTS, algorithms=AWARE_BLIND, ratio=0.2, free_prior=True,
                      rotate=25.0, reference="docs/sweep_r5_pallas_n50/rot25/sweep.json"),
 }
 N_RUNS, N_CYCLES = 50, 160
-SPREAD = 4  # worlds of 50 by which the JAX package's two paths differ per cell
+SPREAD = 4  # worlds of 50 by which the JAX package's two paths differ per cell (a grid's
+           # own "spread" where one is measured)
 ROOT = pathlib.Path(__file__).resolve().parents[2]
+
+
+def nudged(x: torch.Tensor, ulps: int) -> torch.Tensor:
+    """x with every element moved by ``ulps`` units in the last place of its
+    dtype (up for ulps > 0, down for ulps < 0)."""
+    toward = torch.full_like(x, math.inf if ulps > 0 else -math.inf)
+    for _ in range(abs(ulps)):
+        x = torch.nextafter(x, toward)
+    return x
+
+
+@contextlib.contextmanager
+def plain_lm():
+    """Inside: K1 and K3 run their plain versions (``lm_cuda``'s launch
+    functions swapped), the route of a float64 grid: the kernels take
+    float32 only."""
+    saved = lm_cuda._launch, lm_cuda._launch_iteration
+    lm_cuda._launch = lambda p, plans, x0s, U_init, obstacles, unc_map, G=None: (
+        lm_cuda.fused_optimize_plain(p, plans, x0s, U_init, obstacles, unc_map))
+    lm_cuda._launch_iteration = lm_cuda.fused_iteration_plain
+    try:
+        yield
+    finally:
+        lm_cuda._launch, lm_cuda._launch_iteration = saved
 
 
 def run_grid(name: str, n_runs: int = N_RUNS, n_cycles: int = N_CYCLES, sigmas=None,
              algorithms=None, use_kernels: bool = True, dtype=torch.float32, device=None,
-             town=None) -> list:
+             town=None, nudge_ulps: int = 0) -> list:
     """The rows of grid ``name`` (``GRIDS``), as the CLI's ``sweep`` runs
     it; ``sigmas`` / ``algorithms`` cut it to a subset, ``use_kernels=False``
     builds the costmaps on the oracle resample and propagation (the CLI's
     ``--no-kernels``).  ``town`` is the synthetic town prior (map,
-    geometry), made here if not given."""
+    geometry), made here if not given.  ``nudge_ulps`` moves every draw of
+    the noise block by that many units in the last place of ``dtype``.  In
+    float64 K1 and K3 run their plain versions (``plain_lm``), and the
+    costmap kernels, which take float32 only, must be left out
+    (``use_kernels=False``) on the card."""
     device = resolve(device)
+    if dtype == torch.float64 and use_kernels and device.type == "cuda":
+        raise ValueError("a float64 grid on the card takes use_kernels=False: the costmap "
+                         "kernels compute in float32")
     g = GRIDS[name]
     p = dataclasses.replace(SolverParams(), horizon=40, w_uncertainty=5.0,
                             chord_frame_fit=abs(g["rotate"]) > 40.0)
@@ -84,19 +130,21 @@ def run_grid(name: str, n_runs: int = N_RUNS, n_cycles: int = N_CYCLES, sigmas=N
         gg = gridmap.make_geom([115.0, -285.0], 0.5, 512, 512, dtype=dtype, device=device)
     else:
         gm, gg = town if town is not None else sweep.synthetic_town_prior(dtype, device)
-    return sweep.run_sigma_sweep(
-        sigmas if sigmas is not None else g["sigmas"],
-        algorithms=algorithms if algorithms is not None else g["algorithms"],
-        scenario=scenario, p=p, global_map=gm, global_geom=gg, n_runs=n_runs,
-        n_cycles=n_cycles, sigma_theta_ratio=g["ratio"], use_kernels=use_kernels, dtype=dtype,
-        plan=plan,
-        noise_draws=jax_noise(n_cycles, n_runs, dtype, device), device=device)
+    with plain_lm() if dtype == torch.float64 else contextlib.nullcontext():
+        return sweep.run_sigma_sweep(
+            sigmas if sigmas is not None else g["sigmas"],
+            algorithms=algorithms if algorithms is not None else g["algorithms"],
+            scenario=scenario, p=p, global_map=gm, global_geom=gg, n_runs=n_runs,
+            n_cycles=n_cycles, sigma_theta_ratio=g["ratio"], use_kernels=use_kernels,
+            dtype=dtype, plan=plan,
+            noise_draws=nudged(jax_noise(n_cycles, n_runs, dtype, device), nudge_ulps),
+            device=device)
 
 
-def compare(rows: list, reference: list) -> list:
+def compare(rows: list, reference: list, spread: int = SPREAD) -> list:
     """Per cell of ``rows``, its JAX row's collision runs and the worlds
     whose outcome differs: {"sigma_xy", "algorithm", "jax", "port",
-    "worlds", "within"}."""
+    "worlds", "within"}; within: the counts at most ``spread`` apart."""
     ref = {(r["sigma_xy"], r["algorithm"]): r for r in reference}
     out = []
     for r in rows:
@@ -105,13 +153,13 @@ def compare(rows: list, reference: list) -> list:
                   if a != b]
         out.append(dict(sigma_xy=r["sigma_xy"], algorithm=r["algorithm"],
                         jax=j["collision_runs"], port=r["collision_runs"], worlds=worlds,
-                        within=abs(r["collision_runs"] - j["collision_runs"]) <= SPREAD))
+                        within=abs(r["collision_runs"] - j["collision_runs"]) <= spread))
     return out
 
 
-def comparison_table(name: str, cells: list) -> str:
+def comparison_table(name: str, cells: list, spread: int = SPREAD) -> str:
     lines = [f"| grid | sigma_xy | algorithm | JAX collisions | port collisions | "
-             f"differing worlds | within {SPREAD} of 50 |", "|---|---|---|---|---|---|---|"]
+             f"differing worlds | within {spread} of 50 |", "|---|---|---|---|---|---|---|"]
     for c in cells:
         lines.append(f"| {name} | {c['sigma_xy']} | {c['algorithm']} | {c['jax']} | {c['port']} | "
                      f"{' '.join(map(str, c['worlds'])) or '-'} | "
@@ -125,22 +173,36 @@ def main(argv=None) -> int:
     ap.add_argument("--no-kernels", action="store_true",
                     help="the oracle resample and propagation in the costmap build (no K5 / "
                          "K4): the port's second path, as the JAX package's XLA path is its")
+    ap.add_argument("--dtype", choices=("float32", "float64"), default="float32",
+                    help="float64 runs K1 and K3 on their plain versions and, on the card, "
+                         "needs --no-kernels")
+    ap.add_argument("--algorithms", help="a subset of each grid's algorithms, comma-separated")
+    ap.add_argument("--sigmas", help="a subset of each grid's sigma_xy, comma-separated")
+    ap.add_argument("--nudge-ulps", type=int, default=0,
+                    help="move every noise draw by K units in the last place")
     ap.add_argument("--out", default=str(ROOT / "docs" / "sweep_torch_h100"))
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     names = args.grids.split(",")
+    dtype = getattr(torch, args.dtype)
+    subset = dict(algorithms=args.algorithms and tuple(args.algorithms.split(",")),
+                  sigmas=args.sigmas and tuple(float(s) for s in args.sigmas.split(",")))
     town = None
     if any(not GRIDS[n]["free_prior"] for n in names):
-        town = sweep.synthetic_town_prior(torch.float32, args.device)
+        town = sweep.synthetic_town_prior(dtype, args.device)
     for name in names:
-        rows = run_grid(name, use_kernels=not args.no_kernels, device=args.device, town=town)
+        rows = run_grid(name, use_kernels=not args.no_kernels, device=args.device, town=town,
+                        dtype=dtype, nudge_ulps=args.nudge_ulps, **subset)
         out = pathlib.Path(args.out) / name
         out.mkdir(parents=True, exist_ok=True)
         (out / "sweep.json").write_text(sweep.rows_to_json(rows))
         (out / "sweep.md").write_text(sweep.format_table(rows) + "\n")
+        spread = GRIDS[name].get("spread", SPREAD)
+        table = comparison_table(name, compare(rows, json.loads(
+            (ROOT / GRIDS[name]["reference"]).read_text()), spread), spread)
+        (out / "compare.md").write_text(table + "\n")
         print(f"## {name}\n\n{sweep.format_table(rows)}\n", flush=True)
-        reference = json.loads((ROOT / GRIDS[name]["reference"]).read_text())
-        print(comparison_table(name, compare(rows, reference)) + "\n", flush=True)
+        print(table + "\n", flush=True)
     return 0
 
 

@@ -9,9 +9,10 @@ changes no bit; the hoisted cost constants equal the inline ones they
 replaced; the graph path's buffers and cache, with a stand-in for the
 capture that replays the captured function eagerly, give the eager loop's
 bits, and the cache copies in and evicts.  On the card (``cuda``, skipped
-here): the graphed ``run_step`` equals the eager one bit for bit, a second
-call replays instead of capturing, and the capture follows its inputs'
-device whichever card is current.
+here): the graphed ``run_step`` (the plan fit in the start graph) and
+``optimize`` equal the eager ones bit for bit, captured on one stream and
+on four, a second call replays instead of capturing, and the capture
+follows its inputs' device whichever card is current.
 """
 
 from __future__ import annotations
@@ -146,7 +147,7 @@ class ReplayedEagerly:
 
     captures = 0
 
-    def __init__(self, fn, device):
+    def __init__(self, fn, device, streams=1):
         type(self).captures += 1
         self.fn = fn
 
@@ -211,29 +212,44 @@ def test_graph_cache_keeps_copies_in_and_evicts():
 
 @pytest.mark.cuda
 @pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA device")
+@pytest.mark.parametrize("streams", [1, 4])
 @pytest.mark.parametrize("impl", ["seq", "pscan"])
-def test_graphed_run_step_equals_eager_on_the_card(impl, monkeypatch):
-    """``solver.run_step`` on the card with obstacles and the map, unbatched
-    (B=1) and at B=64: graphed equal to ``GRAPHS = False`` bit for bit; a
-    call on new egos replays the captured graphs."""
+def test_graphed_run_step_equals_eager_on_the_card(impl, streams, monkeypatch):
+    """``solver.run_step`` (the plan fit in the start graph) and
+    ``solver.optimize`` on a given plan, on the card with obstacles and the
+    map, unbatched (B=1) and at B=64, the graphs captured on ``streams``
+    streams: graphed equal to ``GRAPHS = False`` bit for bit; a call on new
+    egos replays the captured graphs."""
     dev = torch.device("cuda")
+    monkeypatch.setattr(solver, "STREAMS", streams)
+    monkeypatch.setattr(solver, "CAPTURED", graphs.GraphCache())
     p = dataclasses.replace(SolverParams(), horizon=50, backward_impl=impl)
     plan, n, egos, U0, obstacles, unc = bench_inputs(p, torch.float32, dev, 130, seed=5)
     for lanes in ((0, 1), (slice(2, 66), slice(66, 130))):
         results = []
         for i, lane in enumerate(lanes):
+            e, u = egos[lane], U0[lane]
+            lp = solver.get_local_plan(p, plan, n, e)
             monkeypatch.setattr(solver, "GRAPHS", True)
             held = dict(solver.CAPTURED)
-            graphed = solver.run_step(p, plan, n, egos[lane], U0[lane], obstacles, unc)
+            graphed = solver.run_step(p, plan, n, e, u, obstacles, unc)
+            graphed_opt = solver.optimize(p, lp, e, u, obstacles, unc)
             if i:
                 assert held.keys() == solver.CAPTURED.keys()
                 assert all(solver.CAPTURED[k] is g for k, g in held.items())
             monkeypatch.setattr(solver, "GRAPHS", False)
-            eager = solver.run_step(p, plan, n, egos[lane], U0[lane], obstacles, unc)
+            eager = solver.run_step(p, plan, n, e, u, obstacles, unc)
+            eager_opt = solver.optimize(p, lp, e, u, obstacles, unc)
             torch.cuda.synchronize()
-            assert same(graphed, eager)
+            assert same(graphed, eager) and same(graphed_opt, eager_opt)
             results.append(graphed)
         assert not torch.equal(results[0].U, results[1].U)
+    assert len(solver.CAPTURED) == 4
+    if streams > 1:
+        for g in solver.CAPTURED.values():
+            for graph in g.graphs:
+                assert graph.stats.streams == streams
+                assert graph.stats.dag_chain <= graph.stats.plan_chain < graph.stats.ops
 
 
 def graphed_against_eager(dev: torch.device, current: int) -> None:

@@ -345,3 +345,120 @@ def test_production_sweeps_command_line(monkeypatch, tmp_path, capsys):
         assert out.count(f"| {name} | ") == 4 and "OUTSIDE" not in out
     with pytest.raises(SystemExit):
         tps.main(["--runs", "2"])
+
+
+def ordered_bits(a: np.ndarray) -> np.ndarray:
+    """float32 values as integers in the order of the reals: neighbours in
+    float32 are neighbours here (a difference of K is K ulps apart)."""
+    i = a.astype(np.float32).view(np.int32).astype(np.int64)
+    return np.where(i < 0, -(i & 0x7FFFFFFF), i)
+
+
+@pytest.mark.parametrize("ulps", [0, 1, -2, 3])
+def test_production_nudge_moves_every_draw_by_k_ulps(ulps, monkeypatch):
+    """``run_grid(nudge_ulps=K)`` hands the sweep the committed block with
+    every draw moved by exactly K float32 ulps (K=0: the block itself)."""
+    seen = []
+    monkeypatch.setattr(tsweep, "run_sigma_sweep",
+                        lambda sigmas, **kw: seen.append(kw["noise_draws"]) or [])
+    tps.run_grid("r5_theta02", 4, 6, device=DEV, nudge_ulps=ulps)
+    block = np.load(tscripts.NOISE_FILE)[:6, :4]
+    got = seen[0].numpy()
+    assert got.dtype == np.float32 and got.shape == block.shape
+    if ulps == 0:
+        assert np.array_equal(got, block)
+    assert np.array_equal(ordered_bits(got) - ordered_bits(block), np.full(block.shape, ulps))
+    assert np.array_equal(tps.nudged(torch.tensor([1.0], dtype=torch.float64), -1).numpy(),
+                          [np.nextafter(1.0, 0.0)])
+
+
+def test_production_float64_cell_matches_jax(monkeypatch):
+    """The float64 route, 5 runs x 20 cycles of the ``r5_theta02`` grid's
+    `cilqr` at sigma 0.1 (a window of radius 12 where the grid's sigmas need
+    35): the port's oracle costmap with K1 and K3 on their plain versions
+    (``plain_lm``), fed JAX's float64 draws of seed 0, against the JAX
+    package's ``run_sigma_sweep`` in float64 on its XLA path."""
+    for mod in (jsweep, tsweep):
+        monkeypatch.setattr(mod, "round", lambda x, ndigits=None: x, raising=False)
+    R, T, sigma = 5, 20, 0.1
+    draws = draws_runs(0, T, R)
+    monkeypatch.setattr(tps, "jax_noise", lambda n_cycles, n_runs, dtype, device: (
+        torch.as_tensor(draws[:n_cycles, :n_runs], dtype=dtype, device=device)))
+    swapped = []
+    real_plain_lm = tps.plain_lm
+
+    @tps.contextlib.contextmanager
+    def recording_plain_lm():
+        with real_plain_lm():
+            swapped.append(tps.lm_cuda._launch_iteration is tps.lm_cuda.fused_iteration_plain)
+            yield
+
+    monkeypatch.setattr(tps, "plain_lm", recording_plain_lm)
+    (got,) = tps.run_grid("r5_theta02", R, T, sigmas=(sigma,), algorithms=("cilqr",),
+                          use_kernels=False, dtype=torch.float64, device=DEV)
+    assert swapped == [True] and tps.lm_cuda._launch_iteration is not tps.lm_cuda.fused_iteration_plain
+    jp = dataclasses.replace(SolverParams(), horizon=40, w_uncertainty=5.0)
+    (want,) = jsweep.run_sigma_sweep(
+        [sigma], ["cilqr"], p=jp, global_map=jnp.zeros((512, 512), jnp.float64),
+        global_geom=jgrid.make_geom([115.0, -285.0], 0.5, 512, 512, dtype=jnp.float64),
+        n_runs=R, n_cycles=T, seed=0, sigma_theta_ratio=0.2, use_pallas=False, dtype=jnp.float64)
+    assert got.keys() == want.keys()
+    for k, v in want.items():
+        if isinstance(v, float):
+            np.testing.assert_allclose(got[k], v, rtol=REL, err_msg=k)
+        else:
+            assert got[k] == v, k
+    with pytest.raises(ValueError, match="use_kernels=False"):
+        tps.run_grid("r5_theta02", R, T, dtype=torch.float64, device="cuda")
+
+
+def test_production_sweeps_subset_and_nudge_options(monkeypatch, tmp_path):
+    """``--algorithms``, ``--sigmas``, ``--dtype`` and ``--nudge-ulps`` reach
+    ``run_grid``; each run writes its comparison table; float64 on the card
+    needs ``--no-kernels`` (``run_grid`` refuses it)."""
+    ran = []
+
+    def reference_rows(name, **kw):
+        ran.append(kw)
+        rows = json.loads((tps.ROOT / tps.GRIDS[name]["reference"]).read_text())
+        return [r for r in rows if r["algorithm"] in kw["algorithms"]
+                and r["sigma_xy"] in kw["sigmas"]]
+
+    monkeypatch.setattr(tps, "run_grid", reference_rows)
+    assert tps.main(["--grids", "r5_theta02", "--algorithms", "cilqr", "--sigmas", "0.5",
+                     "--nudge-ulps", "-2", "--dtype", "float64", "--no-kernels",
+                     "--device", DEV, "--out", str(tmp_path)]) == 0
+    (kw,) = ran
+    assert (kw["algorithms"], kw["sigmas"], kw["nudge_ulps"], kw["dtype"], kw["use_kernels"]) == (
+        ("cilqr",), (0.5,), -2, torch.float64, False)
+    table = (tmp_path / "r5_theta02" / "compare.md").read_text().splitlines()
+    assert len(table) == 3 and table[2].startswith("| r5_theta02 | 0.5 | cilqr | 11 | 11 | - |")
+    monkeypatch.undo()
+    with pytest.raises(ValueError, match="use_kernels=False"):
+        tps.main(["--grids", "r5_theta02", "--dtype", "float64", "--device", "cuda"])
+
+
+def test_production_theta02_bar_is_its_measured_nudge_spread():
+    """Only ``r5_theta02`` carries a bar of its own: the JAX paths' 4 plus
+    the largest spread of its aware cells' counts over the committed kernel
+    route runs (the published noise and the block nudged by -2, -1, +1, +2
+    ulps); ``compare`` and the table take it."""
+    assert {n: g.get("spread") for n, g in tps.GRIDS.items()} == {
+        "r4_n50": None, "r5_refratio": None, "r5_theta02": 7, "r5_rot25": None}
+    docs = tps.ROOT / "docs" / "sweep_torch_h100"
+    runs = [docs / "r5_theta02"] + [docs / "r5_theta02_diag" / f"r5_theta02_nudge_{k}"
+                                     for k in (-2, -1, 1, 2)]
+    counts: dict = {}
+    for run in runs:
+        for r in json.loads((run / "sweep.json").read_text()):
+            if r["algorithm"] == "cilqr":
+                counts.setdefault(r["sigma_xy"], []).append(r["collision_runs"])
+    assert sorted(counts) == [0.375, 0.5] and all(len(c) == 5 for c in counts.values())
+    spread = max(max(c) - min(c) for c in counts.values())
+    assert tps.GRIDS["r5_theta02"]["spread"] == tps.SPREAD + spread
+    rows = [{"sigma_xy": 0.5, "algorithm": "cilqr", "collision_runs": 17, "collided_mask": "1"}]
+    ref = [{"sigma_xy": 0.5, "algorithm": "cilqr", "collision_runs": 11, "collided_mask": "0"}]
+    assert [c["within"] for c in tps.compare(rows, ref)] == [False]
+    cells = tps.compare(rows, ref, spread=7)
+    assert [c["within"] for c in cells] == [True]
+    assert "| within 7 of 50 |" in tps.comparison_table("r5_theta02", cells, 7).splitlines()[0]
