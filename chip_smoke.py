@@ -58,7 +58,20 @@ that each went through its kernels:
   phase 19     the JAX package's programs on the port
                (``cilqr_tpu_torch.scripts``), cut small: the wall-vs-car
                classification (K5, K4, K3), the NRB budget table and one
-               cell of the rotated production grid (K5, K4, K3).
+               cell of the rotated production grid (K5, K4, K3);
+  phase 20     the hybrid (K3) and two-phase (K2) LM loops as CUDA graphs
+               (``solver.GRAPHS``; phases 9-10, 13, 15-17 and 19 run them
+               so): the Monte-Carlo path at B=8192, the full stack at
+               B=8192 x 5 cycles, the two-phase solve at B=4096 and
+               ``compare --full-stack`` on `cilqr` and `ccnmpc` (B=10),
+               each graphed against ``solver.GRAPHS = False``: every
+               solve's X, U, J, lambda and iterations equal bit for bit,
+               the launch counts equal (a replay counts the K3 / K2 ops
+               its capture recorded); ms per call (seconds per command)
+               both ways, the device's idle share, the benchmark's slope
+               throughputs; per path one solve's step graph on 1 and 4
+               streams: ms and device kernels per replay, the plan, pool
+               bytes, capture seconds.
 
 Every phase prints a line (the profiles one per batch size); any failure
 raises, so the exit code is nonzero.  The last line is one JSON object:
@@ -162,13 +175,23 @@ def kernel_profile(fn, reps: int, name: str) -> tuple:
     return named, total - named, len(events) / reps
 
 
+def covered_us(spans) -> float:
+    """The time at least one of the (start, end) spans covers."""
+    covered, reach = 0.0, -math.inf
+    for s, e in sorted(spans):
+        covered += max(0.0, e - max(s, reach))
+        reach = max(reach, e)
+    return covered
+
+
 def profile_line(fn, reps: int, kernels: dict, annotation: str | None = None) -> str:
     """Device time per call by kernel (``torch.profiler``) and the call's
     time (CUDA events), both over the same reps calls after a warm-up call.
-    The device is busy for the sum of its kernels' times: one stream, so
-    they do not overlap.  ``kernels`` maps a label to a substring of a
-    kernel's name; ``annotation`` names a ``record_function`` range whose
-    kernels' device time is split out of the other kernels'."""
+    The device is busy while at least one kernel runs (a graph captured on
+    several streams overlaps them).  ``kernels`` maps a label to a
+    substring of a kernel's name; ``annotation`` names a ``record_function``
+    range whose kernels' device time is split out of the other kernels'
+    (a replayed graph runs no range: see ``profile_lines``)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -185,9 +208,11 @@ def profile_line(fn, reps: int, kernels: dict, annotation: str | None = None) ->
     named = dict.fromkeys(kernels, 0.0)
     other_ms = ann_ms = 0.0
     n_other = 0
+    spans = []
     for evt in prof.events():
         user_range = getattr(evt, "is_user_annotation", False) or evt.name == annotation
         if evt.device_type == DeviceType.CUDA and not user_range:
+            spans.append((evt.time_range.start, evt.time_range.end))
             ms = evt.time_range.elapsed_us() / 1e3 / reps
             label = next((k for k, key in kernels.items() if key in evt.name), None)
             if label is None:
@@ -198,8 +223,10 @@ def profile_line(fn, reps: int, kernels: dict, annotation: str | None = None) ->
         elif evt.device_type == DeviceType.CPU and evt.name == annotation:
             ann_ms += evt.device_time_total / 1e3 / reps
     busy = sum(named.values()) + other_ms
+    covered = covered_us(spans) / 1e3 / reps
     parts = [f"call {call_ms:.3f} ms (CUDA events, under the profiler)",
-             f"device busy {busy:.3f} ms = {100 * busy / call_ms:.1f}% of the call"]
+             f"device busy {covered:.3f} ms = {100 * covered / call_ms:.1f}% of the call "
+             f"(kernel time summed {busy:.3f} ms)"]
     for label, ms in named.items():
         require(ms > 0.0, f"the profiler saw no {label} device time")
         parts.append(f"{label} {ms:.3f} ms ({100 * ms / busy:.1f}% of device time)")
@@ -210,6 +237,23 @@ def profile_line(fn, reps: int, kernels: dict, annotation: str | None = None) ->
                      f"({100 * (other_ms - ann_ms) / busy:.1f}%)")
     parts.append(f"{n_other / reps:.0f} other kernels {other_ms:.3f} ms")
     return " | ".join(parts)
+
+
+def profile_lines(fn, reps: int, kernels: dict, annotation: str | None = None) -> str:
+    """``profile_line`` of fn() as it runs, its LM loops graphed, and with
+    ``annotation`` once more with ``solver.GRAPHS`` off: the kernels of a
+    replayed graph run outside any profiler range, so the range's share is
+    read off the eager loop."""
+    from cilqr_tpu_torch.models import solver
+
+    line = profile_line(fn, reps, kernels)
+    if annotation is None:
+        return line
+    try:
+        solver.GRAPHS = False
+        return f"{line} || the same, loops eager: {profile_line(fn, reps, kernels, annotation)}"
+    finally:
+        solver.GRAPHS = True
 
 
 def ptxas_lines(log: str) -> list:
@@ -392,23 +436,39 @@ def pick(r) -> tuple:
     return (r.X, r.U, r.iterations, r.J, r.lamb)
 
 
+def k1_plain(p, plans, x0s, U_init, obstacles, unc_map, G=None):
+    """K1's launch function inside ``plain_versions``."""
+    from cilqr_tpu_torch.ops import lm_cuda
+
+    return lm_cuda.fused_optimize_plain(p, plans, x0s, U_init, obstacles, unc_map)
+
+
+def k2_plain(p, d, X, U, lamb, do_forward):
+    """K2's launch function inside ``plain_versions``."""
+    from cilqr_tpu_torch.ops import riccati_cuda
+
+    plain = riccati_cuda.backward_forward_plain if do_forward else riccati_cuda.backward_plain
+    return plain(p, d, X, U, lamb)
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Inside: the wrappers of K1, K2, K3, K4 (fields given and fused) and
     K5 (alone and with the overrides) run their plain versions on the card
     (the launch functions are swapped; their arguments are the plain
-    versions').  Only the comparisons use it."""
+    versions').  Only the comparisons use it.  The LM loops' graphs are
+    keyed by the launch functions (``solver._launch_route``), so a loop
+    captured on the kernels is never replayed here, nor one captured here
+    outside; the swapped functions are the same objects on every entry, so
+    the captures made here serve every later entry."""
     from cilqr_tpu_torch.ops import lm_cuda, riccati_cuda, sample_cuda, uncertainty_cuda
 
     saved = (lm_cuda._launch, lm_cuda._launch_iteration, uncertainty_cuda._launch,
              uncertainty_cuda._launch_fused, sample_cuda._launch, sample_cuda._launch_vehicle_map,
              riccati_cuda._launch)
-    lm_cuda._launch = lambda p, plans, x0s, U_init, obstacles, unc_map, G=None: (
-        lm_cuda.fused_optimize_plain(p, plans, x0s, U_init, obstacles, unc_map))
+    lm_cuda._launch = k1_plain
     lm_cuda._launch_iteration = lm_cuda.fused_iteration_plain
-    riccati_cuda._launch = lambda p, d, X, U, lamb, do_forward: (
-        riccati_cuda.backward_forward_plain if do_forward else riccati_cuda.backward_plain)(
-        p, d, X, U, lamb)
+    riccati_cuda._launch = k2_plain
     uncertainty_cuda._launch = uncertainty_cuda.propagate_banded_plain
     uncertainty_cuda._launch_fused = uncertainty_cuda.propagate_fused_plain
     sample_cuda._launch = sample_cuda.sample_prior_batched_plain
@@ -789,6 +849,8 @@ def experiment_layer(card: str, counts, dev: torch.device) -> tuple:
                 recording(solver_batched, "run_steps_batched", solves, keep=two_phase):
             cmp_s, cmp_out = cli_call(exp_compare_argv(), dev, tmp / "compare")
         launches["compare"] = read_counts()
+        require(loop_kinds(EXP_COMPARE_RUNS) >= {"hybrid", "two_phase"},
+                f"compare: the graphed loops are {loop_kinds()}")
         algos = runner.ALGORITHMS
         require([c[0][:2] for c in calls] == [(a, sc) for sc in EXP_SCENARIOS for a in algos],
                 f"compare ran {[c[0][:2] for c in calls]}")
@@ -1032,7 +1094,7 @@ def experiment_layer(card: str, counts, dev: torch.device) -> tuple:
             "uncertainty_sample_batched" if a == "cilqr" else None))
     for label, fn, kern, ann in profiles:
         print(f"[15 profile] {label}, {EXP_PROFILE_CYCLES} cycles: "
-              + profile_line(fn, reps=1, kernels=kern, annotation=ann), flush=True)
+              + profile_lines(fn, reps=1, kernels=kern, annotation=ann), flush=True)
     print(f"[15 done] phase 15 took {time.perf_counter() - t_phase:.1f} s", flush=True)
     return launches, {"compare": cmp_algo, "sweep": sw_algo}
 
@@ -1464,14 +1526,14 @@ def finite_field(v) -> bool:
     return False
 
 
-def benchmark_phase(card: str, counts, dev: torch.device, main_mean_it: float) -> dict:
+def benchmark_phase(card: str, counts, dev: torch.device, main_mean_it: float) -> tuple:
     """17. ``python -m cilqr_tpu_torch bench`` in process with the default
     knobs: the line holds every field, each finite; each call launched what
     its section implies and nothing launched outside them; its mean LM
     iterations (off its last ego batch, another draw of phase 5's
     distribution) within BENCH_MEAN_IT_OFF of phase 5's.  Then the headline
-    alone with ``BENCH_TRACE``: the trace names K1.  Returns the launches
-    by section and kernel."""
+    alone with ``BENCH_TRACE``: the trace names K1.  Returns (the launches
+    by section and kernel, the JSON line)."""
     from cilqr_tpu_torch.models import solver
 
     t_phase = time.perf_counter()
@@ -1512,7 +1574,7 @@ def benchmark_phase(card: str, counts, dev: torch.device, main_mean_it: float) -
           f"{len(events)} events in {trace_mb:.1f} MB, {k1_events} name lm_opt "
           f"(K1 launches {trace_sections['main_path'][1]['lm']} on the main path)", flush=True)
     print(f"[17 done] phase 17 took {time.perf_counter() - t_phase:.1f} s", flush=True)
-    return {section: l for section, (_, l) in sections.items()}
+    return {section: l for section, (_, l) in sections.items()}, line
 
 
 # Phase 18, the plain LM loop as CUDA graphs (models/solver.py, GRAPHS)
@@ -1787,6 +1849,268 @@ def scripts_phase(card: str, counts, dev: torch.device) -> dict:
           f"{time.perf_counter() - t0:.1f} s, launches {l_ps}: {json.dumps(row)}", flush=True)
     print(f"[19 done] phase 19 took {time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
     return launches
+
+
+# Phase 20, the hybrid (K3) and two-phase (K2) LM loops as CUDA graphs
+# (models/solver.py: the iteration handed over as a solver.Iteration)
+LOOP_CALLS = 3            # timed calls per path, graphed and eager (host clock, synchronised)
+LOOP_REPLAYS = 20         # step replays timed per capture, in turns on 1, 4, 4, 1 streams
+LOOP_COMPARE_ALGOS = ("cilqr", "ccnmpc")  # compare's planners on these loops (K3, K2)
+LOOP_IDLE_CYCLES = 3      # compare's cycles under the profiler, for the idle share
+
+
+def tree_equal(a, b) -> bool:
+    """Two nests of tuples, lists and dicts of one structure, every tensor
+    equal bit for bit and every other leaf equal."""
+    from torch.utils._pytree import tree_flatten
+
+    (la, sa), (lb, sb) = tree_flatten(a), tree_flatten(b)
+    return sa == sb and all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
+                            for x, y in zip(la, lb))
+
+
+def idle_share(fn) -> tuple:
+    """(the device's idle share of one fn() call, its device kernels and
+    copies) by ``torch.profiler`` after a warm-up call: one less the time
+    at least one device event runs (the events of several streams overlap)
+    over the call's time (CUDA events, under the profiler)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
+             if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
+    return 1.0 - covered_us(spans) / (start.elapsed_time(end) * 1e3), len(spans)
+
+
+@contextlib.contextmanager
+def capture_seconds(store: list):
+    """Inside: every capture of the LM loops' graphs (``solver._capture``)
+    appends its seconds to store."""
+    from cilqr_tpu_torch.models import solver
+
+    make = solver._capture
+
+    def timed_capture(*args):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = make(*args)
+        torch.cuda.synchronize()
+        store.append(time.perf_counter() - t0)
+        return out
+
+    solver._capture = timed_capture
+    try:
+        yield store
+    finally:
+        solver._capture = make
+
+
+def loop_kinds(B: int | None = None) -> set:
+    """The iterations (``solver.Iteration.build``) of the LM loops in
+    ``solver.CAPTURED`` (with ``B``: of those captured for B lanes; a key
+    holds the inputs' (shape, dtype), x0's first, and the constants)."""
+    from cilqr_tpu_torch.models import solver, solver_batched
+    from cilqr_tpu_torch.ops import lm_cuda
+
+    kinds = {lm_cuda._hybrid: "hybrid", solver_batched._two_phase: "two_phase",
+             solver.plain_iteration: "plain"}
+    return {kinds[leaf] for key in solver.CAPTURED for leaf in key[4]
+            if callable(leaf) and leaf in kinds and B in (None, key[3][0][0][0])}
+
+
+def stream_study(label: str, call, card: str) -> dict:
+    """One recorded ``run_steps_batched`` call of a path, (args, keywords),
+    solved again alone: eagerly, then graphed on one stream and on
+    ``solver.STREAMS``, each equal to the eager solve bit for bit; the two
+    step graphs' replays timed in turns (1, S, S, 1), their device kernels
+    per replay, the plan of the S-stream step, the pools' bytes and the
+    captures' seconds."""
+    from cilqr_tpu_torch.models import solver, solver_batched
+
+    args, kw = call
+    solve = lambda: pick(solver_batched.run_steps_batched(*args, **kw))
+    S = solver.STREAMS
+    per = {}
+    try:
+        solver.GRAPHS = False
+        want = solve()
+        solver.GRAPHS = True
+        solver.CAPTURED.clear()
+        for k in (1, S):
+            solver.STREAMS, known, secs = k, set(solver.CAPTURED), []
+            with capture_seconds(secs):
+                got = solve()
+                torch.cuda.synchronize()
+            new = [key for key in solver.CAPTURED if key not in known]
+            require(len(new) == 1 and len(secs) == 1,
+                    f"{label}: {len(new)} captures on {k} stream(s)")
+            require(tree_equal(got, want), f"{label}: graphed on {k} stream(s) != eager")
+            start, step = solver.CAPTURED[new[0]].graphs
+            per[k] = dict(step=step, pool_bytes=start.pool_bytes + step.pool_bytes,
+                          capture_s=secs[0], turns=[])
+    finally:
+        solver.GRAPHS, solver.STREAMS = True, S
+    for k in (1, S, S, 1):
+        per[k]["turns"].append(cuda_ms(per[k]["step"].replay, LOOP_REPLAYS))
+    for k, v in per.items():
+        v["replay_ms"] = statistics.mean(v["turns"])
+        v["kernels"], v["busy_ms"] = device_kernels(v["step"].replay)
+    st = per[S]["step"].stats
+    B = args[3].shape[0]
+    print(f"[20 streams {label}] B={B}, the step graph: {per[S]['kernels']} device kernels per "
+          f"replay ({per[1]['kernels']} on one stream) | ms per replay (CUDA events, "
+          f"{LOOP_REPLAYS} replays, turns 1, {S}, {S}, 1) 1 stream {per[1]['replay_ms']:.4f} "
+          f"({per[1]['busy_ms']:.4f} busy), {S} streams {per[S]['replay_ms']:.4f} "
+          f"({per[S]['busy_ms']:.4f} busy) | plan on {S} streams: chain {st.plan_chain} of "
+          f"{st.ops} ops (data's {st.dag_chain}), {st.waits} cross-stream waits | pool bytes "
+          f"(start + step) 1 stream {per[1]['pool_bytes']}, {S} streams {per[S]['pool_bytes']} | "
+          f"capture s 1 stream {per[1]['capture_s']:.3f}, {S} streams {per[S]['capture_s']:.3f} "
+          f"| graphed = eager bit for bit on both on {card}", flush=True)
+    return dict(B=B, kernels_per_replay=per[S]["kernels"], kernels_per_replay_1=per[1]["kernels"],
+                replay_ms={k: v["replay_ms"] for k, v in per.items()}, ops=st.ops,
+                chain=st.plan_chain, dag_chain=st.dag_chain,
+                pool_bytes={k: v["pool_bytes"] for k, v in per.items()},
+                capture_s={k: v["capture_s"] for k, v in per.items()})
+
+
+def loop_path(label: str, run, counts, card: str, kind: str, slope=None) -> dict:
+    """A path whose LM loop is ``kind`` ("hybrid" or "two_phase"), run()
+    once as a user calls it, graphed (``solver.GRAPHS``) against eager: its
+    outputs and every ``run_steps_batched`` call's (X, U, iterations, J,
+    lamb) equal bit for bit, the launch counts equal (a replay counts its
+    kernels), the graphed run's loops captured as ``kind``; ms per call both
+    ways (the median of LOOP_CALLS calls after the first), the device's idle
+    share both ways, with ``slope`` = (call, make_input, items, g2) the
+    benchmark's slope throughput both ways; then ``stream_study`` on the
+    first solve.  Returns the numbers."""
+    from cilqr_tpu_torch import benchmark
+    from cilqr_tpu_torch.models import solver, solver_batched
+
+    zero_counts, read_counts = counts
+    out, firsts, launches, ms, idle, rate = {}, {}, {}, {}, {}, {}
+    calls = []
+    try:
+        for graphed in (True, False):
+            solver.GRAPHS = graphed
+            solver.CAPTURED.clear()
+            solves = []
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            with recording(solver_batched, "run_steps_batched", solves,
+                           keep=lambda res, a, k: (a, k, pick(res))):
+                res = run()
+                torch.cuda.synchronize()
+            firsts[graphed] = (time.perf_counter() - t0) * 1e3
+            launches[graphed] = read_counts()
+            out[graphed] = (res, [r for _, _, r in solves])
+            if graphed:
+                calls = [(a, k) for a, k, _ in solves]
+                require(loop_kinds() == {kind}, f"{label}: graphed loops {loop_kinds()}, "
+                        f"expected {kind}")
+            else:
+                require(not solver.CAPTURED, f"{label}: the eager run captured a graph")
+            times = []
+            for _ in range(LOOP_CALLS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms[graphed] = statistics.median(times)
+            idle[graphed] = idle_share(run)
+            if slope is not None:
+                rate[graphed] = benchmark.slope_throughput(*slope[:3], g2=slope[3])[0]
+    finally:
+        solver.GRAPHS = True
+    require(tree_equal(out[True], out[False]),
+            f"{label}: the graphed path's results differ from the eager path's")
+    require(launches[True] == launches[False],
+            f"{label}: launches graphed {launches[True]}, eager {launches[False]}")
+    its = torch.cat([r[2].reshape(-1).float() for r in out[True][1]])
+    print(f"[20 loops {label}] {len(out[True][1])} {kind} solves, graphed = eager bit for bit "
+          f"(X, U, iterations, J, lambda of every lane, and the path's outputs) | launches "
+          f"{launches[True]} both ways | ms per call (host clock, synchronised, median of "
+          f"{LOOP_CALLS}): graphed {ms[True]:.3f} (first call, with the captures, "
+          f"{firsts[True]:.3f}), eager {ms[False]:.3f} | device idle share graphed "
+          f"{100 * idle[True][0]:.1f}% ({idle[True][1]} device events), eager "
+          f"{100 * idle[False][0]:.1f}% ({idle[False][1]})"
+          + (f" | slope throughput (the benchmark's method) graphed {rate[True]:.1f}, eager "
+             f"{rate[False]:.1f} per s" if slope else "")
+          + f" | mean LM iterations {float(its.mean()):.2f} on {card}", flush=True)
+    study = stream_study(label, calls[0], card)
+    return dict(graphed_ms=ms[True], first_ms=firsts[True], eager_ms=ms[False],
+                idle={True: idle[True][0], False: idle[False][0]}, rate=rate,
+                launches=launches[True], mean_iterations=float(its.mean()), streams=study)
+
+
+def compare_loops(card: str, counts, dev: torch.device) -> dict:
+    """`compare --full-stack` on its two scenarios at phase 15's runs and
+    cycles, on the algorithms whose planners run these loops (`cilqr`: the
+    hybrid loop, K3; `ccnmpc`: two two-phase solves per cycle, K2), graphed
+    against eager: every planner step's (X, U, iterations, J, lamb) equal
+    bit for bit, the launches equal, the command's and each algorithm's
+    seconds both ways; the idle share over LOOP_IDLE_CYCLES cycles both
+    ways; ``stream_study`` on each algorithm's first solve."""
+    from cilqr_tpu_torch.models import solver, solver_batched
+    from cilqr_tpu_torch.sim import runner
+
+    zero_counts, read_counts = counts
+    argv = ["compare", "--full-stack", "--scenarios", ",".join(EXP_SCENARIOS), "--runs",
+            str(EXP_COMPARE_RUNS), "--algorithms", ",".join(LOOP_COMPARE_ALGOS)]
+    steps, secs, launches, per_algo, idle, first = {}, {}, {}, {}, {}, {}
+    try:
+        with tempfile.TemporaryDirectory(prefix="cilqr_loops_") as tmp:
+            for graphed in (True, False):
+                solver.GRAPHS = graphed
+                solver.CAPTURED.clear()
+                rec, calls, solves = [], [], []
+                zero_counts()
+                with steps_recorded(runner, rec), per_call(
+                        runner, "run_experiment_batch", read_counts, calls,
+                        lambda args, kw: (kw["algorithm"],)), recording(
+                        solver_batched, "run_steps_batched", solves,
+                        keep=lambda res, a, k: (a, k)):
+                    secs[graphed], _ = cli_call(argv + ["--cycles", str(EXP_COMPARE_CYCLES)], dev,
+                                                pathlib.Path(tmp) / str(graphed))
+                launches[graphed] = read_counts()
+                steps[graphed] = rec
+                per_algo[graphed] = {a: s for a, (s, _) in by_algorithm(
+                    calls, LOOP_COMPARE_ALGOS).items()}
+                if graphed:
+                    require(loop_kinds() == {"hybrid", "two_phase"},
+                            f"compare: graphed loops {loop_kinds()}")
+                    two_phase = lambda a: a[5] is not None and a[5].pos.ndim == 4
+                    first = {"ccnmpc": next(c for c in solves if two_phase(c[0])),
+                             "cilqr": next(c for c in solves if c[0][6] is not None)}
+                idle[graphed] = idle_share(lambda: cli_call(
+                    argv + ["--cycles", str(LOOP_IDLE_CYCLES)], dev,
+                    pathlib.Path(tmp) / f"idle{graphed}"))
+    finally:
+        solver.GRAPHS = True
+    require(len(steps[True]) == len(steps[False]) and tree_equal(steps[True], steps[False]),
+            "compare: a graphed planner step differs from the eager one")
+    require(launches[True] == launches[False],
+            f"compare: launches graphed {launches[True]}, eager {launches[False]}")
+    print(f"[20 loops compare] `{' '.join(argv)} --cycles {EXP_COMPARE_CYCLES}`: "
+          f"{len(steps[True])} planner steps, graphed = eager bit for bit (X, U, iterations, J, "
+          f"lambda of every lane) | launches {launches[True]} both ways | command s graphed "
+          f"{secs[True]:.3f}, eager {secs[False]:.3f} | "
+          + ", ".join(f"{a} s graphed {per_algo[True][a]:.3f}, eager {per_algo[False][a]:.3f}"
+                      for a in LOOP_COMPARE_ALGOS)
+          + f" | device idle share ({LOOP_IDLE_CYCLES} cycles) graphed "
+          f"{100 * idle[True][0]:.1f}%, eager {100 * idle[False][0]:.1f}% on {card}", flush=True)
+    studies = {a: stream_study(f"compare {a}", first[a], card) for a in LOOP_COMPARE_ALGOS}
+    return dict(seconds=secs, per_algo=per_algo, idle={k: v[0] for k, v in idle.items()},
+                launches=launches[True], streams=studies)
 
 
 def main() -> None:
@@ -2400,6 +2724,7 @@ def main() -> None:
     it_min, it_max = int(res.iterations.min()), int(res.iterations.max())
     require(mc_launches == {"uncertainty": 1, "lm_iter": it_max, "lm": 0, "riccati": 0},
             f"MC path launches {mc_launches}, expected K4 once, K3 {it_max} times, K1 and K2 never")
+    require("hybrid" in loop_kinds(MC_B), f"MC path: the graphed loops are {loop_kinds()}")
     require(bool(torch.isfinite(res.X).all() and torch.isfinite(res.U).all()),
             "non-finite X/U on the MC path")
     require(tuple(res.U.shape) == (MC_B, HORIZON, 2) and tuple(res.X.shape) == (MC_B, HORIZON + 1, 4),
@@ -2433,7 +2758,7 @@ def main() -> None:
           f"{mean_it:.2f} (range {it_min}..{it_max}) | first {L} lanes vs "
           f"monte_carlo(impl='reference'): {mc_line} | {mc_ms:.3f} ms/call = "
           f"{MC_B / mc_ms * 1e3:.0f} scenarios/s on {card}", flush=True)
-    print(f"[10 profile] B={MC_B}: " + profile_line(
+    print(f"[10 profile] B={MC_B}: " + profile_lines(
         lambda: mc_fast(samples), reps=2, kernels={"K4": "propagate_kernel", "K3": "lm_iter_kernel"},
         annotation="uncertainty_sample_batched"), flush=True)
 
@@ -2740,6 +3065,7 @@ def main() -> None:
                                 "lm_iter": sum(it_max), "lm": 0, "riccati": 0},
                 f"full-stack launches {fs_launches} on the {label}, expected K5 and K4 once per "
                 f"cycle, K3 {it_max} per cycle, K1 and K2 never")
+        require("hybrid" in loop_kinds(FS_B), f"full stack: the graphed loops are {loop_kinds()}")
         require(all(bool(torch.isfinite(v.float()).all()) for v in rec.values())
                 and bool(torch.isfinite(xf).all()), f"non-finite record on the {label}")
         require(tuple(rec["start_pos"].shape) == (FS_CYCLES, FS_B, 4)
@@ -2799,7 +3125,7 @@ def main() -> None:
         print(f"[13 lanes] {label}, first {L} lanes vs the loop on the plain versions: {line}",
               flush=True)
     del got_c
-    print(f"[13 profile] B={FS_B}: " + profile_line(
+    print(f"[13 profile] B={FS_B}: " + profile_lines(
         lambda: full_stack(gmap, x0s, fs_draws), reps=1,
         kernels={"K5": "sample_kernel", "K4": "propagate_kernel", "K3": "lm_iter_kernel"},
         annotation="uncertainty_sample_batched"), flush=True)
@@ -2921,7 +3247,7 @@ def main() -> None:
         kernels[name]["sharded_full_stack_launches"] = so["full_stack"][name]
 
     # 17. the benchmark driver at its defaults, and its trace
-    bench = benchmark_phase(card, (zero_counts, read_counts), dev, main_mean_it)
+    bench, bench_line = benchmark_phase(card, (zero_counts, read_counts), dev, main_mean_it)
     for name in ("lm", "riccati", "lm_iter", "uncertainty", "sample"):
         kernels[name]["benchmark_launches"] = {
             section: launches[name] for section, launches in bench.items() if launches[name]}
@@ -2933,6 +3259,42 @@ def main() -> None:
     script_launches = scripts_phase(card, (zero_counts, read_counts), dev)
     for name in ("lm_iter", "uncertainty", "sample"):
         kernels[name]["scripts_launches"] = {k: v[name] for k, v in script_launches.items()}
+
+    # 20. the hybrid (K3) and two-phase (K2) LM loops as CUDA graphs against
+    # their eager loops, at the paths' own shapes
+    t_phase = time.perf_counter()
+    prior, geom, origin_xy, origin_yaw = mc_world(torch.float32)
+    samples = mc.sample_scenarios(torch.Generator().manual_seed(0), MC_B, ego.cpu(),
+                                  sigma_hi=SIGMA_HI, device=dev)
+    counts = (zero_counts, read_counts)
+    loops = {
+        "mc": loop_path(f"monte_carlo B={MC_B}", lambda: mc_fast(samples), counts, card, "hybrid",
+                        slope=(lambda a: mc_fast(mc.MCSample(*a)), lambda i: (
+                            samples.sigmas * (1.0 + 1e-7 * (i + 1)), samples.egos), MC_B, 4)),
+        "full_stack": loop_path(
+            f"full stack B={FS_B} x {FS_CYCLES} cycles", lambda: full_stack(gmap, x0s, fs_draws),
+            counts, card, "hybrid", slope=(lambda x: full_stack(gmap_zero, x, fs_draws),
+                                           lambda i: x0s + 1e-5 * (i + 1), FS_CYCLES * FS_B, 3)),
+        "two_phase": loop_path(f"two_phase B={K2_CHECK_B}", lambda: solver_batched.run_steps_batched(
+            p, plan, n, e4, u4, obstacles, unc, impl="two_phase"), counts, card, "two_phase"),
+    }
+    loops["compare"] = compare_loops(card, counts, dev)
+    bench_rates = {k: bench_line[k] for k in ("mc_scenarios_per_sec", "full_stack_cycles_per_sec")}
+    print(f"[20 bench] phase 17's bench (graphed loops): {json.dumps(bench_rates)} | this phase's "
+          f"slope (the benchmark's method, same call) graphed / eager: mc_scenarios_per_sec "
+          f"{loops['mc']['rate'][True]:.1f} / {loops['mc']['rate'][False]:.1f}, "
+          f"full_stack_cycles_per_sec {loops['full_stack']['rate'][True]:.1f} / "
+          f"{loops['full_stack']['rate'][False]:.1f} on {card}", flush=True)
+    for name, paths in (("lm_iter", {"mc": loops["mc"]["streams"],
+                                     "full_stack": loops["full_stack"]["streams"],
+                                     "compare_cilqr": loops["compare"]["streams"]["cilqr"]}),
+                        ("riccati", {"two_phase": loops["two_phase"]["streams"],
+                                     "compare_ccnmpc": loops["compare"]["streams"]["ccnmpc"]})):
+        kernels[name]["graphed_loops"] = {k: dict(
+            B=v["B"], kernels_per_replay=v["kernels_per_replay"],
+            ms_per_replay=v["replay_ms"][solver.STREAMS], ms_per_replay_one_stream=v["replay_ms"][1])
+            for k, v in paths.items()}
+    print(f"[20 done] phase 20 took {time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
 
     kernels["lm"]["launches"] = main_launches["lm"]
     # K2's own path: ccnmpc's two-phase solves in `compare --full-stack`

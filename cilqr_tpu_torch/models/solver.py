@@ -24,7 +24,7 @@ the LM loop keeps per-lane masks so each lane stops on its own.
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import Callable, NamedTuple
 
 import torch
 from torch.utils._pytree import tree_flatten, tree_unflatten
@@ -38,13 +38,24 @@ from cilqr_tpu_torch.models.reference_path import LocalPlan, get_local_plan
 from cilqr_tpu_torch.ops import riccati_pscan
 from cilqr_tpu_torch.ops.eig2x2 import regularized_inverse
 
-#: run the plain LM loop as CUDA graphs on the card (False: eagerly, as on the CPU)
+#: run the LM loops as CUDA graphs on the card (False: eagerly, as on the CPU)
 GRAPHS = True
 #: streams the graphs are captured on (``graphs.capture``): the iteration's
 #: independent kernels overlap in the replay; 1 captures on one stream
 STREAMS = 4
 #: the captures by parameters, device and shapes (``graphs.GraphCache``)
 CAPTURED = graphs.GraphCache(kept=8)
+
+
+class Iteration(NamedTuple):
+    """An LM iteration as ``optimize`` can replay it: ``build(p, plan,
+    *world)`` -> the iteration (X, U, lamb) -> (X_new, U_new, J), which
+    reads nothing but ``plan`` and ``world``.  ``world``'s leaves (through
+    tuples, NamedTuples, lists) are tensors, which a capture copies, and
+    hashable constants, which key it."""
+
+    build: Callable
+    world: tuple
 
 
 class SolveResult(NamedTuple):
@@ -193,18 +204,23 @@ def optimize(p: SolverParams, plan: LocalPlan, x0: torch.Tensor, U_init: torch.T
     U_init (..., N, 2), with per-lane masks: a lane that has stopped keeps
     its state, so every lane gets the result it would get alone.
 
-    iteration(X, U, lamb) -> (X_new, U_new, J) is one LM iteration:
-    ``plain_iteration`` by default; the batched paths pass their kernels'
-    iteration instead.  Each pass of the loop is ``lm_step``.  The loop ends
-    when every lane has stopped, which reads the done mask on the host once
-    per iteration.  On the card the default iteration runs as CUDA graphs
-    (``GRAPHS``): the start and the step, captured once per parameters and
-    shapes and replayed, the same kernels on the same inputs, so the same
-    bits as the eager loop.  Returns (X, U, iterations, J, lamb)."""
-    if iteration is None and x0.is_cuda and GRAPHS:
-        return _optimize_graphed(p, plan, x0, U_init, obstacles, unc_map)
+    ``iteration`` is one LM iteration: by default ``plain_iteration`` on
+    (obstacles, unc_map); the batched paths pass theirs as an ``Iteration``
+    (the hybrid one with K3, the two-phase one with K2), which replaces
+    obstacles and unc_map; a bare callable (X, U, lamb) -> (X_new, U_new, J)
+    runs eagerly.  Each pass of the loop is ``lm_step``.  The loop ends when
+    every lane has stopped, which reads the done mask on the host once per
+    iteration.  On the card an ``Iteration`` runs as CUDA graphs
+    (``GRAPHS``): the start and the step, captured once per parameters,
+    iteration, launch route and shapes and replayed, the same kernels on the
+    same inputs, so the same bits as the eager loop.  Returns (X, U,
+    iterations, J, lamb)."""
     if iteration is None:
-        iteration = plain_iteration(p, plan, obstacles, unc_map)
+        iteration = Iteration(plain_iteration, (obstacles, unc_map))
+    if isinstance(iteration, Iteration):
+        if x0.is_cuda and GRAPHS:
+            return _optimize_graphed(p, plan, x0, U_init, iteration=iteration)
+        iteration = iteration.build(p, plan, *iteration.world)
     state = start_state(p, x0, U_init)
     lamb_inv = damping_inverse(p, state[0].dtype, x0.device)
     for _ in range(p.max_iterations):
@@ -232,31 +248,44 @@ def run_step(p: SolverParams, plan_xy: torch.Tensor, plan_n, ego_state: torch.Te
     return SolveResult(X, U, plan.x_wpts, plan.y_fit, it, J, lamb)
 
 
-def _optimize_graphed(p: SolverParams, plan: LocalPlan, x0, U_init, obstacles, unc_map):
-    """``optimize`` with the plain iteration as CUDA graphs (``_replay``)."""
-    (X, U, lamb, J, it, _), _ = _replay(p, x0, U_init, plan, None, obstacles, unc_map)
-    return X, U, it, J, lamb
+def _optimize_graphed(p: SolverParams, plan: LocalPlan, x0, U_init, obstacles=None,
+                      unc_map=None, iteration=None):
+    """``optimize`` as CUDA graphs (``_replay``), on ``iteration`` (an
+    ``Iteration``; None: the plain one on (obstacles, unc_map))."""
+    it = iteration or Iteration(plain_iteration, (obstacles, unc_map))
+    (X, U, lamb, J, n, _), _ = _replay(p, x0, U_init, plan, None, it)
+    return X, U, n, J, lamb
 
 
 def _run_step_graphed(p: SolverParams, plan_xy, plan_n, ego_state, U_warm, obstacles, unc_map):
     """``run_step`` as CUDA graphs: the plan fit in the start graph."""
     (X, U, lamb, J, it, _), plan = _replay(p, ego_state, U_warm, None, (plan_xy, plan_n),
-                                           obstacles, unc_map)
+                                           Iteration(plain_iteration, (obstacles, unc_map)))
     return SolveResult(X, U, plan.x_wpts.clone(), plan.y_fit.clone(), it, J, lamb)
 
 
-def _replay(p: SolverParams, x0, U_init, plan, fit, obstacles, unc_map) -> tuple:
-    """The plain LM loop as CUDA graphs on the local ``plan``, or on the
-    plan that ``fit`` = (plan_xy, plan_n) gives at x0: the inputs are copied
-    into the capture's own, the start graph replayed once, then the step
-    graph once per iteration until the done mask, read on the host after
-    each replay, says every lane has stopped.  Returns copies of the state
-    (X, U, lamb, J, it, done) and the capture's plan."""
-    leaves, spec = tree_flatten((plan, fit, obstacles, unc_map))
+def _launch_route() -> tuple:
+    """The launch functions the wrappers of K3 and K2 call now: a graph
+    captured on the kernels is never replayed where they are swapped for
+    their plain versions (``chip_smoke.plain_versions``), nor the other way
+    round."""
+    from cilqr_tpu_torch.ops import lm_cuda, riccati_cuda
+
+    return lm_cuda._launch_iteration, riccati_cuda._launch
+
+
+def _replay(p: SolverParams, x0, U_init, plan, fit, iteration: Iteration) -> tuple:
+    """The LM loop of ``iteration`` as CUDA graphs on the local ``plan``, or
+    on the plan that ``fit`` = (plan_xy, plan_n) gives at x0: the inputs
+    (the tensors of the iteration's world among them) are copied into the
+    capture's own, the start graph replayed once, then the step graph once
+    per iteration until the done mask, read on the host after each replay,
+    says every lane has stopped.  Returns copies of the state (X, U, lamb,
+    J, it, done) and the capture's plan."""
+    leaves, spec = tree_flatten((plan, fit, iteration))
     args = [x0, U_init] + [t for t in leaves if isinstance(t, torch.Tensor)]
-    key = (p, x0.device, obstacles is None, unc_map is None,
-           tuple((a.shape, a.dtype) for a in args), fit is None,
-           tuple(t for t in leaves if not isinstance(t, torch.Tensor)), STREAMS)
+    key = (p, x0.device, spec, tuple((a.shape, a.dtype) for a in args),
+           tuple(t for t in leaves if not isinstance(t, torch.Tensor)), STREAMS, _launch_route())
     g = CAPTURED.load(key, args, lambda inputs: _capture(p, leaves, spec, inputs))
     start, step = g.graphs
     state, plan = g.out
@@ -275,25 +304,26 @@ def _assign(dst: tuple, src: tuple) -> None:
 
 def _capture(p: SolverParams, leaves: list, spec, inputs: list) -> tuple:
     """The start and the step captured on ``inputs`` (x0, U_init, then the
-    tensors of (plan, fit, obstacles, unc_map) in the order of ``leaves``)
-    on ``STREAMS`` streams, after one warm-up of each on a side stream
-    (which also builds the constants: a copy from the host cannot be
-    captured).  With ``fit`` the start graph fits the plan into buffers of
-    its own, which the step graph reads.  Returns (graphs, (the state, the
-    plan) they write, the constants they read).  A failed capture raises."""
+    tensors of (plan, fit, iteration) in the order of ``leaves``) on
+    ``STREAMS`` streams, after one warm-up of each on a side stream (which
+    also builds the constants: a copy from the host cannot be captured; its
+    launches count for nothing).  The iteration is built on the inputs.
+    With ``fit`` the start graph fits the plan into buffers of its own,
+    which the step graph reads.  Returns (graphs, (the state, the plan) they
+    write, the constants they read).  A failed capture raises."""
     x0, U_init, *world = inputs
     world = iter(world)
-    plan, fit, obstacles, unc_map = tree_unflatten(
+    plan, fit, described = tree_unflatten(
         [next(world) if isinstance(t, torch.Tensor) else t for t in leaves], spec)
     dev = x0.device
-    with graphs.side_stream(dev):
+    with graphs.side_stream(dev), graphs.uncounted():
         if fit is not None:
             plan = LocalPlan(*(t.clone() for t in get_local_plan(p, *fit, x0)))
         state = tuple(t.clone() for t in start_state(p, x0, U_init))
         dtype = state[0].dtype
         held = (damping_inverse(p, dtype, dev), costs_mod.consts(p, dtype, dev),
                 costs_mod.consts(p, U_init.dtype, dev))
-        iteration = plain_iteration(p, plan, obstacles, unc_map)
+        iteration = described.build(p, plan, *described.world)
         lm_step(p, iteration, held[0], *state)
 
     def begin():

@@ -11,6 +11,9 @@ same algorithm, each matching ``solver.run_step`` per lane:
   impl="two_phase"  LM loop here: batched cost derivatives in PyTorch, then
                     the backward + rollout kernel (``ops.riccati_cuda``, K2)
 
+On the card both loops run as CUDA graphs (``solver.optimize``): one replay
+of the captured iteration per LM iteration.
+
 Any batch size works: the kernels mask b < B, so nothing is padded.
 """
 
@@ -20,9 +23,25 @@ import torch
 
 from cilqr_tpu_torch.utils.params import SolverParams
 from cilqr_tpu_torch.models import costs, solver
-from cilqr_tpu_torch.models import uncertainty as uncertainty_mod
 from cilqr_tpu_torch.models.reference_path import get_local_plan
 from cilqr_tpu_torch.ops import lm_cuda, riccati_cuda
+
+
+def _two_phase(p: SolverParams, plans, obstacles, unc_map):
+    """The two-phase iteration (X, U, lamb) -> (X_new, U_new, J): the cost
+    derivatives and J in PyTorch, then the backward + rollout kernel K2.
+    The ``build`` of ``two_phase_iteration``'s ``solver.Iteration``."""
+    def iteration(X, U, lamb):
+        d, J = costs.all_cost_derivs_and_J(p, plans, X, U, obstacles, unc_map)
+        return (*riccati_cuda.backward_forward_batched(p, d, X, U, lamb), J)
+
+    return iteration
+
+
+def two_phase_iteration(obstacles=None, unc_map=None) -> solver.Iteration:
+    """The two-phase LM iteration on (obstacles, unc_map), as
+    ``solver.optimize`` takes it (on the card: replayed as CUDA graphs)."""
+    return solver.Iteration(_two_phase, (obstacles, unc_map))
 
 
 def batched_optimize(p: SolverParams, plans, x0s: torch.Tensor, U_init: torch.Tensor,
@@ -32,25 +51,14 @@ def batched_optimize(p: SolverParams, plans, x0s: torch.Tensor, U_init: torch.Te
     plans: LocalPlan with leading batch B; obstacles and unc_map shared or
     per scenario (see ``costs.state_cost_derivs``).  Returns (X (B,N+1,4),
     U (B,N,2), iterations (B,), J (B,), lamb (B,))."""
-    def iteration(X, U, lamb):
-        d, J = costs.all_cost_derivs_and_J(p, plans, X, U, obstacles, unc_map)
-        return (*riccati_cuda.backward_forward_batched(p, d, X, U, lamb), J)
-
-    return solver.optimize(p, plans, x0s, U_init, iteration=iteration)
+    return solver.optimize(p, plans, x0s, U_init,
+                           iteration=two_phase_iteration(obstacles, unc_map))
 
 
 def map_sampler(p: SolverParams, unc_map):
     """(B, N, >=2) states -> (B, N, 3) planes [e, gx, gy] of one map per
-    scenario (``uncertainty.uncertainty_sample_batched``), or None without
-    a map.  Its kernels run inside a profiler range of the function's name."""
-    if unc_map is None:
-        return None
-
-    def sample(Xb):
-        with torch.profiler.record_function("uncertainty_sample_batched"):
-            return torch.stack(uncertainty_mod.uncertainty_sample_batched(p, unc_map, Xb), dim=-1)
-
-    return sample
+    scenario (``lm_cuda.MapSampler``), or None without a map."""
+    return None if unc_map is None else lm_cuda.MapSampler(p, unc_map)
 
 
 def run_steps_batched(p: SolverParams, plan_xy: torch.Tensor, plan_n, egos: torch.Tensor,

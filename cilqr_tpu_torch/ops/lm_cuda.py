@@ -8,11 +8,12 @@ payload, then runs every LM iteration (derivatives, J, backward Riccati,
 rollout, accept/reject, lambda, stop) in a group of G lanes.  K3
 (``_iter_kernel`` via ``fused_iteration``) runs one iteration on a given
 trajectory; with ``unc_sampler`` (one uncertainty map per scenario, the
-Monte-Carlo and full-stack form) ``fused_optimize`` drives it from the host
-LM loop (``solver.optimize``), sampling each scenario's map at the current
-trajectory before every launch.  Both are in ``csrc/lm.cu``; a block is one
-warp of T = 32 / G scenarios whose sample tables it keeps in shared memory,
-and ``launch_shape`` picks G from the batch size.
+Monte-Carlo and full-stack form) ``fused_optimize`` hands ``solver.optimize``
+the hybrid iteration, which samples each scenario's map at the current
+trajectory before every launch: on the card the LM loop replays it as CUDA
+graphs.  Both are in ``csrc/lm.cu``; a block is one warp of T = 32 / G
+scenarios whose sample tables it keeps in shared memory, and
+``launch_shape`` picks G from the batch size.
 
 Shared-world payloads are prepared once per solve: the obstacle quadratic
 forms (``prep_obstacles``), the map and its frame scalars (``prep_unc_map``;
@@ -24,7 +25,11 @@ plain version here still does).
 
 ``fused_optimize`` and ``fused_iteration`` take their plain versions
 (``fused_optimize_plain``, ``fused_iteration_plain``) for tensors on the
-CPU; for CUDA tensors they launch the kernel or raise.
+CPU; for CUDA tensors they launch the kernel or raise.  K3 is launched only
+by the op ``cilqr_torch::lm_iter`` (``_lm_iter``: tensors in, new
+tensors out; its CPU implementation is the plain version), which
+``_launch_iteration`` calls, so a stream planner and a CUDA graph see it as
+one op.  K1 runs its whole loop in one launch and is no op.
 """
 
 from __future__ import annotations
@@ -32,17 +37,23 @@ from __future__ import annotations
 import ctypes
 import dataclasses
 import functools
+import sys
 from typing import NamedTuple
 
 import torch
 
+from cilqr_tpu_torch.utils import graphs
 from cilqr_tpu_torch.utils.params import SolverParams
 from cilqr_tpu_torch.models import costs, solver
+from cilqr_tpu_torch.models import uncertainty as uncertainty_mod
+from cilqr_tpu_torch.models.obstacles import Obstacles
+from cilqr_tpu_torch.models.reference_path import LocalPlan
 from cilqr_tpu_torch.ops import riccati_cuda
 from cilqr_tpu_torch.utils.device import resolve
 
 LAUNCHES = 0  # K1 launches made by fused_optimize
 ITER_LAUNCHES = 0  # K3 launches made by fused_iteration
+graphs.COUNTERS.append((sys.modules[__name__], "ITER_LAUNCHES"))
 
 GROUP_SIZES = (1, 8, 32)           # lanes per scenario the kernels are built for
 MAX_SHARED_BYTES = 232448           # what one block may opt in to on an H100
@@ -245,13 +256,50 @@ def fused_iteration_plain(p: SolverParams, world: WorldPrep, plans, X, U, lamb, 
     return X_new, U_new, J, k, K
 
 
-def _hybrid_iteration(p: SolverParams, world: WorldPrep, plans, unc_sampler, step):
-    """(X, U, lamb) -> (X_new, U_new, J) of step(...) on the planes
-    unc_sampler(X[:, :N]) (B, N, 3)."""
+class MapSampler(NamedTuple):
+    """(B, N, >=2) states -> (B, N, 3) planes [e, gx, gy] of one map per
+    scenario (``uncertainty.uncertainty_sample_batched``).  Its fields are
+    all it reads, so the hybrid loop's CUDA graphs take copies of them; a
+    sampler given as a bare callable runs the loop eagerly.  Its kernels run
+    inside a profiler range of the function's name."""
+
+    p: SolverParams
+    unc_map: object
+
+    def __call__(self, Xb):
+        with torch.profiler.record_function("uncertainty_sample_batched"):
+            return torch.stack(
+                uncertainty_mod.uncertainty_sample_batched(self.p, self.unc_map, Xb), dim=-1)
+
+
+def _hybrid(p: SolverParams, plans, step, world: WorldPrep, prepared, unc_sampler):
+    """The hybrid iteration (X, U, lamb) -> (X_new, U_new, J): step(...) on
+    the planes unc_sampler(X[:, :N]) (B, N, 3).  ``prepared``: (table, fit)
+    of ``prep_iteration(plans)``, or None.  The ``build`` of
+    ``hybrid_iteration``'s ``solver.Iteration``."""
+    if prepared is not None:
+        world = world._replace(iteration=IterationInputs(*prepared, plans))
+
     def iteration(X, U, lamb):
         return step(p, world, plans, X, U, lamb, unc_sampler(X[:, :p.horizon]))[:3]
 
     return iteration
+
+
+def hybrid_iteration(p: SolverParams, plans, obstacles, unc_sampler, step) -> solver.Iteration:
+    """The hybrid LM iteration of ``fused_optimize`` (``step`` =
+    ``fused_iteration``) or of its plain version (``fused_iteration_plain``)
+    as ``solver.optimize`` takes it: replayed as CUDA graphs on the card
+    when ``unc_sampler`` is a ``MapSampler``; any other sampler gives the
+    bare iteration, which runs eagerly.  K3's inputs that stay the same over
+    the solve are prepared here once (on the card)."""
+    world = prep_world(p, obstacles, None, torch.float32, plans.coeffs.device)
+    prepared = None
+    if plans.coeffs.is_cuda:
+        prep = prep_iteration(plans)
+        prepared = (prep.table, prep.fit)
+    it = solver.Iteration(_hybrid, (step, world, prepared, unc_sampler))
+    return it if isinstance(unc_sampler, MapSampler) else it.build(p, plans, *it.world)
 
 
 def _check_sampler(unc_sampler, unc_map) -> None:
@@ -270,9 +318,8 @@ def fused_optimize_plain(p: SolverParams, plans, x0s, U_init, obstacles=None, un
     if unc_sampler is None:
         return solver.optimize(dataclasses.replace(p, backward_impl="seq"), plans, x0s, U_init,
                                obstacles, unc_map)
-    world = prep_world(p, obstacles, None, x0s.dtype, x0s.device)
-    return solver.optimize(p, plans, x0s, U_init, iteration=_hybrid_iteration(
-        p, world, plans, unc_sampler, fused_iteration_plain))
+    return solver.optimize(p, plans, x0s, U_init, iteration=hybrid_iteration(
+        p, plans, obstacles, unc_sampler, fused_iteration_plain))
 
 
 class _LMConfig(ctypes.Structure):
@@ -404,10 +451,64 @@ def _launch(p: SolverParams, plans, x0s, U_init, obstacles, unc_map, G=None):
     return X, U, it, J, lamb
 
 
-def _launch_iteration(p: SolverParams, world: WorldPrep, plans, X, U, lamb, uext, G=None):
+@torch.library.custom_op(
+    "cilqr_torch::lm_iter", mutates_args=(), device_types="cpu",
+    schema="(str params, Tensor fit, Tensor table, Tensor X, Tensor U, Tensor lamb, "
+           "Tensor uext, Tensor obs, bool has_obs, int G, Tensor[] plans, "
+           "Tensor[] obstacles) -> (Tensor, Tensor, Tensor, Tensor, Tensor)")
+def _lm_iter(params, fit, table, X, U, lamb, uext, obs, has_obs, G, plans, obstacles):
+    """K3 as an op -> (X_new, U_new, J, k, K), batch-major.  On the CPU the
+    plain version, which reads the plans and obstacles (their fields in
+    order; no obstacles: empty) where the kernel reads their payloads
+    (``fit``, ``table``, ``obs``); on the card the kernel
+    (``_lm_iter_kernel``)."""
+    world = WorldPrep(obs, None, None, has_obs, False, Obstacles(*obstacles) if obstacles else None,
+                      None)
+    return fused_iteration_plain(riccati_cuda.params_of(params), world, LocalPlan(*plans), X, U,
+                                 lamb, uext)
+
+
+@_lm_iter.register_kernel("cuda")
+def _lm_iter_kernel(params, fit, table, X, U, lamb, uext, obs, has_obs, G, plans, obstacles):
+    """The op on the card: one launch of ``lm_iter_kernel<G>`` on the
+    current stream."""
     global ITER_LAUNCHES
     from cilqr_tpu_torch.utils import build
 
+    p = riccati_cuda.params_of(params)
+    N = p.horizon
+    B = X.shape[0]
+    lib = _load(build)
+    ins = [fit, table, riccati_cuda.to_scenario_minor(X), riccati_cuda.to_scenario_minor(U),
+           lamb.contiguous(), riccati_cuda.to_scenario_minor(uext), obs.contiguous()]
+    f32 = dict(dtype=torch.float32, device=X.device)
+    outs = [torch.empty((N + 1, 4, B), **f32), torch.empty((N, 2, B), **f32),
+            torch.empty((B,), **f32), torch.empty((N, 2, B), **f32),
+            torch.empty((N, 8, B), **f32)]
+    # a world without a map holds a 2 x 2 one (``prep_unc_map``), unread
+    cfg = _config(p, B, obs.shape[0] // 6, 2, 2, has_obs, False)
+    stream = torch.cuda.current_stream(X.device).cuda_stream
+    rc = lib.cilqr_lm_iter(ctypes.byref(cfg), *(t.data_ptr() for t in ins + outs), G, stream)
+    build.check(lib, rc, "LM iteration kernel launch")
+    ITER_LAUNCHES += 1
+    Xn, Un, J, k, K = outs
+    return (riccati_cuda.from_scenario_minor(Xn, (4,)), riccati_cuda.from_scenario_minor(Un, (2,)),
+            J, riccati_cuda.from_scenario_minor(k, (2,)),
+            riccati_cuda.from_scenario_minor(K, (2, 4)))
+
+
+def iteration_op(p: SolverParams, world: WorldPrep, plans, X, U, lamb, uext, G: int):
+    """K3's op on these arguments (``world.iteration``, when set, must be
+    ``prep_iteration(plans)``)."""
+    prep = world.iteration or prep_iteration(plans)
+    obstacles = [] if world.obstacles is None else list(world.obstacles)
+    return torch.ops.cilqr_torch.lm_iter(riccati_cuda.params_arg(p), prep.fit, prep.table, X, U,
+                                         lamb, uext, world.obs, world.has_obs, G, list(plans),
+                                         obstacles)
+
+
+def _launch_iteration(p: SolverParams, world: WorldPrep, plans, X, U, lamb, uext, G=None):
+    """K3 on batch-major tensors, checked, then through its op."""
     N, S = p.horizon, p.n_closest_samples
     B = X.shape[0]
     if B < 1:
@@ -421,30 +522,14 @@ def _launch_iteration(p: SolverParams, world: WorldPrep, plans, X, U, lamb, uext
     prep = world.iteration or prep_iteration(plans)
     if prep.plans is not plans:
         raise ValueError("world.iteration was prepared from other plans than these")
-    table, fit = prep.table, prep.fit
     for name, t, shape_ in (
         ("X", X, (B, N + 1, 4)), ("U", U, (B, N, 2)), ("lamb", lamb, (B,)),
-        ("fit payload", fit, (p.poly_order + 11, B)), ("sample table", table, (S, 2, B)),
+        ("fit payload", prep.fit, (p.poly_order + 11, B)), ("sample table", prep.table, (S, 2, B)),
         ("uext", uext, (B, N, 3)),
     ):
         riccati_cuda.check_cuda_f32(name, t, shape_)
-    M, H, W = _check_world(world, N)
-    lib = _load(build)
-    ins = [fit, table, riccati_cuda.to_scenario_minor(X), riccati_cuda.to_scenario_minor(U),
-           lamb.contiguous(), riccati_cuda.to_scenario_minor(uext), world.obs.contiguous()]
-    f32 = dict(dtype=torch.float32, device=X.device)
-    outs = [torch.empty((N + 1, 4, B), **f32), torch.empty((N, 2, B), **f32),
-            torch.empty((B,), **f32), torch.empty((N, 2, B), **f32),
-            torch.empty((N, 8, B), **f32)]
-    cfg = _config(p, B, M, H, W, world.has_obs, False)
-    stream = torch.cuda.current_stream(X.device).cuda_stream
-    rc = lib.cilqr_lm_iter(ctypes.byref(cfg), *(t.data_ptr() for t in ins + outs), G, stream)
-    build.check(lib, rc, "LM iteration kernel launch")
-    ITER_LAUNCHES += 1
-    Xn, Un, J, k, K = outs
-    return (riccati_cuda.from_scenario_minor(Xn, (4,)), riccati_cuda.from_scenario_minor(Un, (2,)),
-            J, riccati_cuda.from_scenario_minor(k, (2,)),
-            riccati_cuda.from_scenario_minor(K, (2, 4)))
+    _check_world(world, N)
+    return iteration_op(p, world._replace(iteration=prep), plans, X, U, lamb, uext, G)
 
 
 def fused_iteration(p: SolverParams, world: WorldPrep, plans, X, U, lamb, uext):
@@ -470,16 +555,16 @@ def fused_optimize(p: SolverParams, plans, x0s, U_init, obstacles=None, unc_map=
 
     Without ``unc_sampler``: the world is shared and K1 runs the whole loop.
     With it (per-scenario uncertainty maps): a callable (B, N, >=2) states ->
-    (B, N, 3) planes [e, gx, gy]; the host loop ``solver.optimize`` calls it
-    on each iteration's trajectory and launches K3 on its planes, once per
-    iteration.  ``unc_sampler`` and ``unc_map`` are mutually exclusive."""
+    (B, N, 3) planes [e, gx, gy], ``MapSampler`` on the paths; each LM
+    iteration of ``solver.optimize`` calls it on the trajectory and launches
+    K3 on its planes (``hybrid_iteration``).  On the card, with a
+    ``MapSampler``, the loop replays that iteration as a CUDA graph, one
+    replay per iteration (``solver.GRAPHS``).  ``unc_sampler`` and
+    ``unc_map`` are mutually exclusive."""
     _check_sampler(unc_sampler, unc_map)
     if unc_sampler is not None:
-        world = prep_world(p, obstacles, None, torch.float32, x0s.device)
-        if x0s.is_cuda:  # K3's constant inputs, once for all iterations
-            world = world._replace(iteration=prep_iteration(plans))
-        return solver.optimize(p, plans, x0s, U_init, iteration=_hybrid_iteration(
-            p, world, plans, unc_sampler, fused_iteration))
+        return solver.optimize(p, plans, x0s, U_init, iteration=hybrid_iteration(
+            p, plans, obstacles, unc_sampler, fused_iteration))
     if x0s.device.type == "cpu":
         return fused_optimize_plain(p, plans, x0s, U_init, obstacles, unc_map)
     return _launch(p, plans, x0s, U_init, obstacles, unc_map)

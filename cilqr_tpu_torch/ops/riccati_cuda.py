@@ -12,20 +12,32 @@ For a tensor on the CPU both take the plain PyTorch version
 any float dtype; sequential whatever ``p.backward_impl`` says, as the
 kernel is).  For a CUDA tensor they launch the kernel
 (float32 only) or raise.
+
+The kernel is launched only by the op ``cilqr_torch::riccati`` (``_op``:
+tensors in, new tensors out; its CPU implementation is the plain version),
+which ``_launch`` calls: a stream planner (``utils/graphs.StreamPlanner``)
+sees the launch as one op reading its inputs and writing its outputs, and a
+CUDA graph of the two-phase LM loop holds it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
+import json
 import math
+import sys
 
 import torch
 
+from cilqr_tpu_torch.utils import graphs
 from cilqr_tpu_torch.utils.params import SolverParams
 from cilqr_tpu_torch.models import solver
 from cilqr_tpu_torch.models.costs import CostDerivs
 
 LAUNCHES = 0  # kernel launches made by this module's wrappers
+graphs.COUNTERS.append((sys.modules[__name__], "LAUNCHES"))
 
 
 class _RiccatiConfig(ctypes.Structure):
@@ -91,18 +103,46 @@ def _kernel_input(name: str, t: torch.Tensor, shape: tuple) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _launch(p: SolverParams, d: CostDerivs, X, U, lamb, do_forward: bool):
-    """One launch on batch-major tensors."""
+@functools.lru_cache(maxsize=64)
+def params_arg(p: SolverParams) -> str:
+    """p as the ops' ``params`` argument: its fields as JSON (floats written
+    by ``repr``, so they read back exactly)."""
+    return json.dumps(dataclasses.asdict(p), sort_keys=True)
+
+
+@functools.lru_cache(maxsize=64)
+def params_of(arg: str) -> SolverParams:
+    """The SolverParams of an op's ``params`` argument."""
+    return SolverParams(**json.loads(arg))
+
+
+@torch.library.custom_op(
+    "cilqr_torch::riccati", mutates_args=(), device_types="cpu",
+    schema="(str params, Tensor l_x, Tensor l_xx, Tensor l_u, Tensor l_uu, Tensor X, "
+           "Tensor U, Tensor lamb, bool do_forward) -> (Tensor, Tensor)")
+def _riccati(params, l_x, l_xx, l_u, l_uu, X, U, lamb, do_forward):
+    """K2 as an op: (X_new, U_new) with ``do_forward``, else (k, K).  On
+    the CPU the plain version; on the card the kernel (``_riccati_kernel``)."""
+    d = CostDerivs(l_x, l_xx, l_u, l_uu, None)
+    plain = backward_forward_plain if do_forward else backward_plain
+    return plain(params_of(params), d, X, U, lamb)
+
+
+@_riccati.register_kernel("cuda")
+def _riccati_kernel(params, l_x, l_xx, l_u, l_uu, X, U, lamb, do_forward):
+    """The op on the card: one launch on batch-major tensors, on the current
+    stream."""
     global LAUNCHES
     from cilqr_tpu_torch.utils import build
 
+    p = params_of(params)
     N = p.horizon
     B = X.shape[0]
     if B < 1:
         raise ValueError("empty batch")
     lx, lxx, lu, luu, Xc, Uc, lamb_c = (_kernel_input(name, t, shape_) for name, t, shape_ in (
-        ("l_x", d.l_x, (B, N, 4)), ("l_xx", d.l_xx, (B, N, 4, 4)),
-        ("l_u", d.l_u, (B, N, 2)), ("l_uu", d.l_uu, (B, N, 2, 2)),
+        ("l_x", l_x, (B, N, 4)), ("l_xx", l_xx, (B, N, 4, 4)),
+        ("l_u", l_u, (B, N, 2)), ("l_uu", l_uu, (B, N, 2, 2)),
         ("X", X, (B, N + 1, 4)), ("U", U, (B, N, 2)), ("lamb", lamb, (B,)),
     ))
 
@@ -128,6 +168,12 @@ def _launch(p: SolverParams, d: CostDerivs, X, U, lamb, do_forward: bool):
     build.check(lib, rc, "riccati kernel launch")
     LAUNCHES += 1
     return (Xn, Un) if do_forward else (k, K)
+
+
+def _launch(p: SolverParams, d: CostDerivs, X, U, lamb, do_forward: bool):
+    """K2 on batch-major CUDA tensors, through its op."""
+    return torch.ops.cilqr_torch.riccati(params_arg(p), d.l_x, d.l_xx, d.l_u, d.l_uu, X, U,
+                                         lamb, do_forward)
 
 
 def backward_batched(p: SolverParams, d: CostDerivs, X, U, lamb):

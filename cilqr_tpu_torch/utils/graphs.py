@@ -1,14 +1,15 @@
-"""CUDA graphs of plain PyTorch code, captured once per key and replayed.
+"""CUDA graphs of PyTorch code, captured once per key and replayed.
 
 A loop of small kernels costs the host ~15-25 us per PyTorch op; replayed
 as a CUDA graph the same kernels run on the same inputs (the same bits)
-with one launch from the host.  ``models.solver`` (the plain LM loop) and
-``models.nrb_rrt`` (the planner) capture their work this way, each in a
-``GraphCache`` of its own.  A capture fails on any host-to-device copy or
-host synchronisation inside it, so the constants a captured function reads
-are made in its warm-up, before the capture.  Warm-up and capture run on
-the inputs' device, whichever device is current: a sharded solve calls
-the same function on each card in turn.
+with one launch from the host.  ``models.solver`` (its LM loops: the plain
+iteration, the hybrid one with the map sampler and K3, the two-phase one
+with K2) and ``models.nrb_rrt`` (the planner) capture their work this way,
+each in a ``GraphCache`` of its own.  A capture fails on any host-to-device
+copy or host synchronisation inside it, so the constants a captured
+function reads are made in its warm-up, before the capture.  Warm-up and
+capture run on the inputs' device, whichever device is current: a sharded
+solve calls the same function on each card in turn.
 
 Captured on one stream, a graph runs its kernels one after another.  With
 ``streams > 1`` the capture follows the data: ``StreamPlanner`` puts each
@@ -16,6 +17,14 @@ op on one of several streams and orders it after the ops it depends on
 (read after write, write after read, write after write, by storage) with
 events, which the capture turns into the graph's edges.  The kernels and
 their inputs are the same, so are the bits; independent kernels overlap.
+The port's own kernels K2 and K3 are ``torch.library`` ops
+(``cilqr_torch::riccati``, ``cilqr_torch::lm_iter``), so the planner sees
+them as it sees PyTorch's.
+
+A replay launches from the host nothing that a launch counter sees, so a
+``Graph`` keeps what its capture added to each counter in ``COUNTERS``
+(taking it back: the capture ran nothing) and adds it again on each
+``replay()``.
 """
 
 from __future__ import annotations
@@ -29,6 +38,9 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
 aten = torch.ops.aten
+#: the launch counters (module, attribute) of the kernels a graph may hold:
+#: ``ops/riccati_cuda`` and ``ops/lm_cuda`` enter K2's and K3's on import
+COUNTERS: list = []
 # ops that launch no kernel besides the views (``is_view``): a view its schema
 # does not declare, and allocations (the first op to write the memory orders it)
 _NO_KERNEL = {aten._unsafe_view, aten.empty, aten.empty_like, aten.empty_strided,
@@ -253,14 +265,58 @@ class StreamPlanner(TorchDispatchMode):
         return min(range(self.n), key=lambda s: (max(ready, self._free[s]), -self._free[s], s))
 
 
-def capture(fn, device: torch.device, streams: int = 1) -> torch.cuda.CUDAGraph:
+def _counts() -> list:
+    return [getattr(module, name) for module, name in COUNTERS]
+
+
+@contextlib.contextmanager
+def uncounted():
+    """Launches inside the block (a warm-up, a capture) leave the launch
+    counters as they were."""
+    before = _counts()
+    try:
+        yield
+    finally:
+        for (module, name), n in zip(COUNTERS, before):
+            setattr(module, name, n)
+
+
+def record_launches(fn) -> tuple:
+    """Runs fn() (a capture records it); returns what it added to each
+    counter of ``COUNTERS``, which it takes back."""
+    before = _counts()
+    with uncounted():
+        fn()
+        return tuple(a - b for a, b in zip(_counts(), before))
+
+
+def count_launches(launches: tuple) -> None:
+    """Adds ``record_launches``' counts to the counters (a replay)."""
+    for (module, name), n in zip(COUNTERS, launches):
+        if n:
+            setattr(module, name, getattr(module, name) + n)
+
+
+class Graph(torch.cuda.CUDAGraph):
+    """A CUDA graph whose ``replay()`` also adds to the launch counters what
+    its capture recorded (``launches``)."""
+
+    launches: tuple = ()
+
+    def replay(self):
+        super().replay()
+        count_launches(self.launches)
+
+
+def capture(fn, device: torch.device, streams: int = 1) -> Graph:
     """fn() captured as a CUDA graph on ``device``; ``replay()`` runs its
     kernels again on the memory they were captured on.  With ``streams >
     1`` the ops run under a ``StreamPlanner`` of that many streams, and the
     graph's ``stats`` (``PlanStats``; None on one stream) describe its plan.
-    ``pool_bytes`` is the memory the graph's pool took.  A failed capture
-    raises."""
-    graph = torch.cuda.CUDAGraph()
+    ``pool_bytes`` is the memory the graph's pool took; ``launches`` what
+    fn() added to each counter of ``COUNTERS``, which the capture takes back
+    and each replay adds.  A failed capture raises."""
+    graph = Graph()
     with torch.cuda.device(device):
         # a capture stream of the device's own (torch.cuda.graph's default
         # one belongs to whichever device was current at its first use)
@@ -272,7 +328,7 @@ def capture(fn, device: torch.device, streams: int = 1) -> torch.cuda.CUDAGraph:
         reserved = torch.cuda.memory_reserved(device)
         try:
             with torch.cuda.graph(graph, stream=stream), planner or contextlib.nullcontext():
-                fn()
+                graph.launches = record_launches(fn)
         finally:
             if planner is not None:
                 planner.release()

@@ -181,8 +181,9 @@ def test_graph_path_buffers_on_cpu(dtype, monkeypatch, eager_captures):
         assert ReplayedEagerly.captures - before == (0 if lanes == slice(5, 10) else 2)
         assert len(solver.CAPTURED) <= 2
     # the B=5 capture, the oldest, made room for the map-less one
-    assert [(k[4][0][0], k[3]) for k in solver.CAPTURED] == [(torch.Size([4]), False),
-                                                              (torch.Size([4]), True)]
+    # (the key's (shape, dtype) of each input: x0 first, then the map's among them)
+    assert [(k[3][0][0], (unc.values.shape, dtype) in k[3]) for k in solver.CAPTURED] == [
+        (torch.Size([4]), True), (torch.Size([4]), False)]
 
 
 def test_graph_cache_keeps_copies_in_and_evicts():
