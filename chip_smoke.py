@@ -71,7 +71,19 @@ that each went through its kernels:
                both ways, the device's idle share, the benchmark's slope
                throughputs; per path one solve's step graph on 1 and 4
                streams: ms and device kernels per replay, the plan, pool
-               bytes, capture seconds.
+               bytes, capture seconds;
+  phase 21     the K1 solve and the closed loops' stages as CUDA graphs
+               (``solver.run`` / ``solver.solve``; every phase runs them
+               so): the mega solve at B=1 and B=32768 (one graph: the plan
+               fit, the world's payload, K1), ``closed_loop_batched`` at
+               B=32768 x 10 cycles (one graph per cycle), the Monte-Carlo
+               path at B=8192 and the full stack at B=8192 x 5 cycles (the
+               start graph holds the costmap build, K5 and K4, the noise
+               and the hybrid loop's prologue), each graphed against
+               ``solver.GRAPHS = False``: outputs equal bit for bit, the
+               launch counts equal; ms per call both ways, the device's
+               idle share, device kernels per replay and pool bytes of
+               each graph.
 
 Every phase prints a line (the profiles one per batch size); any failure
 raises, so the exit code is nonzero.  The last line is one JSON object:
@@ -1919,24 +1931,36 @@ def loop_kinds(B: int | None = None) -> set:
     holds the inputs' (shape, dtype), x0's first, and the constants)."""
     from cilqr_tpu_torch.models import solver, solver_batched
     from cilqr_tpu_torch.ops import lm_cuda
+    from cilqr_tpu_torch.parallel import monte_carlo as mc
+    from cilqr_tpu_torch.sim import plant
 
+    # the iterations, and the stages whose start graph builds one
     kinds = {lm_cuda._hybrid: "hybrid", solver_batched._two_phase: "two_phase",
-             solver.plain_iteration: "plain"}
+             solver.plain_iteration: "plain", solver_batched.hybrid_before: "hybrid",
+             mc._fast_before: "hybrid", plant._full_stack_before: "hybrid",
+             solver_batched.two_phase_before: "two_phase"}
     return {kinds[leaf] for key in solver.CAPTURED for leaf in key[4]
             if callable(leaf) and leaf in kinds and B in (None, key[3][0][0][0])}
 
 
-def stream_study(label: str, call, card: str) -> dict:
-    """One recorded ``run_steps_batched`` call of a path, (args, keywords),
-    solved again alone: eagerly, then graphed on one stream and on
-    ``solver.STREAMS``, each equal to the eager solve bit for bit; the two
-    step graphs' replays timed in turns (1, S, S, 1), their device kernels
-    per replay, the plan of the S-stream step, the pools' bytes and the
-    captures' seconds."""
-    from cilqr_tpu_torch.models import solver, solver_batched
+def solved(res) -> tuple:
+    """(X, U, iterations, J, lamb) of a ``run_steps_batched`` result or of a
+    ``solver.solve`` result ((X, U, iterations, J, lamb), carry)."""
+    return pick(res) if hasattr(res, "lamb") else tuple(res[0])
 
-    args, kw = call
-    solve = lambda: pick(solver_batched.run_steps_batched(*args, **kw))
+
+def stream_study(label: str, call, card: str) -> dict:
+    """One recorded solve of a path, (``run_steps_batched`` or
+    ``solver.solve``, args, keywords), solved again alone: eagerly, then
+    graphed on one stream and on ``solver.STREAMS``, each equal to the eager
+    solve bit for bit; the two step graphs' replays timed in turns (1, S, S,
+    1), their device kernels per replay and the S-stream start graph's, the
+    plan of the S-stream step, the pools' bytes and the captures'
+    seconds."""
+    from cilqr_tpu_torch.models import solver
+
+    fn, args, kw = call
+    solve = lambda: solved(fn(*args, **kw))
     S = solver.STREAMS
     per = {}
     try:
@@ -1954,7 +1978,7 @@ def stream_study(label: str, call, card: str) -> dict:
                     f"{label}: {len(new)} captures on {k} stream(s)")
             require(tree_equal(got, want), f"{label}: graphed on {k} stream(s) != eager")
             start, step = solver.CAPTURED[new[0]].graphs
-            per[k] = dict(step=step, pool_bytes=start.pool_bytes + step.pool_bytes,
+            per[k] = dict(start=start, step=step, pool_bytes=start.pool_bytes + step.pool_bytes,
                           capture_s=secs[0], turns=[])
     finally:
         solver.GRAPHS, solver.STREAMS = True, S
@@ -1963,10 +1987,13 @@ def stream_study(label: str, call, card: str) -> dict:
     for k, v in per.items():
         v["replay_ms"] = statistics.mean(v["turns"])
         v["kernels"], v["busy_ms"] = device_kernels(v["step"].replay)
+    start_kernels, start_busy = device_kernels(per[S]["start"].replay)
     st = per[S]["step"].stats
-    B = args[3].shape[0]
-    print(f"[20 streams {label}] B={B}, the step graph: {per[S]['kernels']} device kernels per "
-          f"replay ({per[1]['kernels']} on one stream) | ms per replay (CUDA events, "
+    B = want[0].shape[0]
+    print(f"[20 streams {label}] B={B}, the start graph: {start_kernels} device kernels per "
+          f"replay ({start_busy:.4f} ms busy) on {S} streams; the step graph: {per[S]['kernels']} "
+          f"device kernels per replay ({per[1]['kernels']} on one stream) | ms per replay (CUDA "
+          f"events, "
           f"{LOOP_REPLAYS} replays, turns 1, {S}, {S}, 1) 1 stream {per[1]['replay_ms']:.4f} "
           f"({per[1]['busy_ms']:.4f} busy), {S} streams {per[S]['replay_ms']:.4f} "
           f"({per[S]['busy_ms']:.4f} busy) | plan on {S} streams: chain {st.plan_chain} of "
@@ -1975,6 +2002,7 @@ def stream_study(label: str, call, card: str) -> dict:
           f"capture s 1 stream {per[1]['capture_s']:.3f}, {S} streams {per[S]['capture_s']:.3f} "
           f"| graphed = eager bit for bit on both on {card}", flush=True)
     return dict(B=B, kernels_per_replay=per[S]["kernels"], kernels_per_replay_1=per[1]["kernels"],
+                start_kernels_per_replay=start_kernels,
                 replay_ms={k: v["replay_ms"] for k, v in per.items()}, ops=st.ops,
                 chain=st.plan_chain, dag_chain=st.dag_chain,
                 pool_bytes={k: v["pool_bytes"] for k, v in per.items()},
@@ -1984,7 +2012,7 @@ def stream_study(label: str, call, card: str) -> dict:
 def loop_path(label: str, run, counts, card: str, kind: str, slope=None) -> dict:
     """A path whose LM loop is ``kind`` ("hybrid" or "two_phase"), run()
     once as a user calls it, graphed (``solver.GRAPHS``) against eager: its
-    outputs and every ``run_steps_batched`` call's (X, U, iterations, J,
+    outputs and every LM solve's (``solver.solve``: X, U, iterations, J,
     lamb) equal bit for bit, the launch counts equal (a replay counts its
     kernels), the graphed run's loops captured as ``kind``; ms per call both
     ways (the median of LOOP_CALLS calls after the first), the device's idle
@@ -2005,15 +2033,14 @@ def loop_path(label: str, run, counts, card: str, kind: str, slope=None) -> dict
             zero_counts()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with recording(solver_batched, "run_steps_batched", solves,
-                           keep=lambda res, a, k: (a, k, pick(res))):
+            with recording(solver, "solve", solves, keep=lambda res, a, k: (a, k, solved(res))):
                 res = run()
                 torch.cuda.synchronize()
             firsts[graphed] = (time.perf_counter() - t0) * 1e3
             launches[graphed] = read_counts()
             out[graphed] = (res, [r for _, _, r in solves])
             if graphed:
-                calls = [(a, k) for a, k, _ in solves]
+                calls = [(solver.solve, a, k) for a, k, _ in solves]
                 require(loop_kinds() == {kind}, f"{label}: graphed loops {loop_kinds()}, "
                         f"expected {kind}")
             else:
@@ -2108,9 +2135,75 @@ def compare_loops(card: str, counts, dev: torch.device) -> dict:
                       for a in LOOP_COMPARE_ALGOS)
           + f" | device idle share ({LOOP_IDLE_CYCLES} cycles) graphed "
           f"{100 * idle[True][0]:.1f}%, eager {100 * idle[False][0]:.1f}% on {card}", flush=True)
-    studies = {a: stream_study(f"compare {a}", first[a], card) for a in LOOP_COMPARE_ALGOS}
+    studies = {a: stream_study(f"compare {a}", (solver_batched.run_steps_batched,) + first[a],
+                               card) for a in LOOP_COMPARE_ALGOS}
     return dict(seconds=secs, per_algo=per_algo, idle={k: v[0] for k, v in idle.items()},
                 launches=launches[True], streams=studies)
+
+
+# Phase 21, the K1 solve and the closed loops' stages as CUDA graphs
+# (models/solver.py: solver.run, solver.solve)
+STAGE_CALLS = 5           # timed calls per path, graphed and eager (host clock, synchronised)
+
+
+def graph_path(label: str, run, counts, card: str) -> dict:
+    """A path run as a user calls it, graphed (``solver.GRAPHS``) against
+    eager: its outputs equal bit for bit and the launch counts equal (a
+    replay counts its kernels); ms per call both ways (the median of
+    STAGE_CALLS calls after the first; the first graphed call's with the
+    captures), the device's idle share both ways; the graphs the graphed
+    call captured (``solver.CAPTURED``), each replayed alone: device kernels
+    per replay, and their pools' bytes.  Returns the numbers."""
+    from cilqr_tpu_torch.models import solver
+
+    zero_counts, read_counts = counts
+    out, first, launches, ms, idle = {}, {}, {}, {}, {}
+    per_graph, pool = [], 0
+    try:
+        for graphed in (True, False):
+            solver.GRAPHS = graphed
+            solver.CAPTURED.clear()
+            zero_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out[graphed] = run()
+            torch.cuda.synchronize()
+            first[graphed] = (time.perf_counter() - t0) * 1e3
+            launches[graphed] = read_counts()
+            times = []
+            for _ in range(STAGE_CALLS):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                times.append((time.perf_counter() - t0) * 1e3)
+            ms[graphed] = statistics.median(times)
+            idle[graphed] = idle_share(run)
+            if graphed:
+                # each graph replayed alone while its capture is held
+                held = [g for c in solver.CAPTURED.values() for g in c.graphs]
+                require(held, f"{label}: the graphed call captured nothing")
+                per_graph = [device_kernels(g.replay)[0] for g in held]
+                pool = sum(g.pool_bytes for g in held)
+            else:
+                require(not solver.CAPTURED, f"{label}: the eager call captured a graph")
+    finally:
+        solver.GRAPHS = True
+        solver.CAPTURED.clear()
+    require(tree_equal(out[True], out[False]),
+            f"{label}: the graphed call's results differ from the eager call's")
+    require(launches[True] == launches[False],
+            f"{label}: launches graphed {launches[True]}, eager {launches[False]}")
+    print(f"[21 graphs {label}] graphed = eager bit for bit (every output) | launches "
+          f"{launches[True]} both ways | ms per call (host clock, synchronised, median of "
+          f"{STAGE_CALLS}): graphed {ms[True]:.3f} (first call, with the captures, "
+          f"{first[True]:.3f}), eager {ms[False]:.3f} | device idle share graphed "
+          f"{100 * idle[True][0]:.1f}% ({idle[True][1]} device events), eager "
+          f"{100 * idle[False][0]:.1f}% ({idle[False][1]}) | {len(per_graph)} graphs, device "
+          f"kernels per replay {per_graph}, pool bytes {pool} on {card}", flush=True)
+    return dict(graphed_ms=ms[True], first_ms=first[True], eager_ms=ms[False],
+                idle={True: idle[True][0], False: idle[False][0]}, launches=launches[True],
+                kernels_per_replay=per_graph, pool_bytes=pool)
 
 
 def main() -> None:
@@ -3295,6 +3388,43 @@ def main() -> None:
             ms_per_replay=v["replay_ms"][solver.STREAMS], ms_per_replay_one_stream=v["replay_ms"][1])
             for k, v in paths.items()}
     print(f"[20 done] phase 20 took {time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
+
+    # 21. the K1 solve and the closed loops' stages as CUDA graphs against
+    # their eager calls, at the paths' own shapes
+    t_phase = time.perf_counter()
+    egos_m, U0_m = scenario_batch(MAIN_B, seed=2)
+    egos_cl, _ = scenario_batch(MAIN_B, seed=13)
+    cl_draws = torch.randn((CL_CYCLES, MAIN_B, 3), dtype=torch.float32, device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(14))
+    mega = lambda e, u: solver_batched.run_steps_batched(p, plan, n, e, u, obstacles, unc)
+    stages = {
+        "mega_b1": graph_path("mega B=1", lambda: mega(egos_m[:1], U0_m[:1]), counts, card),
+        "mega": graph_path(f"mega B={MAIN_B}", lambda: mega(egos_m, U0_m), counts, card),
+        "closed_loop": graph_path(
+            f"closed_loop_batched B={MAIN_B} x {CL_CYCLES} cycles",
+            lambda: plant.closed_loop_batched(p, noise, plan, n, egos_cl, None, CL_CYCLES,
+                                              obstacles, unc, obs_xyyaw, obs_size, obs_mask,
+                                              noise_draws=cl_draws), counts, card),
+        "mc": graph_path(f"monte_carlo B={MC_B}", lambda: mc_fast(samples), counts, card),
+        "full_stack": graph_path(f"full stack B={FS_B} x {FS_CYCLES} cycles",
+                                 lambda: full_stack(gmap, x0s, fs_draws), counts, card),
+    }
+    want21 = {"mega_b1": dict(lm=1), "mega": dict(lm=1), "closed_loop": dict(lm=CL_CYCLES),
+              "mc": dict(uncertainty=1), "full_stack": dict(sample=FS_CYCLES,
+                                                            uncertainty=FS_CYCLES)}
+    for k, want in want21.items():
+        got = {name: stages[k]["launches"][name] for name in want}
+        require(got == want, f"phase 21 {k}: launches {stages[k]['launches']}, expected {want}")
+    kernels["lm"]["graphed_solve"] = {k: dict(
+        graphed_ms=stages[k]["graphed_ms"], eager_ms=stages[k]["eager_ms"],
+        kernels_per_replay=stages[k]["kernels_per_replay"]) for k in ("mega_b1", "mega",
+                                                                      "closed_loop")}
+    for name, k in (("uncertainty", "mc"), ("sample", "full_stack")):
+        kernels[name]["graphed_stages"] = dict(
+            graphed_ms=stages[k]["graphed_ms"], eager_ms=stages[k]["eager_ms"],
+            kernels_per_replay=stages[k]["kernels_per_replay"])
+    del egos_m, U0_m, egos_cl, cl_draws
+    print(f"[21 done] phase 21 took {time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
 
     kernels["lm"]["launches"] = main_launches["lm"]
     # K2's own path: ccnmpc's two-phase solves in `compare --full-stack`

@@ -27,7 +27,7 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 import torch
-from torch.utils._pytree import tree_flatten, tree_unflatten
+from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from cilqr_tpu_torch.utils.params import SolverParams
 from cilqr_tpu_torch.utils import graphs
@@ -38,7 +38,8 @@ from cilqr_tpu_torch.models.reference_path import LocalPlan, get_local_plan
 from cilqr_tpu_torch.ops import riccati_pscan
 from cilqr_tpu_torch.ops.eig2x2 import regularized_inverse
 
-#: run the LM loops as CUDA graphs on the card (False: eagerly, as on the CPU)
+#: run the LM loops and the stages around them (``run``, ``solve``) as CUDA
+#: graphs on the card (False: eagerly, as on the CPU)
 GRAPHS = True
 #: streams the graphs are captured on (``graphs.capture``): the iteration's
 #: independent kernels overlap in the replay; 1 captures on one stream
@@ -56,6 +57,17 @@ class Iteration(NamedTuple):
 
     build: Callable
     world: tuple
+
+
+class Stage(NamedTuple):
+    """``fn(p, *args)`` as a CUDA graph can hold it (``run``, ``solve``):
+    ``args``' leaves (through tuples, NamedTuples, lists, dicts) are
+    tensors, which a capture copies, and hashable constants, which key it.
+    The stages of the port put a per-scenario tensor first (its leading
+    dimension is the batch)."""
+
+    fn: Callable
+    args: tuple
 
 
 class SolveResult(NamedTuple):
@@ -248,20 +260,79 @@ def run_step(p: SolverParams, plan_xy: torch.Tensor, plan_n, ego_state: torch.Te
     return SolveResult(X, U, plan.x_wpts, plan.y_fit, it, J, lamb)
 
 
+def _staged(args: list) -> bool:
+    """Whether a stage on the tensors ``args`` replays as CUDA graphs: on the
+    card with ``GRAPHS``, outside another capture (inside one it runs
+    eagerly, and that capture holds its kernels), on the kernels' own launch
+    functions (``graphs.on_kernels``: the plain versions that
+    ``chip_smoke.plain_versions`` swaps in run eagerly, their LM loops
+    replaying the plain loop's graphs)."""
+    return GRAPHS and graphs.replayable(args[0]) and graphs.on_kernels()
+
+
+def run(p: SolverParams, stage: Stage):
+    """``stage.fn(p, *stage.args)``.  On the card (``_staged``) one CUDA
+    graph, captured once per key (parameters, device, the stage's structure
+    and constants, its tensors' shapes, ``STREAMS``) and replayed on copies
+    of the stage's tensors; its outputs are copied out.  The same kernels on
+    the same inputs: the eager call's bits."""
+    leaves, spec, args = _stage_args(stage)
+    if not _staged(args):
+        return stage.fn(p, *stage.args)
+    g = CAPTURED.load(_key(p, leaves, spec, args), args,
+                      lambda inputs: _capture_run(p, leaves, spec, inputs))
+    g.graphs[0].replay()
+    return _copied(g.out)
+
+
+def solve(p: SolverParams, before: Stage) -> tuple:
+    """An LM solve with what comes before it: ``before.fn(p, *before.args)``
+    -> (x0, U_init, plan, iteration (an ``Iteration``), carry), then the LM
+    loop of the iteration on ``plan`` from (x0, U_init).  Returns ((X, U,
+    iterations, J, lamb), carry).  On the card (``_staged``) the start graph
+    runs ``before`` and the loop's start, and the step graph reads what it
+    wrote in place (``_replay``); else ``before`` runs eagerly and the loop
+    is ``optimize``'s."""
+    leaves, spec, args = _stage_args(before)
+    if _staged(args):
+        (X, U, lamb, J, it, _), carry = _replay(p, leaves, spec, args)
+        return (X, U, it, J, lamb), carry
+    x0, U_init, plan, iteration, carry = before.fn(p, *before.args)
+    return optimize(p, plan, x0, U_init, iteration=iteration), carry
+
+
+def _given(p: SolverParams, x0, U_init, plan, iteration) -> tuple:
+    """The stage before ``optimize``'s loop: its inputs as they are."""
+    return x0, U_init, plan, iteration, ()
+
+
+def _fitted(p: SolverParams, x0, U_init, plan_xy, plan_n, iteration) -> tuple:
+    """The stage before ``run_step``'s loop: the plan fit at x0."""
+    plan = get_local_plan(p, plan_xy, plan_n, x0)
+    return x0, U_init, plan, iteration, (plan.x_wpts, plan.y_fit)
+
+
+def _stage_args(stage: Stage) -> tuple:
+    """(the stage's leaves, its structure, its tensors)."""
+    leaves, spec = tree_flatten(stage)
+    return leaves, spec, [t for t in leaves if isinstance(t, torch.Tensor)]
+
+
 def _optimize_graphed(p: SolverParams, plan: LocalPlan, x0, U_init, obstacles=None,
                       unc_map=None, iteration=None):
     """``optimize`` as CUDA graphs (``_replay``), on ``iteration`` (an
     ``Iteration``; None: the plain one on (obstacles, unc_map))."""
     it = iteration or Iteration(plain_iteration, (obstacles, unc_map))
-    (X, U, lamb, J, n, _), _ = _replay(p, x0, U_init, plan, None, it)
+    (X, U, lamb, J, n, _), _ = _replay(p, *_stage_args(Stage(_given, (x0, U_init, plan, it))))
     return X, U, n, J, lamb
 
 
 def _run_step_graphed(p: SolverParams, plan_xy, plan_n, ego_state, U_warm, obstacles, unc_map):
     """``run_step`` as CUDA graphs: the plan fit in the start graph."""
-    (X, U, lamb, J, it, _), plan = _replay(p, ego_state, U_warm, None, (plan_xy, plan_n),
-                                           Iteration(plain_iteration, (obstacles, unc_map)))
-    return SolveResult(X, U, plan.x_wpts.clone(), plan.y_fit.clone(), it, J, lamb)
+    it = Iteration(plain_iteration, (obstacles, unc_map))
+    (X, U, lamb, J, n, _), (x_wpts, y_fit) = _replay(
+        p, *_stage_args(Stage(_fitted, (ego_state, U_warm, plan_xy, plan_n, it))))
+    return SolveResult(X, U, x_wpts, y_fit, n, J, lamb)
 
 
 def _launch_route() -> tuple:
@@ -274,27 +345,43 @@ def _launch_route() -> tuple:
     return lm_cuda._launch_iteration, riccati_cuda._launch
 
 
-def _replay(p: SolverParams, x0, U_init, plan, fit, iteration: Iteration) -> tuple:
-    """The LM loop of ``iteration`` as CUDA graphs on the local ``plan``, or
-    on the plan that ``fit`` = (plan_xy, plan_n) gives at x0: the inputs
-    (the tensors of the iteration's world among them) are copied into the
-    capture's own, the start graph replayed once, then the step graph once
-    per iteration until the done mask, read on the host after each replay,
-    says every lane has stopped.  Returns copies of the state (X, U, lamb,
-    J, it, done) and the capture's plan."""
-    leaves, spec = tree_flatten((plan, fit, iteration))
-    args = [x0, U_init] + [t for t in leaves if isinstance(t, torch.Tensor)]
-    key = (p, x0.device, spec, tuple((a.shape, a.dtype) for a in args),
-           tuple(t for t in leaves if not isinstance(t, torch.Tensor)), STREAMS, _launch_route())
-    g = CAPTURED.load(key, args, lambda inputs: _capture(p, leaves, spec, inputs))
+def _key(p: SolverParams, leaves: list, spec, args: list) -> tuple:
+    """A capture's key: the parameters, the device, the stage's structure,
+    its tensors' shapes and dtypes, its constants (its function among them),
+    ``STREAMS`` and the launch route.  Every tensor must lie on the device
+    (a tensor elsewhere would be read once, when captured)."""
+    dev = args[0].device
+    if any(a.device != dev for a in args):
+        raise ValueError(f"a graphed stage takes its tensors on one device, got "
+                         f"{sorted({str(a.device) for a in args})}")
+    return (p, dev, spec, tuple((a.shape, a.dtype) for a in args),
+            tuple(t for t in leaves if not isinstance(t, torch.Tensor)), STREAMS,
+            _launch_route())
+
+
+def _copied(out):
+    """A graph's outputs copied out of its memory (the next replay
+    overwrites them)."""
+    return tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t, out)
+
+
+def _replay(p: SolverParams, leaves: list, spec, args: list) -> tuple:
+    """The LM loop after the stage ``tree_unflatten(leaves, spec)`` (its
+    tensors ``args``) as CUDA graphs: the inputs copied into the capture's
+    own, the start graph (the stage and the loop's start) replayed once,
+    then the step graph once per iteration until the done mask, read on the
+    host after each replay, says every lane has stopped.  Returns copies of
+    the state (X, U, lamb, J, it, done) and of the stage's carry."""
+    g = CAPTURED.load(_key(p, leaves, spec, args), args,
+                      lambda inputs: _capture(p, leaves, spec, inputs))
     start, step = g.graphs
-    state, plan = g.out
+    state, carry = g.out
     start.replay()
     for _ in range(p.max_iterations):
         if bool(state[-1].all()):
             break
         step.replay()
-    return tuple(t.clone() for t in state), plan
+    return tuple(t.clone() for t in state), _copied(carry)
 
 
 def _assign(dst: tuple, src: tuple) -> None:
@@ -302,36 +389,54 @@ def _assign(dst: tuple, src: tuple) -> None:
         d.copy_(s)
 
 
+def _unflatten(leaves: list, spec, inputs: list):
+    """The stage of ``leaves`` with its tensors replaced by ``inputs``."""
+    given = iter(inputs)
+    return tree_unflatten([next(given) if isinstance(t, torch.Tensor) else t for t in leaves],
+                          spec)
+
+
+def _capture_run(p: SolverParams, leaves: list, spec, inputs: list) -> tuple:
+    """``run``'s graph captured on ``inputs`` on ``STREAMS`` streams, after
+    one warm-up on a side stream (which builds the constants: a copy from
+    the host cannot be captured; its launches count for nothing).  Returns
+    (graphs, their outputs, None)."""
+    stage = _unflatten(leaves, spec, inputs)
+    dev = inputs[0].device
+    with graphs.building(), graphs.side_stream(dev), graphs.uncounted():
+        stage.fn(p, *stage.args)
+    graph = graphs.capture(lambda: stage.fn(p, *stage.args), dev, STREAMS)
+    return (graph,), graph.out, None
+
+
 def _capture(p: SolverParams, leaves: list, spec, inputs: list) -> tuple:
-    """The start and the step captured on ``inputs`` (x0, U_init, then the
-    tensors of (plan, fit, iteration) in the order of ``leaves``) on
-    ``STREAMS`` streams, after one warm-up of each on a side stream (which
-    also builds the constants: a copy from the host cannot be captured; its
-    launches count for nothing).  The iteration is built on the inputs.
-    With ``fit`` the start graph fits the plan into buffers of its own,
-    which the step graph reads.  Returns (graphs, (the state, the plan) they
-    write, the constants they read).  A failed capture raises."""
-    x0, U_init, *world = inputs
-    world = iter(world)
-    plan, fit, described = tree_unflatten(
-        [next(world) if isinstance(t, torch.Tensor) else t for t in leaves], spec)
-    dev = x0.device
-    with graphs.side_stream(dev), graphs.uncounted():
-        if fit is not None:
-            plan = LocalPlan(*(t.clone() for t in get_local_plan(p, *fit, x0)))
+    """The start and the step captured on ``inputs`` (the tensors of the
+    stage, in the order of ``leaves``) on ``STREAMS`` streams, after one
+    warm-up of each on a side stream (which also builds the constants: a
+    copy from the host cannot be captured; its launches count for nothing).
+    The start graph runs the stage and writes the loop's start state into
+    buffers of its own; the step graph reads the plan and the iteration's
+    tensors where the start graph wrote them, in place.  Returns (graphs,
+    (the state, the stage's carry) they write, the constants they read).  A
+    failed capture raises."""
+    before = _unflatten(leaves, spec, inputs)
+    dev = inputs[0].device
+    with graphs.building(), graphs.side_stream(dev), graphs.uncounted():
+        x0, U_init, plan, described, _ = before.fn(p, *before.args)
         state = tuple(t.clone() for t in start_state(p, x0, U_init))
         dtype = state[0].dtype
         held = (damping_inverse(p, dtype, dev), costs_mod.consts(p, dtype, dev),
                 costs_mod.consts(p, U_init.dtype, dev))
-        iteration = described.build(p, plan, *described.world)
-        lm_step(p, iteration, held[0], *state)
+        lm_step(p, described.build(p, plan, *described.world), held[0], *state)
 
     def begin():
-        if fit is not None:
-            _assign(plan, get_local_plan(p, *fit, x0))
+        x0, U_init, plan, described, carry = before.fn(p, *before.args)
         _assign(state, start_state(p, x0, U_init))
+        return plan, described, carry
 
     start = graphs.capture(begin, dev, STREAMS)
+    plan, described, carry = start.out
+    iteration = described.build(p, plan, *described.world)
     step = graphs.capture(lambda: _assign(state, lm_step(p, iteration, held[0], *state)), dev,
                           STREAMS)
-    return (start, step), (state, plan), held
+    return (start, step), (state, carry), held

@@ -11,8 +11,11 @@ same algorithm, each matching ``solver.run_step`` per lane:
   impl="two_phase"  LM loop here: batched cost derivatives in PyTorch, then
                     the backward + rollout kernel (``ops.riccati_cuda``, K2)
 
-On the card both loops run as CUDA graphs (``solver.optimize``): one replay
-of the captured iteration per LM iteration.
+On the card every call is CUDA graphs (``solver.GRAPHS``): the shared-world
+mega solve (the plan fit, the world's payload and K1) one graph
+(``solver.run``); the LM loops a start graph, which fits the plan and
+prepares the iteration's payload, and one replay of the step graph per LM
+iteration (``solver.solve``).
 
 Any batch size works: the kernels mask b < B, so nothing is padded.
 """
@@ -61,6 +64,30 @@ def map_sampler(p: SolverParams, unc_map):
     return None if unc_map is None else lm_cuda.MapSampler(p, unc_map)
 
 
+def _mega(p: SolverParams, egos, U_warm, plan_xy, plan_n, obstacles, unc_map):
+    """The shared-world mega solve: the plan fit, then K1."""
+    plans = get_local_plan(p, plan_xy, plan_n, egos)
+    X, U, it, J, lamb = lm_cuda.fused_optimize(p, plans, egos, U_warm, obstacles, unc_map)
+    return solver.SolveResult(X, U, plans.x_wpts, plans.y_fit, it, J, lamb)
+
+
+def hybrid_before(p: SolverParams, egos, U_warm, plan_xy, plan_n, obstacles, unc_map) -> tuple:
+    """What comes before the hybrid LM loop (a ``solver.solve`` stage): the
+    plan fit and the hybrid iteration on one map per scenario, K3's payload
+    prepared.  -> (x0, U_init, plans, iteration, (x_wpts, y_fit))."""
+    plans = get_local_plan(p, plan_xy, plan_n, egos)
+    iteration = lm_cuda.hybrid_iteration(p, plans, obstacles, map_sampler(p, unc_map),
+                                         lm_cuda.fused_iteration)
+    return egos, U_warm, plans, iteration, (plans.x_wpts, plans.y_fit)
+
+
+def two_phase_before(p: SolverParams, egos, U_warm, plan_xy, plan_n, obstacles, unc_map):
+    """What comes before the two-phase LM loop: the plan fit."""
+    plans = get_local_plan(p, plan_xy, plan_n, egos)
+    return (egos, U_warm, plans, two_phase_iteration(obstacles, unc_map),
+            (plans.x_wpts, plans.y_fit))
+
+
 def run_steps_batched(p: SolverParams, plan_xy: torch.Tensor, plan_n, egos: torch.Tensor,
                       U_warm: torch.Tensor, obstacles=None, unc_map=None,
                       impl: str = "mega", world_batched: bool = False) -> solver.SolveResult:
@@ -81,12 +108,9 @@ def run_steps_batched(p: SolverParams, plan_xy: torch.Tensor, plan_n, egos: torc
         raise ValueError("world_batched=True takes one map per scenario: values (B, H, W)")
     if impl == "mega" and obs_batched:
         impl = "two_phase"
-    plans = get_local_plan(p, plan_xy, plan_n, egos)
-    if impl == "mega" and not world_batched:
-        X, U, it, J, lamb = lm_cuda.fused_optimize(p, plans, egos, U_warm, obstacles, unc_map)
-    elif impl == "mega":
-        X, U, it, J, lamb = lm_cuda.fused_optimize(
-            p, plans, egos, U_warm, obstacles, None, unc_sampler=map_sampler(p, unc_map))
-    else:
-        X, U, it, J, lamb = batched_optimize(p, plans, egos, U_warm, obstacles, unc_map)
-    return solver.SolveResult(X, U, plans.x_wpts, plans.y_fit, it, J, lamb)
+    args = (egos, U_warm, plan_xy, plan_n, obstacles, unc_map)
+    if impl == "mega" and not map_batched:
+        return solver.run(p, solver.Stage(_mega, args))
+    before = hybrid_before if impl == "mega" else two_phase_before
+    (X, U, it, J, lamb), (x_wpts, y_fit) = solver.solve(p, solver.Stage(before, args))
+    return solver.SolveResult(X, U, x_wpts, y_fit, it, J, lamb)

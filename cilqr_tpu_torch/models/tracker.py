@@ -6,7 +6,7 @@ Reference semantics: the OpenCV KalmanFilter wired into the costmap node
 the velocity to the position, Q = 1e-5 I, R = 1e-1 I, P0 = I.  The port of
 ``cilqr_tpu/models/tracker.py``; the state may carry leading scenario dims
 (one filter per scenario).  The 6x6 products are ``torch.matmul`` /
-``torch.linalg.solve`` in full float32 precision (PyTorch's default; TF32
+``torch.linalg.solve_ex`` in full float32 precision (PyTorch's default; TF32
 stays off).
 """
 
@@ -28,8 +28,8 @@ def _matrices(like: torch.Tensor):
     kw = dict(dtype=like.dtype, device=like.device)
     # transition (local_costmap.cpp:145-152): x, y integrate vx, vy; w, h constant
     F = torch.eye(6, **kw)
-    F[0, 4] = 1.0
-    F[1, 5] = 1.0
+    F[0, 4].fill_(1.0)  # fills: a copy from the host cannot be captured
+    F[1, 5].fill_(1.0)
     H = torch.zeros((4, 6), **kw)
     H[:4, :4] = torch.eye(4, **kw)
     Q = 1e-5 * torch.eye(6, **kw)
@@ -60,7 +60,10 @@ def correct(s: KFState, z: torch.Tensor) -> KFState:
     S = H @ s.P @ H.T + R
     PHt = s.P @ H.T
     # K = P H^T S^-1 without forming the inverse
-    K = torch.linalg.solve(S.transpose(-1, -2), PHt.transpose(-1, -2)).transpose(-1, -2)
+    # solve_ex: the solve without its error check, which would wait for the
+    # card (S is positive definite)
+    K = torch.linalg.solve_ex(S.transpose(-1, -2), PHt.transpose(-1, -2)).result
+    K = K.transpose(-1, -2)
     x = s.x + (K @ y[..., None])[..., 0]
     P = (torch.eye(6, dtype=s.x.dtype, device=s.x.device) - K @ H) @ s.P
     return KFState(x, P)

@@ -34,6 +34,7 @@ import torch.nn.functional as F
 
 from cilqr_tpu_torch.models.reference_path import closest_point_index
 from cilqr_tpu_torch.ops import gridmap
+from cilqr_tpu_torch.utils.device import constant
 from cilqr_tpu_torch.utils.params import CostmapParams
 
 
@@ -55,15 +56,19 @@ class LocalCostmap(NamedTuple):
     ellipse_map: Optional[torch.Tensor] = None
 
 
+def _last_index(n_valid, device):
+    """n_valid - 1, a number or a tensor on ``device``."""
+    return (n_valid.to(device) if isinstance(n_valid, torch.Tensor) else n_valid) - 1
+
+
 def _path_headings(waypoints: torch.Tensor, idx: torch.Tensor, n_valid, fallback_yaw):
     """Path-tangent headings at waypoint indices ``idx`` (..., L).
 
     Degenerate tail (repeated last waypoint): the last valid heading is
     carried forward; ``fallback_yaw`` (...,) only where no index up to there
     has a valid tangent."""
-    last = torch.as_tensor(n_valid, device=idx.device) - 1
     wp = waypoints[idx]
-    nxt = waypoints[torch.minimum(idx + 1, last)]
+    nxt = waypoints[torch.clamp(idx + 1, max=_last_index(n_valid, idx.device))]
     tangent = nxt - wp
     yaw_w = torch.atan2(tangent[..., 1], tangent[..., 0])
     ok = (tangent * tangent).sum(dim=-1) > 1e-12
@@ -86,9 +91,8 @@ def corridor_geometry(cp: CostmapParams, waypoints: torch.Tensor, n_valid,
     (x_min, x_max, y_min, y_max)), each (...,); the -5 m x shift of
     local_costmap.cpp:213 is included in the center."""
     start = closest_point_index(waypoints, n_valid, ego_xy)
-    last = torch.as_tensor(n_valid, device=start.device) - 1
     ar = torch.arange(cp.look_ahead_waypoints, device=start.device)
-    idx = torch.minimum(start[..., None] + ar, last)
+    idx = torch.clamp(start[..., None] + ar, max=_last_index(n_valid, start.device))
     wp = waypoints[idx]  # (..., L, 2)
     yaw_w = _path_headings(waypoints, idx, n_valid, ego_yaw)
 
@@ -163,8 +167,8 @@ def rasterize_obstacles(cp: CostmapParams, geom: gridmap.GridGeom, rows: int, co
     active = (obs_mask != 0) & (dist <= cp.obstacle_raster_radius)
 
     half = 0.5 * (obs_size + cp.bbox_inflation)  # (M, 2)
-    sx = torch.tensor([1.0, 1.0, -1.0, -1.0], dtype=dtype, device=obs_xy.device)
-    sy = torch.tensor([1.0, -1.0, -1.0, 1.0], dtype=dtype, device=obs_xy.device)
+    sx = constant((1.0, 1.0, -1.0, -1.0), dtype, obs_xy.device)
+    sy = constant((1.0, -1.0, -1.0, 1.0), dtype, obs_xy.device)
     cx_l = half[:, 0:1] * sx  # (M, 4) corners in the obstacle frame
     cy_l = half[:, 1:2] * sy
     co, so = torch.cos(obs_yaw)[:, None], torch.sin(obs_yaw)[:, None]
@@ -378,9 +382,9 @@ def vehicle_geom(cp: CostmapParams, center: torch.Tensor) -> gridmap.GridGeom:
     """The static-extent vehicle-frame grid at ``center`` (..., 2); the
     resolution and length leaves are broadcast to its leading dims (views)."""
     lead = tuple(center.shape[:-1])
-    res = torch.tensor(cp.resolution, dtype=center.dtype, device=center.device)
-    length = torch.tensor([cp.rows * cp.resolution, cp.cols * cp.resolution], dtype=center.dtype,
-                          device=center.device)
+    res = constant(cp.resolution, center.dtype, center.device)
+    length = constant((cp.rows * cp.resolution, cp.cols * cp.resolution), center.dtype,
+                      center.device)
     return gridmap.GridGeom(center, res.expand(lead), length.expand(lead + (2,)))
 
 

@@ -25,11 +25,12 @@ plain version here still does).
 
 ``fused_optimize`` and ``fused_iteration`` take their plain versions
 (``fused_optimize_plain``, ``fused_iteration_plain``) for tensors on the
-CPU; for CUDA tensors they launch the kernel or raise.  K3 is launched only
-by the op ``cilqr_torch::lm_iter`` (``_lm_iter``: tensors in, new
-tensors out; its CPU implementation is the plain version), which
-``_launch_iteration`` calls, so a stream planner and a CUDA graph see it as
-one op.  K1 runs its whole loop in one launch and is no op.
+CPU; for CUDA tensors they launch the kernel or raise.  K1 is launched only
+by the op ``cilqr_torch::lm_opt`` (``_lm_opt``), K3 only by
+``cilqr_torch::lm_iter`` (``_lm_iter``): tensors in, new tensors out, their
+CPU implementations the plain versions, so a stream planner and a CUDA
+graph see each launch as one op.  ``fused_optimize`` reaches K1's op
+through ``_launch`` on the card and directly on the CPU.
 """
 
 from __future__ import annotations
@@ -49,11 +50,13 @@ from cilqr_tpu_torch.models import uncertainty as uncertainty_mod
 from cilqr_tpu_torch.models.obstacles import Obstacles
 from cilqr_tpu_torch.models.reference_path import LocalPlan
 from cilqr_tpu_torch.ops import riccati_cuda
+from cilqr_tpu_torch.ops.gridmap import GridGeom
 from cilqr_tpu_torch.utils.device import resolve
 
 LAUNCHES = 0  # K1 launches made by fused_optimize
 ITER_LAUNCHES = 0  # K3 launches made by fused_iteration
-graphs.COUNTERS.append((sys.modules[__name__], "ITER_LAUNCHES"))
+graphs.COUNTERS.extend([(sys.modules[__name__], "LAUNCHES"),
+                        (sys.modules[__name__], "ITER_LAUNCHES")])
 
 GROUP_SIZES = (1, 8, 32)           # lanes per scenario the kernels are built for
 MAX_SHARED_BYTES = 232448           # what one block may opt in to on an H100
@@ -131,7 +134,8 @@ def prep_unc_map(m, dtype=torch.float32, device=None):
     if m is None:
         device = resolve(device)
         scl = torch.zeros(16, dtype=dtype, device=device)
-        scl[7], scl[8] = 1.0, -1.0
+        scl[7].fill_(1.0)  # fills: a copy from the host cannot be captured
+        scl[8].fill_(-1.0)
         return torch.zeros((2, 2), dtype=dtype, device=device), scl
     g = m.geom
     first = g.center + 0.5 * g.length - 0.5 * g.resolution
@@ -404,35 +408,60 @@ def _resources(whole_loop: bool, G: int, S: int, device_index: int) -> dict:
                 sms=out[4])
 
 
-def _launch(p: SolverParams, plans, x0s, U_init, obstacles, unc_map, G=None):
+def _unc_map_args(m) -> list:
+    """An uncertainty map as the op's tensor list (empty: no map)."""
+    return [] if m is None else [m.values, *m.geom, m.origin_xy, m.origin_yaw]
+
+
+def _unc_map_of(ts: list):
+    """The inverse of ``_unc_map_args``."""
+    return uncertainty_mod.UncertaintyMap(ts[0], GridGeom(*ts[1:4]), ts[4], ts[5]) if ts else None
+
+
+@torch.library.custom_op(
+    "cilqr_torch::lm_opt", mutates_args=(), device_types="cpu",
+    schema="(str params, Tensor fit, Tensor x0s, Tensor U_init, Tensor obs, Tensor values, "
+           "Tensor scl, bool has_obs, bool has_unc, int G, int blocks, Tensor[] plans, "
+           "Tensor[] obstacles, Tensor[] unc_map) -> (Tensor, Tensor, Tensor, Tensor, Tensor)")
+def _lm_opt(params, fit, x0s, U_init, obs, values, scl, has_obs, has_unc, G, blocks, plans,
+            obstacles, unc_map):
+    """K1 as an op -> (X, U, iterations, J, lamb).  On the CPU the plain
+    version, which reads the plans, obstacles and map (their fields in
+    order; none: empty) where the kernel reads their payloads (``fit``,
+    ``obs``, ``values``, ``scl``); on the card the kernel
+    (``_lm_opt_kernel``)."""
+    return fused_optimize_plain(riccati_cuda.params_of(params), LocalPlan(*plans), x0s, U_init,
+                                Obstacles(*obstacles) if obstacles else None,
+                                _unc_map_of(unc_map))
+
+
+@_lm_opt.register_fake
+def _lm_opt_fake(params, fit, x0s, U_init, obs, values, scl, has_obs, has_unc, G, blocks, plans,
+                 obstacles, unc_map):
+    B, N = U_init.shape[0], U_init.shape[1]
+    return (x0s.new_empty((B, N + 1, 4)), U_init.new_empty((B, N, 2)),
+            x0s.new_empty((B,), dtype=torch.int32), x0s.new_empty((B,)), x0s.new_empty((B,)))
+
+
+@_lm_opt.register_kernel("cuda")
+def _lm_opt_kernel(params, fit, x0s, U_init, obs, values, scl, has_obs, has_unc, G, blocks,
+                   plans, obstacles, unc_map):
+    """The op on the card: one launch of ``lm_opt_kernel<G>`` on the current
+    stream, ``blocks`` persistent groups taking scenarios from a counter
+    that the op zeroes before the launch (in a CUDA graph: on every
+    replay)."""
     global LAUNCHES
     from cilqr_tpu_torch.utils import build
 
-    N, S = p.horizon, p.n_closest_samples
+    p = riccati_cuda.params_of(params)
+    N = p.horizon
     B = x0s.shape[0]
-    if B < 1:
-        raise ValueError("empty batch")
-    # G: another group size than launch_shape's (the card's comparisons)
-    T, G = launch_shape(B, S) if G is None else (_check_group(G, S), G)
-    fit = _fit_payload(plans)
-    for name, t, shape_ in (
-        ("x0s", x0s, (B, 4)), ("U_init", U_init, (B, N, 2)),
-        ("fit payload", fit, (B, p.poly_order + 11)),
-    ):
-        riccati_cuda.check_cuda_f32(name, t, shape_)
+    H, W = values.shape
+    Q = blocks * (32 // G)
     dev = x0s.device
-    world = prep_world(p, obstacles, unc_map, torch.float32, dev)
-    M, H, W = _check_world(world, N)
     lib = _load(build)
-    # as many blocks as the card holds at once: each group of lanes takes
-    # scenarios from a counter until none is left
-    with torch.cuda.device(dev):
-        res = kernel_resources(True, G, S)
-    blocks = min(-(-B // T), res["sms"] * res["blocks_per_sm"])
-    Q = blocks * T
-    ins = [fit.t().contiguous(), x0s.contiguous(), U_init.contiguous(), world.obs.contiguous(),
-           world.values.contiguous(), world.scl.contiguous(),
-           torch.zeros(1, dtype=torch.int32, device=dev)]
+    ins = [fit, x0s.contiguous(), U_init.contiguous(), obs.contiguous(), values.contiguous(),
+           scl.contiguous(), torch.zeros(1, dtype=torch.int32, device=dev)]
     f32 = dict(dtype=torch.float32, device=dev)
     X = torch.empty((B, N + 1, 4), **f32)
     U = torch.empty((B, N, 2), **f32)
@@ -441,7 +470,7 @@ def _launch(p: SolverParams, plans, x0s, U_init, obstacles, unc_map, G=None):
     it = torch.empty((B,), dtype=torch.int32, device=dev)
     scratch = [torch.empty(shape_, **f32) for shape_ in (
         (N + 1, 4, Q), (N + 1, 4, Q), (N, 2, Q), (N, 2, Q), (N, 2, Q), (N, 8, Q))]
-    cfg = _config(p, B, M, H, W, world.has_obs, world.has_unc)
+    cfg = _config(p, B, obs.shape[0] // 6, H, W, has_obs, has_unc)
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = lib.cilqr_lm_opt(
         ctypes.byref(cfg), *(t.data_ptr() for t in ins + [X, U, J, lamb, it] + scratch),
@@ -449,6 +478,39 @@ def _launch(p: SolverParams, plans, x0s, U_init, obstacles, unc_map, G=None):
     build.check(lib, rc, "LM kernel launch")
     LAUNCHES += 1
     return X, U, it, J, lamb
+
+
+def opt_op(p: SolverParams, plans, x0s, U_init, world: WorldPrep, G: int, blocks: int):
+    """K1's op on these arguments (``world`` from ``prep_world``), the fit
+    payload made scenario-minor."""
+    return torch.ops.cilqr_torch.lm_opt(
+        riccati_cuda.params_arg(p), _fit_payload(plans).t().contiguous(), x0s, U_init, world.obs,
+        world.values, world.scl, world.has_obs, world.has_unc, G, blocks, list(plans),
+        [] if world.obstacles is None else list(world.obstacles), _unc_map_args(world.unc_map))
+
+
+def _launch(p: SolverParams, plans, x0s, U_init, obstacles, unc_map, G=None):
+    """K1 on batch-major CUDA tensors, checked, then through its op."""
+    N, S = p.horizon, p.n_closest_samples
+    B = x0s.shape[0]
+    if B < 1:
+        raise ValueError("empty batch")
+    # G: another group size than launch_shape's (the card's comparisons)
+    T, G = launch_shape(B, S) if G is None else (_check_group(G, S), G)
+    for name, t, shape_ in (
+        ("x0s", x0s, (B, 4)), ("U_init", U_init, (B, N, 2)),
+        ("fit payload", _fit_payload(plans), (B, p.poly_order + 11)),
+    ):
+        riccati_cuda.check_cuda_f32(name, t, shape_)
+    dev = x0s.device
+    world = prep_world(p, obstacles, unc_map, torch.float32, dev)
+    _check_world(world, N)
+    # as many blocks as the card holds at once: each group of lanes takes
+    # scenarios from a counter until none is left
+    with torch.cuda.device(dev):
+        res = kernel_resources(True, G, S)
+    blocks = min(-(-B // T), res["sms"] * res["blocks_per_sm"])
+    return opt_op(p, plans, x0s, U_init, world, G, blocks)
 
 
 @torch.library.custom_op(
@@ -566,5 +628,12 @@ def fused_optimize(p: SolverParams, plans, x0s, U_init, obstacles=None, unc_map=
         return solver.optimize(p, plans, x0s, U_init, iteration=hybrid_iteration(
             p, plans, obstacles, unc_sampler, fused_iteration))
     if x0s.device.type == "cpu":
-        return fused_optimize_plain(p, plans, x0s, U_init, obstacles, unc_map)
+        # the op's CPU implementation, the plain version, reads no G or
+        # block count
+        return opt_op(p, plans, x0s, U_init,
+                      prep_world(p, obstacles, unc_map, torch.float32, x0s.device), 1, 1)
     return _launch(p, plans, x0s, U_init, obstacles, unc_map)
+
+
+graphs.LAUNCHERS.extend([(sys.modules[__name__], "_launch", _launch),
+                         (sys.modules[__name__], "_launch_iteration", _launch_iteration)])

@@ -14,19 +14,25 @@ counterpart.  The same kernel also applies the costmap build's overrides
 ``sample_prior_batched`` and ``vehicle_map_batched`` launch the kernel for
 CUDA tensors (float32) and take their plain versions
 (``sample_prior_batched_plain`` = the batched ``costmap.sample_prior``;
-``vehicle_map_batched_plain``, any float dtype) for CPU tensors.  The
-result is a pure gather and selects: kernel and plain version agree on
-every cell.
+``vehicle_map_batched_plain``, any float dtype) for CPU tensors, both
+through the op ``cilqr_torch::sample`` (``_sample``: tensors in, a new
+tensor out; its CPU implementation is the plain version), so a stream
+planner and a CUDA graph see the launch as one op.  The result is a pure
+gather and selects: kernel and plain version agree on every cell.
 """
 
 from __future__ import annotations
+
+import sys
 
 import torch
 
 from cilqr_tpu_torch.ops import costmap as costmap_mod
 from cilqr_tpu_torch.ops import gridmap, riccati_cuda
+from cilqr_tpu_torch.utils import graphs
 
 LAUNCHES = 0  # kernel launches made by this module's wrappers
+graphs.COUNTERS.append((sys.modules[__name__], "LAUNCHES"))
 
 
 def sample_prior_batched_plain(geoms: gridmap.GridGeom, rows: int, cols: int,
@@ -53,32 +59,49 @@ def vehicle_map_batched_plain(geoms: gridmap.GridGeom, rows: int, cols: int,
     return vehicle_map
 
 
-def _kernel_call(geoms, rows, cols, global_map, global_geom, ego_xys, ego_yaws, bbox, semantic):
+@torch.library.custom_op(
+    "cilqr_torch::sample", mutates_args=(), device_types="cpu",
+    schema="(Tensor[] geoms, int rows, int cols, Tensor global_map, Tensor[] global_geom, "
+           "Tensor ego_xys, Tensor ego_yaws, Tensor? bbox, Tensor? semantic) -> Tensor")
+def _sample(geoms, rows, cols, global_map, global_geom, ego_xys, ego_yaws, bbox, semantic):
+    """K5 as an op: the resample, with the overrides where ``bbox`` is
+    given; ``geoms`` and ``global_geom`` are the fields of the geometries.
+    On the CPU the plain version; on the card the kernel
+    (``_sample_kernel``)."""
+    geoms, global_geom = gridmap.GridGeom(*geoms), gridmap.GridGeom(*global_geom)
+    if bbox is None:
+        return sample_prior_batched_plain(geoms, rows, cols, global_map, global_geom, ego_xys,
+                                          ego_yaws)
+    return vehicle_map_batched_plain(geoms, rows, cols, global_map, global_geom, ego_xys,
+                                     ego_yaws, bbox, semantic)
+
+
+@_sample.register_fake
+def _sample_fake(geoms, rows, cols, global_map, global_geom, ego_xys, ego_yaws, bbox, semantic):
+    dtype = global_map.dtype if bbox is None else bbox.dtype
+    return global_map.new_empty((ego_xys.shape[0], rows, cols), dtype=dtype)
+
+
+@_sample.register_kernel("cuda")
+def _sample_kernel(geoms, rows, cols, global_map, global_geom, ego_xys, ego_yaws, bbox,
+                   semantic):
+    """The op on the card: one launch of ``sample_kernel<vec>`` on the
+    current stream, its 16-byte form where the width is a multiple of 4
+    and the output and override frames are 16-byte aligned (in a CUDA
+    graph: as they lie in the capture)."""
     global LAUNCHES
     from cilqr_tpu_torch.utils import build
 
+    geoms, global_geom = gridmap.GridGeom(*geoms), gridmap.GridGeom(*global_geom)
     B = ego_xys.shape[0]
-    if B < 1:
-        raise ValueError("empty batch")
     H, W = global_map.shape
-    riccati_cuda.check_cuda_f32("global map", global_map, (H, W))
-    riccati_cuda.check_cuda_f32("ego_xys", ego_xys, (B, 2))
-    riccati_cuda.check_cuda_f32("ego_yaws", ego_yaws, (B,))
-    riccati_cuda.check_cuda_f32("geometry centers", geoms.center, (B, 2))
-    for name, t in (("global center", global_geom.center), ("global length", global_geom.length)):
-        riccati_cuda.check_cuda_f32(name, t, (2,))
-    riccati_cuda.check_cuda_f32("global resolution", global_geom.resolution.reshape(()), ())
-    frames = {}
-    for name, t in (("bbox", bbox), ("semantic", semantic)):
-        if t is not None:
-            riccati_cuda.check_cuda_f32(name, t, (B, rows, cols))
-            frames[name] = t.contiguous()
+    frames = {name: t.contiguous() for name, t in (("bbox", bbox), ("semantic", semantic))
+              if t is not None}
     # first, cos and sin come from PyTorch, with the operations of
     # gridmap.cell_positions / costmap.sample_prior, so the kernel starts
     # from the plain version's own values; the rest is read as it lies
     first = gridmap.first_position(geoms).contiguous()
     res = geoms.resolution.expand(B)
-    riccati_cuda.check_cuda_f32("frame resolution", res, (B,))
     if ego_xys.stride(1) != 1:
         ego_xys = ego_xys.contiguous()
     cs, sn = torch.cos(ego_yaws), torch.sin(ego_yaws)
@@ -98,6 +121,31 @@ def _kernel_call(geoms, rows, cols, global_map, global_geom, ego_xys, ego_yaws, 
     build.check(lib, rc, "prior resample kernel launch")
     LAUNCHES += 1
     return out
+
+
+def _op(geoms, rows, cols, global_map, global_geom, ego_xys, ego_yaws, bbox, semantic):
+    return torch.ops.cilqr_torch.sample(list(geoms), rows, cols, global_map, list(global_geom),
+                                        ego_xys, ego_yaws, bbox, semantic)
+
+
+def _kernel_call(geoms, rows, cols, global_map, global_geom, ego_xys, ego_yaws, bbox, semantic):
+    """K5 on CUDA tensors, checked, then through its op."""
+    B = ego_xys.shape[0]
+    if B < 1:
+        raise ValueError("empty batch")
+    H, W = global_map.shape
+    riccati_cuda.check_cuda_f32("global map", global_map, (H, W))
+    riccati_cuda.check_cuda_f32("ego_xys", ego_xys, (B, 2))
+    riccati_cuda.check_cuda_f32("ego_yaws", ego_yaws, (B,))
+    riccati_cuda.check_cuda_f32("geometry centers", geoms.center, (B, 2))
+    for name, t in (("global center", global_geom.center), ("global length", global_geom.length)):
+        riccati_cuda.check_cuda_f32(name, t, (2,))
+    riccati_cuda.check_cuda_f32("global resolution", global_geom.resolution.reshape(()), ())
+    riccati_cuda.check_cuda_f32("frame resolution", geoms.resolution.expand(B), (B,))
+    for name, t in (("bbox", bbox), ("semantic", semantic)):
+        if t is not None:
+            riccati_cuda.check_cuda_f32(name, t, (B, rows, cols))
+    return _op(geoms, rows, cols, global_map, global_geom, ego_xys, ego_yaws, bbox, semantic)
 
 
 def _launch(geoms, rows, cols, global_map, global_geom, ego_xys, ego_yaws):
@@ -121,8 +169,7 @@ def sample_prior_batched(geoms: gridmap.GridGeom, rows: int, cols: int, global_m
     map read its edge cells.  The kernel for CUDA tensors, the plain version
     for CPU tensors."""
     if global_map.device.type == "cpu":
-        return sample_prior_batched_plain(geoms, rows, cols, global_map, global_geom, ego_xys,
-                                          ego_yaws)
+        return _op(geoms, rows, cols, global_map, global_geom, ego_xys, ego_yaws, None, None)
     return _launch(geoms, rows, cols, global_map, global_geom, ego_xys, ego_yaws)
 
 
@@ -136,7 +183,10 @@ def vehicle_map_batched(geoms: gridmap.GridGeom, rows: int, cols: int, global_ma
     (a NaN keeps the value below it).  The kernel for CUDA tensors, the
     plain version for CPU tensors."""
     if global_map.device.type == "cpu":
-        return vehicle_map_batched_plain(geoms, rows, cols, global_map, global_geom, ego_xys,
-                                         ego_yaws, bbox, semantic)
+        return _op(geoms, rows, cols, global_map, global_geom, ego_xys, ego_yaws, bbox, semantic)
     return _launch_vehicle_map(geoms, rows, cols, global_map, global_geom, ego_xys, ego_yaws,
                                bbox, semantic)
+
+
+graphs.LAUNCHERS.extend([(sys.modules[__name__], "_launch", _launch),
+                         (sys.modules[__name__], "_launch_vehicle_map", _launch_vehicle_map)])

@@ -18,7 +18,10 @@ fields are XLA in the JAX package, then ``propagate_banded_plain``, any
 float dtype).  ``propagate_banded`` is the same kernel reading given
 fields.  A cell scans the box of its own 95% ellipse and, per column,
 the interval of rows that can lie inside it (``scanned_offsets``), within
-its band's window.
+its band's window.  Every entry point reaches the kernel, or on the CPU its
+plain version, through the op ``cilqr_torch::propagate`` (``_propagate_op``:
+tensors in, a new tensor out), so a stream planner and a CUDA graph see
+the launch as one op.
 
 The band planner (``BandPlan``, ``make_band_plan``,
 ``make_band_plan_bounds``) is the JAX package's numpy logic.  Not ported:
@@ -30,19 +33,24 @@ count is therefore always 8-row bands, where the JAX planner falls back to
 
 from __future__ import annotations
 
+import dataclasses
 import functools
+import json
 import math
+import sys
 from typing import NamedTuple
 
 import numpy as np
 import torch
 import torch.nn.functional as F
 
+from cilqr_tpu_torch.utils import graphs
 from cilqr_tpu_torch.utils.params import CostmapParams
 from cilqr_tpu_torch.ops import costmap as costmap_mod
 from cilqr_tpu_torch.ops import gridmap, riccati_cuda
 
 LAUNCHES = 0  # propagation-kernel launches made by this module's wrappers
+graphs.COUNTERS.append((sys.modules[__name__], "LAUNCHES"))
 FIELD_LAUNCHES = 0  # launches of the fields-only kernel (``fields_on_card``)
 TABLE_FLOATS = 12  # per-scenario floats of ``scenario_table`` (csrc/uncertainty.cu)
 TILE_ROWS = 8  # rows of the prior tile a block stages (kTileRows)
@@ -289,7 +297,9 @@ def scenario_table(cp: CostmapParams, geom: gridmap.GridGeom, ego_yaw, sigmas,
     terms = costmap_mod.sigma_rho_terms(cp, yaw, faithful_rho, sig)
     columns = [first[..., 0], first[..., 1], geom.resolution,
                *(0.0 if t is None else t for t in terms), 0.0]
-    columns = [torch.as_tensor(t, dtype=torch.float32, device=first.device).reshape(-1)
+    # a number becomes a filled tensor: a copy from the host cannot be captured
+    columns = [(t.to(torch.float32) if isinstance(t, torch.Tensor)
+                else torch.full((), t, dtype=torch.float32, device=first.device)).reshape(-1)
                for t in columns]
     B = max(t.numel() for t in columns)
     return torch.stack([t.expand(B) for t in columns], dim=1).contiguous()
@@ -310,7 +320,7 @@ def fields_from_table(table: torch.Tensor, rows: int, cols: int, faithful_rho: b
     return sx.contiguous(), sy.contiguous(), rho.contiguous(), psd.contiguous()
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=None)  # kept: a CUDA graph may read them
 def _row_table(bands: tuple, disc_radii: tuple | None, rows: int, res: float, device: str):
     """(int32 (rows, r_max + 2) on ``device``, float32 (r_max + 1,), r_max):
     per row its band's radius R, then for |dj| = 0..r_max the row half
@@ -378,18 +388,93 @@ def _run_kernel(cp: CostmapParams, prior: torch.Tensor, B: int, bands, disc_radi
     return out
 
 
+@functools.lru_cache(maxsize=64)
+def _config_arg(cp: CostmapParams, bands: tuple, disc_radii) -> str:
+    """The op's ``config`` argument: the costmap parameters, the bands and
+    their disc radii as JSON (floats written by ``repr``, so they read back
+    exactly)."""
+    return json.dumps([dataclasses.asdict(cp), [list(b) for b in bands],
+                       None if disc_radii is None else list(disc_radii)], sort_keys=True)
+
+
+@functools.lru_cache(maxsize=64)
+def _config_of(arg: str) -> tuple:
+    """(cp, bands, disc_radii) of an op's ``config`` argument."""
+    cp, bands, disc = json.loads(arg)
+    return (CostmapParams(**cp), tuple(tuple(b) for b in bands),
+            None if disc is None else tuple(disc))
+
+
+@torch.library.custom_op(
+    "cilqr_torch::propagate", mutates_args=(), device_types="cpu",
+    schema="(str config, Tensor prior, Tensor[] fields, Tensor[] geom, Tensor? ego_yaw, "
+           "Tensor? sigmas, bool faithful_rho, int B) -> Tensor")
+def _propagate_op(config, prior, fields, geom, ego_yaw, sigmas, faithful_rho, B):
+    """K4 as an op -> (B, rows, cols): on given ``fields`` (sx, sy, rho, psd),
+    or fused (none given: the fields of ``geom``'s fields, ``ego_yaw`` and
+    ``sigmas``, formed per cell).  On the CPU the plain version; on the card
+    the kernel (``_propagate_kernel``)."""
+    cp, bands, disc_radii = _config_of(config)
+    if fields:
+        return propagate_banded_plain(cp, prior, fields, bands, disc_radii)
+    return propagate_fused_plain(cp, prior, gridmap.GridGeom(*geom), ego_yaw, sigmas,
+                                 faithful_rho, bands, disc_radii)
+
+
+@_propagate_op.register_fake
+def _propagate_fake(config, prior, fields, geom, ego_yaw, sigmas, faithful_rho, B):
+    dtype = (torch.float32 if prior.device.type != "cpu" else
+             fields[0].dtype if fields else prior.dtype)
+    return prior.new_empty((B,) + tuple(prior.shape[-2:]), dtype=dtype)
+
+
+@_propagate_op.register_kernel("cuda")
+def _propagate_kernel(config, prior, fields, geom, ego_yaw, sigmas, faithful_rho, B):
+    """The op on the card: one launch of the kernel on the current stream,
+    reading the fields or (fused) a ``scenario_table``."""
+    cp, bands, disc_radii = _config_of(config)
+    if fields:
+        return _run_kernel(cp, prior, B, bands, disc_radii, fields=fields)
+    table = scenario_table(cp, gridmap.GridGeom(*geom), ego_yaw, sigmas, faithful_rho)
+    if table.shape[0] != B:
+        table = table.expand(B, TABLE_FLOATS).contiguous()
+    return _run_kernel(cp, prior, B, bands, disc_radii, table=table, faithful_rho=faithful_rho)
+
+
+def _as_tensor(x, device):
+    """A number or sequence as a float64 tensor on ``device`` (a tensor as
+    it is): rounded later to the working dtype, its bits are those of the
+    number rounded there."""
+    if x is None or isinstance(x, torch.Tensor):
+        return x
+    return torch.tensor(x, dtype=torch.float64, device=device)
+
+
+def _op(cp: CostmapParams, prior: torch.Tensor, bands, disc_radii, fields=(), geom=None,
+        ego_yaw=None, sigmas=None, faithful_rho: bool = False) -> torch.Tensor:
+    """K4's op: on ``fields``, or fused on (geom, ego_yaw, sigmas)."""
+    if fields:
+        B = fields[0].shape[0]
+    else:
+        ego_yaw, sigmas = _as_tensor(ego_yaw, prior.device), _as_tensor(sigmas, prior.device)
+        B = max(geom.center.reshape(-1, 2).shape[0], geom.resolution.numel(), ego_yaw.numel(),
+                1 if sigmas is None else sigmas.reshape(-1, 3).shape[0])
+        if prior.ndim == 3:
+            B = max(B, prior.shape[0])
+    return torch.ops.cilqr_torch.propagate(
+        _config_arg(cp, bands, disc_radii), prior, list(fields),
+        [] if geom is None else list(geom), ego_yaw, sigmas, faithful_rho, B)
+
+
 def _launch(cp: CostmapParams, prior: torch.Tensor, fields, bands, disc_radii):
-    return _run_kernel(cp, prior, fields[0].shape[0], bands, disc_radii, fields=fields)
+    return _op(cp, prior, bands, disc_radii, fields=fields)
 
 
 def _launch_fused(cp: CostmapParams, prior: torch.Tensor, geom: gridmap.GridGeom, ego_yaw,
                   sigmas, faithful_rho: bool, bands, disc_radii):
     riccati_cuda.check_cuda_f32("geometry center", geom.center, tuple(geom.center.shape))
-    table = scenario_table(cp, geom, ego_yaw, sigmas, faithful_rho)
-    if prior.ndim == 3 and table.shape[0] == 1:
-        table = table.expand(prior.shape[0], TABLE_FLOATS).contiguous()
-    return _run_kernel(cp, prior, table.shape[0], bands, disc_radii, table=table,
-                       faithful_rho=faithful_rho)
+    return _op(cp, prior, bands, disc_radii, geom=geom, ego_yaw=ego_yaw, sigmas=sigmas,
+               faithful_rho=faithful_rho)
 
 
 def fields_on_card(cp: CostmapParams, geom: gridmap.GridGeom, ego_yaw, sigmas,
@@ -419,7 +504,7 @@ def propagate_banded(cp: CostmapParams, prior: torch.Tensor, fields, bands,
     """(B, rows, cols) propagated maps from the fields of ``prep_fields``:
     the kernel for CUDA tensors, the plain version for CPU tensors."""
     if prior.device.type == "cpu":
-        return propagate_banded_plain(cp, prior, fields, bands, disc_radii)
+        return _op(cp, prior, bands, disc_radii, fields=fields)
     return _launch(cp, prior, fields, bands, disc_radii)
 
 
@@ -435,8 +520,10 @@ def propagate_fused_plain(cp: CostmapParams, prior: torch.Tensor, geom: gridmap.
 def _propagate(cp: CostmapParams, prior: torch.Tensor, geom, ego_yaw, sigmas,
                faithful_rho: bool, bands, disc_radii) -> torch.Tensor:
     """The fused kernel for CUDA tensors, the plain version for CPU tensors."""
-    fn = propagate_fused_plain if prior.device.type == "cpu" else _launch_fused
-    return fn(cp, prior, geom, ego_yaw, sigmas, faithful_rho, bands, disc_radii)
+    if prior.device.type == "cpu":
+        return _op(cp, prior, bands, disc_radii, geom=geom, ego_yaw=ego_yaw, sigmas=sigmas,
+                   faithful_rho=faithful_rho)
+    return _launch_fused(cp, prior, geom, ego_yaw, sigmas, faithful_rho, bands, disc_radii)
 
 
 def propagate_uncertainty(cp: CostmapParams, prior: torch.Tensor, geom: gridmap.GridGeom,
@@ -482,3 +569,7 @@ def propagate_uncertainty_banded(cp: CostmapParams, prior: torch.Tensor,
 def _kernel_dtype(prior: torch.Tensor) -> torch.dtype:
     """The kernel computes in float32; the plain version in the prior's dtype."""
     return prior.dtype if prior.device.type == "cpu" else torch.float32
+
+
+graphs.LAUNCHERS.extend([(sys.modules[__name__], "_launch", _launch),
+                         (sys.modules[__name__], "_launch_fused", _launch_fused)])

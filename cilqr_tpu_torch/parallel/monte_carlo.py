@@ -114,16 +114,22 @@ def monte_carlo(p: SolverParams, cp: CostmapParams, prior: torch.Tensor, geom, o
     cover its 95% ellipse (``ensure_window_covers``), and a ``band_plan``
     built for a smaller bound is refused.  ``center``: the map centre
     ``geom.center`` as host numbers (x, y); when unset it is read from
-    ``geom``, one device-to-host copy per call.
+    ``geom``, one device-to-host copy per call, except on the fast path with
+    a ``band_plan``, whose bands (not the window) bound the propagation.
+
+    On the card (``solver.GRAPHS``) the fast path's propagation, plan fit
+    and K3's payload run in the hybrid loop's start graph
+    (``solver.solve``), whose step graph reads the maps in place.
     """
-    if center is None:
-        center = tuple(float(c) for c in geom.center.tolist())
-    cp = ensure_window_covers(cp, prior.shape[0], prior.shape[1], center, sigma_hi)
     B = samples.egos.shape[0]
     if impl == "auto":
         impl = "fast" if B >= 256 else "reference"
     if impl not in ("fast", "reference"):
         raise ValueError(f"impl must be 'fast', 'reference' or 'auto', got {impl!r}")
+    if impl == "reference" or band_plan is None:
+        if center is None:
+            center = tuple(float(c) for c in geom.center.tolist())
+        cp = ensure_window_covers(cp, prior.shape[0], prior.shape[1], center, sigma_hi)
     U0 = solver.initial_controls(p, dtype=samples.egos.dtype, device=samples.egos.device)
     U0s = U0.expand((B,) + tuple(U0.shape))
     if impl == "reference":
@@ -137,14 +143,25 @@ def monte_carlo(p: SolverParams, cp: CostmapParams, prior: torch.Tensor, geom, o
                 f"band_plan covers sigma_hi={plan_hi} but sampling bound is "
                 f"{tuple(sigma_hi)} — rebuild the plan with the larger bound "
                 "(a too-small band radius silently truncates the 95% ellipse)")
-        unc_vals = uncertainty_cuda.propagate_uncertainty_banded(
-            cp, prior, geom, origin_yaw, samples.sigmas, band_plan)
+    (X, U, it, J, lamb), (x_wpts, y_fit) = solver.solve(p, solver.Stage(_fast_before, (
+        cp, samples.sigmas, samples.egos, U0s, prior, geom, origin_xy, origin_yaw, plan_xy,
+        plan_n, obstacles, band_plan)))
+    return solver.SolveResult(X, U, x_wpts, y_fit, it, J, lamb)
+
+
+def _fast_before(p: SolverParams, cp: CostmapParams, sigmas, egos, U0s, prior, geom, origin_xy,
+                 origin_yaw, plan_xy, plan_n, obstacles, band_plan) -> tuple:
+    """The fast path up to the hybrid LM loop (a ``solver.solve`` stage):
+    the propagation kernel over every scenario's sigmas (banded with
+    ``band_plan``, else one full window), then ``hybrid_before``."""
+    if band_plan is not None:
+        unc_vals = uncertainty_cuda.propagate_uncertainty_banded(cp, prior, geom, origin_yaw,
+                                                                 sigmas, band_plan)
     else:
-        unc_vals = uncertainty_cuda.propagate_uncertainty_batched(
-            cp, prior, geom, origin_yaw, samples.sigmas)
+        unc_vals = uncertainty_cuda.propagate_uncertainty_batched(cp, prior, geom, origin_yaw,
+                                                                  sigmas)
     umaps = per_scenario_map(unc_vals, geom, origin_xy, origin_yaw)
-    return solver_batched.run_steps_batched(p, plan_xy, plan_n, samples.egos, U0s, obstacles,
-                                            umaps, impl="mega", world_batched=True)
+    return solver_batched.hybrid_before(p, egos, U0s, plan_xy, plan_n, obstacles, umaps)
 
 
 def make_sharded_monte_carlo(p: SolverParams, cp: CostmapParams, mesh: list, obstacles=None,

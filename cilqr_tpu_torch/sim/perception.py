@@ -24,6 +24,7 @@ from typing import NamedTuple
 import torch
 
 from cilqr_tpu_torch.ops import gridmap
+from cilqr_tpu_torch.utils.device import constant
 from cilqr_tpu_torch.utils.params import CostmapParams
 
 
@@ -57,8 +58,7 @@ def bbox_measurement(cp: CostmapParams, geom: gridmap.GridGeom, ego_xy: torch.Te
     the out-of-plane gate (``measurement_valid``)."""
     dtype = geom.center.dtype
     half = 0.5 * obs_size
-    signs = torch.tensor([[1.0, 1.0], [1.0, -1.0], [-1.0, -1.0], [-1.0, 1.0]], dtype=dtype,
-                         device=half.device)
+    signs = constant(((1.0, 1.0), (1.0, -1.0), (-1.0, -1.0), (-1.0, 1.0)), dtype, half.device)
     corners = signs * half  # (4, 2) obstacle frame
     co, so = torch.cos(obs_yaw), torch.sin(obs_yaw)
     gx = co * corners[:, 0] - so * corners[:, 1] + obs_xy[0]

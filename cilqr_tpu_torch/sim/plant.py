@@ -9,8 +9,18 @@ Port of ``cilqr_tpu/sim/plant.py``:
   * collision ground truth = SAT OBB checks against every obstacle
   * experiment record = per-cycle (start_pos, X, U, J, iterations) streams
 
-``lax.scan`` over the cycles is a Python loop here that stacks the records;
-``closed_loop_jit`` has no counterpart (PyTorch runs eagerly).
+``lax.scan`` over the cycles is a Python loop here that stacks the records.
+On the card (``solver.GRAPHS``) the batched loops run each cycle as CUDA
+graphs (``solver.run`` / ``solver.solve``), as the reference runs its
+jitted cycle: ``closed_loop_batched`` one graph per cycle (noise, the SAT
+check, the mega solve with K1, the dynamics step); the full stack a start
+graph (the perception channel, the costmap build with K5 and K4, noise, the
+SAT check, the plan fit and the hybrid loop's payload), one step graph
+replay per LM iteration, which reads the maps where the start graph wrote
+them, and a graph for the dynamics step.  The host replays graphs and reads
+the done mask between step replays.  With another planner
+(``plan_step_batched``) the stages around it are graphs and the planner
+runs as it runs.
 
 **Noise.**  JAX's PRNG stream cannot be reproduced, so ``inject_noise``
 takes standard-normal draws instead of a key.  Every loop takes, in the
@@ -33,6 +43,7 @@ from cilqr_tpu_torch.models import dynamics, solver, solver_batched, tracker
 from cilqr_tpu_torch.models import uncertainty as unc_mod
 from cilqr_tpu_torch.ops import costmap as costmap_mod
 from cilqr_tpu_torch.sim import collision, perception
+from cilqr_tpu_torch.utils.device import constant
 from cilqr_tpu_torch.utils.params import CostmapParams, NoiseParams, SolverParams
 
 
@@ -81,8 +92,8 @@ def check_collisions(p: SolverParams, state: torch.Tensor, obs_xyyaw: torch.Tens
     (..., 4) -> bool (...).  obs_xyyaw (M, 3); obs_size (2,) shared or (M, 2)."""
     M = obs_xyyaw.shape[0]
     sizes = obs_size.expand(M, 2)
-    length = torch.tensor(p.length, dtype=state.dtype, device=state.device)
-    width = torch.tensor(p.width, dtype=state.dtype, device=state.device)
+    length = constant(p.length, state.dtype, state.device)
+    width = constant(p.width, state.dtype, state.device)
     ego = (state[..., 0, None], state[..., 1, None], state[..., 3, None], length, width)
     hit = collision.is_collision(
         ego, (obs_xyyaw[:, 0], obs_xyyaw[:, 1], obs_xyyaw[:, 2], sizes[:, 0], sizes[:, 1]))
@@ -242,6 +253,35 @@ def closed_loop_full_stack(p: SolverParams, cp: CostmapParams, noise: NoiseParam
     return state, _stack_records(recs)
 
 
+def _noisy_hits(p: SolverParams, noise: NoiseParams, r, states, obs):
+    """The noisy states fed to the planner and the SAT check at the cycle's
+    start (``obs`` = (obs_xyyaw, obs_size, obs_mask), or None: no hit)."""
+    noisy = inject_noise(noise, r, states)
+    if obs is None:
+        return noisy, torch.zeros(states.shape[:1], dtype=torch.bool, device=states.device)
+    return noisy, check_collisions(p, states, *obs)
+
+
+def _advance(p: SolverParams, states, U):
+    """The plant's step on the first control of U
+    (ilqr_uncertainty_node.cpp:129)."""
+    return dynamics.step(p, states, U[:, 0])
+
+
+def _record(states, noisy, res, hits) -> dict:
+    return {"start_pos": states, "noisy_pos": noisy, "J": res.J,
+            "iterations": res.iterations, "collided": hits}
+
+
+def _mega_cycle(p: SolverParams, noise: NoiseParams, r, states, U_warm, obs, world):
+    """One cycle of ``closed_loop_batched`` on the mega solve: -> (record,
+    next states, the plan's controls)."""
+    noisy, hits = _noisy_hits(p, noise, r, states, obs)
+    res = solver_batched.run_steps_batched(p, world[0], world[1], noisy, U_warm.contiguous(),
+                                           *world[2:])
+    return _record(states, noisy, res, hits), _advance(p, states, res.U), res.U
+
+
 def closed_loop_batched(p: SolverParams, noise: NoiseParams, plan_xy: torch.Tensor, plan_n,
                         x0s: torch.Tensor, generator: Optional[torch.Generator], n_cycles: int,
                         obstacles=None, unc_map=None, obs_xyyaw=None, obs_size=None,
@@ -249,8 +289,9 @@ def closed_loop_batched(p: SolverParams, noise: NoiseParams, plan_xy: torch.Tens
     """Closed loop over a scenario batch x0s (B, 4) on the fused path: every
     plan -> act cycle solves the whole batch through
     ``run_steps_batched(impl="mega")`` (kernel K1 on the card), on one
-    shared world.  ``plan_step_batched(noisy_states, U_warm) -> batched
-    SolveResult-like`` swaps in another batched planner (the baselines of
+    shared world: on the card one CUDA graph per cycle.
+    ``plan_step_batched(noisy_states, U_warm) -> batched SolveResult-like``
+    swaps in another batched planner (the baselines of
     ``sim.runner.make_plan_step``).  ``noise_draws`` (T, B, 3).
 
     Returns (final states (B, 4), dict of (T, B, ...) records)."""
@@ -258,22 +299,73 @@ def closed_loop_batched(p: SolverParams, noise: NoiseParams, plan_xy: torch.Tens
     dtype, dev = x0s.dtype, x0s.device
     U_warm = solver.initial_controls(p, dtype=dtype, device=dev).expand(B, p.horizon, 2)
     draws = _draws(generator, noise_draws, (n_cycles, B, 3), dtype, dev, "noise_draws")
+    obs = None if obs_xyyaw is None else (obs_xyyaw, obs_size, obs_mask)
+    world = (plan_xy, plan_n, obstacles, unc_map)
     states, recs = x0s, []
     for t in range(n_cycles):
-        noisy = inject_noise(noise, draws[t], states)
-        if plan_step_batched is not None:
+        if plan_step_batched is None:
+            rec, states_next, U_warm = solver.run(p, solver.Stage(
+                _mega_cycle, (noise, draws[t], states, U_warm, obs, world)))
+        else:
+            noisy, hits = solver.run(p, solver.Stage(_noisy_hits, (noise, draws[t], states, obs)))
             res = plan_step_batched(noisy, U_warm)
-        else:
-            res = solver_batched.run_steps_batched(p, plan_xy, plan_n, noisy,
-                                                   U_warm.contiguous(), obstacles, unc_map)
-        if obs_xyyaw is not None:
-            hits = check_collisions(p, states, obs_xyyaw, obs_size, obs_mask)
-        else:
-            hits = torch.zeros((B,), dtype=torch.bool, device=dev)
-        recs.append({"start_pos": states, "noisy_pos": noisy, "J": res.J,
-                     "iterations": res.iterations, "collided": hits})
-        states, U_warm = dynamics.step(p, states, res.U[:, 0]), res.U
+            rec, U_warm = _record(states, noisy, res, hits), res.U
+            states_next = solver.run(p, solver.Stage(_advance, (states, res.U)))
+        recs.append(rec)
+        states = states_next
     return states, _stack_records(recs)
+
+
+def _full_stack_world(p: SolverParams, cp: CostmapParams, noise: NoiseParams, r, states,
+                      glob, plan, obs, cm_kw, percept):
+    """A full-stack cycle up to the planner: the perception channel (with
+    ``percept`` = (sim, t * dt, filter, camera draws)), the costmap build at
+    the true states, the noise, the SAT check.  ``glob`` = (global_map,
+    global_geom); ``plan`` = (plan_xy, plan_n); ``obs`` = (M, obs_xyyaw,
+    sizes, obs_mask, raster mask); ``cm_kw`` the build's options.  ->
+    (noisy states, the maps, the cycle's record so far, the filter)."""
+    M, obs_xyyaw, sizes, obs_mask, raster_mask = obs
+    dtype = states.dtype
+    obs_now, boxes, valid, kf = obs_xyyaw, None, None, None
+    if percept is not None:
+        sim, tdt, kf, cam = percept
+        obs_now = obs_xyyaw.clone()
+        obs_now[sim.obs_index, :2] += tdt * sim.vel.to(dtype)
+        zs, valid = _camera(cp, sim, *plan, states, obs_now, sizes, sim.obs_index, cam)
+        kf, boxes = tracker.step(kf, zs, valid)
+    cms = costmap_mod.build_local_costmap_batched(
+        cp, *glob, *plan, states, obs_now[:, :2], sizes, obs_now[:, 2], raster_mask,
+        tracked_boxes=boxes, tracked_valid=valid, **cm_kw)
+    umaps = unc_mod.UncertaintyMap(cms.uncertainty_map, cms.geom, cms.origin_xy, cms.origin_yaw)
+    noisy, hits = _noisy_hits(p, noise, r, states, (obs_now, sizes, obs_mask) if M else None)
+    rec = {"start_pos": states, "noisy_pos": noisy, "collided": hits,
+           "uncertainty_max": cms.uncertainty_map.amax(dim=(1, 2))}
+    if percept is not None:
+        rec.update(tracked_box=boxes, bbox_valid=valid,
+                   semantic_max=cms.semantic_lidar_map.amax(dim=(1, 2)))
+    return noisy, umaps, rec, kf
+
+
+def _full_stack_before(p: SolverParams, cp: CostmapParams, noise: NoiseParams, r, states,
+                       U_warm, glob, plan, obs, cm_kw, percept, obstacles):
+    """A full-stack cycle up to the LM loop (a ``solver.solve`` stage):
+    ``_full_stack_world``, then the plan fit and the iteration's payload
+    (the hybrid loop's, K3; with per-scenario obstacles the two-phase
+    loop's, K2, as ``run_steps_batched`` routes them)."""
+    noisy, umaps, rec, kf = _full_stack_world(p, cp, noise, r, states, glob, plan, obs, cm_kw,
+                                              percept)
+    per_lane = obstacles is not None and obstacles.pos.ndim == 4
+    before = solver_batched.two_phase_before if per_lane else solver_batched.hybrid_before
+    x0, U_init, plans, iteration, _ = before(p, noisy, U_warm.contiguous(), *plan, obstacles,
+                                             umaps)
+    return x0, U_init, plans, iteration, (rec, kf)
+
+
+def _full_record(rec: dict, res) -> dict:
+    """The record in the order of its fields: start_pos, noisy_pos, J,
+    iterations, collided, uncertainty_max[, the perception channel's]."""
+    return {"start_pos": rec.pop("start_pos"), "noisy_pos": rec.pop("noisy_pos"), "J": res.J,
+            "iterations": res.iterations, **rec}
 
 
 def closed_loop_full_stack_batched(p: SolverParams, cp: CostmapParams, noise: NoiseParams,
@@ -294,7 +386,8 @@ def closed_loop_full_stack_batched(p: SolverParams, cp: CostmapParams, noise: No
     scenario's map sampled in PyTorch, the LM-iteration kernel K3 once per
     iteration).  Per scenario the information flow is that of
     ``closed_loop_full_stack``: costmap at the true pose, solver at the
-    noisy pose.  Any B works.
+    noisy pose.  Any B works.  On the card the cycle is CUDA graphs (see
+    the module docstring).
 
     ``percept`` runs the camera -> Kalman filter -> ``semantic_lidar_map``
     channel per scenario.  ``plan_step_batched(noisy_states, U_warm, umaps)
@@ -310,48 +403,37 @@ def closed_loop_full_stack_batched(p: SolverParams, cp: CostmapParams, noise: No
     M, obs_xyyaw, sizes, obs_mask = _obstacle_arrays(obs_xyyaw, obs_size, obs_mask, dtype, dev)
     draws = _draws(generator, noise_draws, (n_cycles, B, 3), dtype, dev, "noise_draws")
     cm_raster_mask = obs_mask
+    kf = cam = None
     if percept is not None:
         pi, cm_raster_mask = _percept_setup(percept, M, obs_mask)
         kf = tracker.init(dtype=dtype, batch=(B,), device=dev)
-        cam = None
         if percept.bbox_sigma > 0.0:
             cam = _draws(generator, camera_draws, (n_cycles, B, 4), dtype, dev, "camera_draws")
+    if costmap_sigmas is not None and not isinstance(costmap_sigmas, torch.Tensor):
+        # numbers as a tensor once (rounded to the map's dtype in the build
+        # as the numbers would be), not within every cycle
+        costmap_sigmas = torch.tensor(costmap_sigmas, dtype=torch.float64, device=dev)
+    glob, plan = (global_map, global_geom), (plan_xy, plan_n)
+    obs = (M, obs_xyyaw, sizes, obs_mask, cm_raster_mask)
+    cm_kw = dict(use_kernels=use_kernels, band_plan=band_plan, global_res=global_res,
+                 sigmas=costmap_sigmas)
 
     states, recs = x0s, []
     for t in range(n_cycles):
-        obs_now = obs_xyyaw
-        boxes = valid = None
+        per = None
         if percept is not None:
-            obs_now = obs_xyyaw.clone()
-            obs_now[pi, :2] += (t * p.timestep) * percept.vel.to(dtype)
-            zs, valid = _camera(cp, percept, plan_xy, plan_n, states, obs_now, sizes, pi,
-                                None if cam is None else cam[t])
-            kf, boxes = tracker.step(kf, zs, valid)
-
-        cms = costmap_mod.build_local_costmap_batched(
-            cp, global_map, global_geom, plan_xy, plan_n, states, obs_now[:, :2], sizes,
-            obs_now[:, 2], cm_raster_mask, use_kernels=use_kernels, band_plan=band_plan,
-            global_res=global_res, tracked_boxes=boxes, tracked_valid=valid,
-            sigmas=costmap_sigmas)
-        umaps = unc_mod.UncertaintyMap(cms.uncertainty_map, cms.geom, cms.origin_xy,
-                                       cms.origin_yaw)
-        noisy = inject_noise(noise, draws[t], states)
-        if plan_step_batched is not None:
+            tdt = torch.full((), t * p.timestep, dtype=dtype, device=dev)
+            per = (percept, tdt, kf, None if cam is None else cam[t])
+        if plan_step_batched is None:
+            (X, U, it, J, lamb), (rec, kf) = solver.solve(p, solver.Stage(
+                _full_stack_before, (cp, noise, draws[t], states, U_warm, glob, plan, obs, cm_kw,
+                                     per, obstacles)))
+            res = solver.SolveResult(X, U, None, None, it, J, lamb)
+        else:
+            noisy, umaps, rec, kf = solver.run(p, solver.Stage(
+                _full_stack_world, (cp, noise, draws[t], states, glob, plan, obs, cm_kw, per)))
             res = plan_step_batched(noisy, U_warm, umaps)
-        else:
-            res = solver_batched.run_steps_batched(p, plan_xy, plan_n, noisy,
-                                                   U_warm.contiguous(), obstacles, umaps,
-                                                   impl="mega", world_batched=True)
-        if M:
-            hits = check_collisions(p, states, obs_now, sizes, obs_mask)
-        else:
-            hits = torch.zeros((B,), dtype=torch.bool, device=dev)
-        rec = {"start_pos": states, "noisy_pos": noisy, "J": res.J,
-               "iterations": res.iterations, "collided": hits,
-               "uncertainty_max": cms.uncertainty_map.amax(dim=(1, 2))}
-        if percept is not None:
-            rec.update(tracked_box=boxes, bbox_valid=valid,
-                       semantic_max=cms.semantic_lidar_map.amax(dim=(1, 2)))
-        recs.append(rec)
-        states, U_warm = dynamics.step(p, states, res.U[:, 0].to(dtype)), res.U.to(dtype)
+        recs.append(_full_record(rec, res))
+        U_warm = res.U.to(dtype)
+        states = solver.run(p, solver.Stage(_advance, (states, U_warm)))
     return states, _stack_records(recs)

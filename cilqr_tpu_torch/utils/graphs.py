@@ -4,7 +4,9 @@ A loop of small kernels costs the host ~15-25 us per PyTorch op; replayed
 as a CUDA graph the same kernels run on the same inputs (the same bits)
 with one launch from the host.  ``models.solver`` (its LM loops: the plain
 iteration, the hybrid one with the map sampler and K3, the two-phase one
-with K2) and ``models.nrb_rrt`` (the planner) capture their work this way,
+with K2; and the stages around them, ``solver.run`` / ``solver.solve``: the
+mega solve with K1, the closed loops' cycles with K4 and K5) and
+``models.nrb_rrt`` (the planner) capture their work this way,
 each in a ``GraphCache`` of its own.  A capture fails on any host-to-device
 copy or host synchronisation inside it, so the constants a captured
 function reads are made in its warm-up, before the capture.  Warm-up and
@@ -17,9 +19,14 @@ op on one of several streams and orders it after the ops it depends on
 (read after write, write after read, write after write, by storage) with
 events, which the capture turns into the graph's edges.  The kernels and
 their inputs are the same, so are the bits; independent kernels overlap.
-The port's own kernels K2 and K3 are ``torch.library`` ops
-(``cilqr_torch::riccati``, ``cilqr_torch::lm_iter``), so the planner sees
-them as it sees PyTorch's.
+The port's own kernels K1-K5 are ``torch.library`` ops
+(``cilqr_torch::lm_opt``, ``riccati``, ``lm_iter``, ``propagate``,
+``sample``), so the planner sees them as it sees PyTorch's.
+
+A captured function may return tensors: the graph's outputs (``out``),
+memory of the graph's own that every replay writes again, which another
+graph may read in place.  A stage met while a capture or its warm-up is
+under way (``building``) runs eagerly, so the capture holds its kernels.
 
 A replay launches from the host nothing that a launch counter sees, so a
 ``Graph`` keeps what its capture added to each counter in ``COUNTERS``
@@ -39,8 +46,14 @@ from torch.utils._pytree import tree_flatten
 
 aten = torch.ops.aten
 #: the launch counters (module, attribute) of the kernels a graph may hold:
-#: ``ops/riccati_cuda`` and ``ops/lm_cuda`` enter K2's and K3's on import
+#: ``ops/lm_cuda``, ``riccati_cuda``, ``uncertainty_cuda`` and ``sample_cuda``
+#: enter theirs on import
 COUNTERS: list = []
+#: (module, attribute, the function it holds as the module defines it): the
+#: kernels' launch functions, which ``chip_smoke.plain_versions`` swaps for
+#: their plain versions (``on_kernels``); the same modules enter them
+LAUNCHERS: list = []
+_BUILDS = 0  # warm-ups and captures under way (``building``)
 # ops that launch no kernel besides the views (``is_view``): a view its schema
 # does not declare, and allocations (the first op to write the memory orders it)
 _NO_KERNEL = {aten._unsafe_view, aten.empty, aten.empty_like, aten.empty_strided,
@@ -58,6 +71,39 @@ def side_stream(device: torch.device):
         with torch.cuda.stream(side):
             yield
         main.wait_stream(side)
+
+
+@contextlib.contextmanager
+def building():
+    """Marks a warm-up or a capture: inside, ``replayable`` is false."""
+    global _BUILDS
+    _BUILDS += 1
+    try:
+        yield
+    finally:
+        _BUILDS -= 1
+
+
+def replayable(t: torch.Tensor) -> bool:
+    """Whether a stage on t may replay a graph of its own: t lies on the
+    card and no capture or warm-up is under way (inside one the stage runs
+    eagerly, and that capture holds its kernels)."""
+    return t.is_cuda and not _BUILDS
+
+
+def on_kernels() -> bool:
+    """Whether every launch function of ``LAUNCHERS`` is its module's own
+    (none swapped for a plain version)."""
+    return all(getattr(module, name) is fn for module, name, fn in LAUNCHERS)
+
+
+def copy_outputs(static, new) -> None:
+    """Copies the tensors of ``new`` into those of ``static`` (the same
+    nest): what a replay does to a graph's outputs, for a stand-in of
+    ``capture`` that runs the function again."""
+    for s, t in zip(tree_flatten(static)[0], tree_flatten(new)[0]):
+        if isinstance(s, torch.Tensor) and s is not t:
+            s.copy_(t)
 
 
 class PlannedOp(NamedTuple):
@@ -299,9 +345,11 @@ def count_launches(launches: tuple) -> None:
 
 class Graph(torch.cuda.CUDAGraph):
     """A CUDA graph whose ``replay()`` also adds to the launch counters what
-    its capture recorded (``launches``)."""
+    its capture recorded (``launches``); ``out``: what the captured function
+    returned, which each replay writes again."""
 
     launches: tuple = ()
+    out: Any = None
 
     def replay(self):
         super().replay()
@@ -310,7 +358,8 @@ class Graph(torch.cuda.CUDAGraph):
 
 def capture(fn, device: torch.device, streams: int = 1) -> Graph:
     """fn() captured as a CUDA graph on ``device``; ``replay()`` runs its
-    kernels again on the memory they were captured on.  With ``streams >
+    kernels again on the memory they were captured on, and ``out`` is what
+    fn() returned.  With ``streams >
     1`` the ops run under a ``StreamPlanner`` of that many streams, and the
     graph's ``stats`` (``PlanStats``; None on one stream) describe its plan.
     ``pool_bytes`` is the memory the graph's pool took; ``launches`` what
@@ -326,13 +375,16 @@ def capture(fn, device: torch.device, streams: int = 1) -> Graph:
         torch.cuda.synchronize()
         torch.cuda.empty_cache()  # as torch.cuda.graph does before it captures
         reserved = torch.cuda.memory_reserved(device)
+        out = []
         try:
-            with torch.cuda.graph(graph, stream=stream), planner or contextlib.nullcontext():
-                graph.launches = record_launches(fn)
+            with building(), torch.cuda.graph(graph, stream=stream), \
+                    planner or contextlib.nullcontext():
+                graph.launches = record_launches(lambda: out.append(fn()))
         finally:
             if planner is not None:
                 planner.release()
         graph.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+    graph.out = out[0]
     graph.stats = planner and planner.stats
     return graph
 

@@ -143,16 +143,19 @@ def test_hoisted_constants_equal_the_inline_ones(dtype):
 
 class ReplayedEagerly:
     """Stands in for ``graphs.capture`` on the CPU: replay() runs the captured
-    function again, as a replay runs its kernels again."""
+    function again, as a replay runs its kernels again, and writes what it
+    returns into the capture's outputs (``out``), as a replay writes a
+    graph's outputs again."""
 
     captures = 0
 
     def __init__(self, fn, device, streams=1):
         type(self).captures += 1
         self.fn = fn
+        self.out = fn()
 
     def replay(self):
-        self.fn()
+        graphs.copy_outputs(self.out, self.fn())
 
 
 @pytest.fixture

@@ -89,8 +89,9 @@ class PlannedEagerly:
     """Stands in for ``graphs.capture`` on the CPU: the capture runs the
     function once and records its launches (taken back), as a capture
     records its kernels; each replay runs it again under a stream planner
-    without streams and adds the recorded launches, as a replay runs the
-    captured kernels.  ``planners`` keeps each replay's plan."""
+    without streams, writes what it returns into the capture's outputs
+    (``out``) and adds the recorded launches, as a replay runs the captured
+    kernels.  ``planners`` keeps each replay's plan."""
 
     captures = 0
     planners: list = []
@@ -98,12 +99,14 @@ class PlannedEagerly:
     def __init__(self, fn, device, streams=1):
         type(self).captures += 1
         self.fn, self.streams = fn, streams
-        self.launches = graphs.record_launches(fn)
+        out = []
+        self.launches = graphs.record_launches(lambda: out.append(fn()))
+        self.out = out[0]
 
     def replay(self):
         planner = graphs.StreamPlanner(self.streams)
         with graphs.uncounted(), planner:
-            self.fn()
+            graphs.copy_outputs(self.out, self.fn())
         type(self).planners.append(planner)
         graphs.count_launches(self.launches)
 

@@ -211,17 +211,19 @@ def test_views_and_in_place_writes_track_the_base():
 class PlannedEagerly:
     """Stands in for ``graphs.capture`` on the CPU: each replay runs the
     captured function again under a stream planner without streams (so
-    under its dispatch mode), as a replay runs the captured kernels."""
+    under its dispatch mode), as a replay runs the captured kernels, and
+    writes what it returns into the capture's outputs (``out``)."""
 
     captures = 0
 
     def __init__(self, fn, device, streams=1):
         type(self).captures += 1
         self.fn, self.streams = fn, streams
+        self.out = fn()
 
     def replay(self):
         with graphs.StreamPlanner(self.streams):
-            self.fn()
+            graphs.copy_outputs(self.out, self.fn())
 
 
 @pytest.mark.parametrize("impl", ["seq", "pscan"])
