@@ -3,8 +3,9 @@
     python3 chip_smoke.py
 
 Builds the CUDA kernels from cilqr_tpu_torch/csrc, holds each against its
-plain PyTorch version on the card, then drives the port's paths and checks
-that each went through its kernels:
+plain PyTorch version on the card (the LM loops' condition ``lm_continue``
+right after the build), then drives the port's paths and checks that each
+went through its kernels:
 
   phases 1-7   the batched solve ``run_steps_batched(impl="mega")`` at
                B=32768, N=50 on the example world (kernels K1 and K2), and
@@ -52,9 +53,14 @@ that each went through its kernels:
                headline alone, whose trace must name K1;
   phase 18     the plain LM loop as CUDA graphs (``solver.GRAPHS``):
                ``solver.run_step`` unbatched and at B=64, "seq" and "pscan",
-               graphed against eager bit for bit, a call on new egos
-               replaying without a capture; ms per solve both ways, ms and
-               device kernels per replay of the step graph;
+               on the device loop (``solver.DEVICE_LOOP``: one launch of a
+               loop graph, the condition on the card) against the
+               host-polled step replays and eager, bit for bit, a call on
+               new egos replaying without a capture, the unbatched solve
+               free of host reads up to the loop's one read of its steps;
+               ms per solve three ways, the worst case (every iteration)
+               graphed and host-polled, ms and device kernels per replay of
+               the step graph;
   phase 19     the JAX package's programs on the port
                (``cilqr_tpu_torch.scripts``), cut small: the wall-vs-car
                classification (K5, K4, K3), the NRB budget table and one
@@ -64,14 +70,16 @@ that each went through its kernels:
                so): the Monte-Carlo path at B=8192, the full stack at
                B=8192 x 5 cycles, the two-phase solve at B=4096 and
                ``compare --full-stack`` on `cilqr` and `ccnmpc` (B=10),
-               each graphed against ``solver.GRAPHS = False``: every
-               solve's X, U, J, lambda and iterations equal bit for bit,
-               the launch counts equal (a replay counts the K3 / K2 ops
-               its capture recorded); ms per call (seconds per command)
-               both ways, the device's idle share, the benchmark's slope
-               throughputs; per path one solve's step graph on 1 and 4
-               streams: ms and device kernels per replay, the plan, pool
-               bytes, capture seconds;
+               each on the device loop, host-polled and with
+               ``solver.GRAPHS = False``: every solve's X, U, J, lambda and
+               iterations equal bit for bit, the launch counts equal (a
+               replay counts the K3 / K2 ops its capture recorded), each
+               device loop's steps the largest iteration count; ms per call
+               (seconds per command) three ways, the device's idle share,
+               the benchmark's slope throughputs; per path one solve's step
+               graph on 1 and 4 streams: ms and device kernels per replay,
+               the plan, pool bytes, capture seconds, the loop graph's
+               nodes;
   phase 21     the K1 solve and the closed loops' stages as CUDA graphs
                (``solver.run`` / ``solver.solve``; every phase runs them
                so): the mega solve at B=1 and B=32768 (one graph: the plan
@@ -80,10 +88,11 @@ that each went through its kernels:
                path at B=8192 and the full stack at B=8192 x 5 cycles (the
                start graph holds the costmap build, K5 and K4, the noise
                and the hybrid loop's prologue), each graphed against
-               ``solver.GRAPHS = False``: outputs equal bit for bit, the
-               launch counts equal; ms per call both ways, the device's
-               idle share, device kernels per replay and pool bytes of
-               each graph.
+               ``solver.GRAPHS = False`` (Monte-Carlo and the full stack
+               host-polled too): outputs equal bit for bit, the launch
+               counts equal; ms per call each way, the device's idle
+               share, device kernels per replay and pool bytes of each
+               graph.
 
 Every phase prints a line (the profiles one per batch size); any failure
 raises, so the exit code is nonzero.  The last line is one JSON object:
@@ -196,14 +205,37 @@ def covered_us(spans) -> float:
     return covered
 
 
+@contextlib.contextmanager
+def host_polled():
+    """Inside: the graphed LM loops replay their step graphs from the host
+    (``solver.DEVICE_LOOP`` off).  ``torch.profiler`` does not see every
+    kernel that runs inside a loop graph's WHILE node (the Monte-Carlo
+    path's were all seen, the full stack's K3 not at all), so the profiles
+    by kernel name run the loops host-polled: the same kernels on the same
+    inputs."""
+    from cilqr_tpu_torch.models import solver
+
+    saved, solver.DEVICE_LOOP = solver.DEVICE_LOOP, False
+    try:
+        yield
+    finally:
+        solver.DEVICE_LOOP = saved
+
+
 def profile_line(fn, reps: int, kernels: dict, annotation: str | None = None) -> str:
     """Device time per call by kernel (``torch.profiler``) and the call's
-    time (CUDA events), both over the same reps calls after a warm-up call.
-    The device is busy while at least one kernel runs (a graph captured on
-    several streams overlaps them).  ``kernels`` maps a label to a
-    substring of a kernel's name; ``annotation`` names a ``record_function``
-    range whose kernels' device time is split out of the other kernels'
-    (a replayed graph runs no range: see ``profile_lines``)."""
+    time (CUDA events), both over the same reps calls after a warm-up call,
+    the LM loops ``host_polled``.  The device is busy while at least one
+    kernel runs (a graph captured on several streams overlaps them).
+    ``kernels`` maps a label to a substring of a kernel's name;
+    ``annotation`` names a ``record_function`` range whose kernels' device
+    time is split out of the other kernels' (a replayed graph runs no
+    range: see ``profile_lines``)."""
+    with host_polled():
+        return _profile_line(fn, reps, kernels, annotation)
+
+
+def _profile_line(fn, reps: int, kernels: dict, annotation: str | None) -> str:
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -252,7 +284,8 @@ def profile_line(fn, reps: int, kernels: dict, annotation: str | None = None) ->
 
 
 def profile_lines(fn, reps: int, kernels: dict, annotation: str | None = None) -> str:
-    """``profile_line`` of fn() as it runs, its LM loops graphed, and with
+    """``profile_line`` of fn() as it runs, its LM loops graphed (replayed
+    host-polled), and with
     ``annotation`` once more with ``solver.GRAPHS`` off: the kernels of a
     replayed graph run outside any profiler range, so the range's share is
     read off the eager loop."""
@@ -527,10 +560,13 @@ def exp_sweep_argv() -> list:
 
 
 EXP_LANE_CYCLES = 5    # cycles of (b) and (c) held to the loop on the plain versions
-# the sweep's `cilqr` is held on its first 2 cycles (the cold one and a warm
-# one): its float64 reference builds each costmap with the oracle
-# propagation over the sweep's widest window, ~15 s per cycle
-EXP_SWEEP_CILQR_HELD_CYCLES = 2
+# the sweep's `cilqr` and `frenet_propagation` are held on their first, cold
+# cycle (their warm cycles are held in compare's): their references
+# propagate each costmap over the sweep's widest window on the plain
+# versions (`cilqr`'s float64 oracle build ~15 s per cycle, K4's plain
+# version ~14 s)
+EXP_SWEEP_SLOW_HELD = ("cilqr", "frenet_propagation")
+EXP_SWEEP_SLOW_HELD_CYCLES = 1
 EXP_RUN_HELD_EVERY = 2  # every 2nd of `run`'s K1 calls held to its plain version
 EXP_PROFILE_CYCLES = 3
 # the kernels each algorithm's planner launches (K4 and K5 come with the
@@ -1011,8 +1047,8 @@ def experiment_layer(card: str, counts, dev: torch.device) -> tuple:
         block = runner.noise_block((cycles, runs_, 3), seed=0, device=dev)
         x0s = x0.expand(runs_, 4).contiguous()
         for algo in algos_:
-            held = (EXP_SWEEP_CILQR_HELD_CYCLES if loop is sweep_loop and algo == "cilqr"
-                    else EXP_LANE_CYCLES)
+            slow = loop is sweep_loop and algo in EXP_SWEEP_SLOW_HELD
+            held = EXP_SWEEP_SLOW_HELD_CYCLES if slow else EXP_LANE_CYCLES
             draws = block[:held]
             head = (f"[15 lanes] {label} (gauntlet) {algo}, {runs_} lanes, first {held} cycles "
                     "vs the loop on the plain versions")
@@ -1589,6 +1625,122 @@ def benchmark_phase(card: str, counts, dev: torch.device, main_mean_it: float) -
     return {section: l for section, (_, l) in sections.items()}, line
 
 
+# The graphed LM loops three ways (phases 18, 20, 21): on the device loop
+# (one launch of the loop graph: the condition evaluated on the card), as
+# host-polled step replays (the done mask read after each), and eagerly
+LOOP_MODES = {"graphed": (True, True), "host-polled": (True, False), "eager": (False, True)}
+
+
+@contextlib.contextmanager
+def loop_mode(mode: str):
+    """Inside: ``solver.GRAPHS`` and ``solver.DEVICE_LOOP`` as ``mode`` of
+    LOOP_MODES says."""
+    from cilqr_tpu_torch.models import solver
+
+    saved = solver.GRAPHS, solver.DEVICE_LOOP
+    solver.GRAPHS, solver.DEVICE_LOOP = LOOP_MODES[mode]
+    try:
+        yield
+    finally:
+        solver.GRAPHS, solver.DEVICE_LOOP = saved
+
+
+@contextlib.contextmanager
+def no_host_sync(held: list):
+    """Inside: ``torch.cuda.set_sync_debug_mode("error")`` (a host read of
+    a card tensor raises) and every ``graphs.Loop.count`` held back into
+    ``held``: the device loops' one read, made afterwards by the caller."""
+    from cilqr_tpu_torch.utils import graphs
+
+    count = graphs.Loop.count
+    graphs.Loop.count = lambda loop: held.append(loop)
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        yield held
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+        graphs.Loop.count = count
+
+
+def loops_host_free(label: str) -> int:
+    """Each captured LM loop of ``solver.CAPTURED`` (its inputs as the last
+    call left them): the start replay and the loop launch under
+    ``no_host_sync``, then the one read; each loop's steps must equal the
+    largest iteration count its start state's solve reaches.  Returns the
+    loops checked."""
+    from cilqr_tpu_torch.models import solver
+
+    entries = [g for g in solver.CAPTURED.values() if g.loop is not None]
+    require(entries, f"{label}: no device loop captured")
+    for g in entries:
+        with no_host_sync([]):
+            g.graphs[0].replay()
+            g.loop.launch()
+        require(g.loop.count() == int(g.out[0][4].max()),
+                f"{label}: the loop's steps differ from the largest iteration count")
+    return len(entries)
+
+
+def loop_stats_line(entries) -> str:
+    """Nodes and build seconds of the loop graphs of some captures."""
+    stats = [g.loop.stats for g in entries if g.loop is not None]
+    return ", ".join(f"{st.nodes} nodes built in {st.build_s:.3f} s (instantiate "
+                     f"{st.instantiate_s:.3f} s)" for st in stats) or "none"
+
+
+# The LM loop's condition on the card (ops/loop_cuda.py, csrc/loop.cu): the
+# cases of its plain version's test at the loops' batch sizes
+COND_BATCHES = (1, 7, 64, 1025, 4096, 8192, 32768)
+COND_REPS = 200
+
+
+def condition_kernel(card: str, dev: torch.device) -> dict:
+    """``lm_continue_kernel`` against its plain version: every lane count of
+    COND_BATCHES with every lane stopped, none, or all but one, at steps 0,
+    max_iterations - 1 and max_iterations: v and the advanced steps equal
+    exactly, one launch counted per call.  Times the wrapper and the plain
+    version (CUDA events) at B=MC_B (the hybrid loop's lanes); the bound:
+    the mask read once and the count read and written, B operations.
+    Returns the kernel's entry of the ``kernels`` line."""
+    from cilqr_tpu_torch import SolverParams
+    from cilqr_tpu_torch.ops import loop_cuda
+
+    M = SolverParams().max_iterations
+    cases = 0
+    for B in COND_BATCHES:
+        for kind in ("all", "none", "one"):
+            done = torch.full((B,), kind != "none", dtype=torch.bool, device=dev)
+            if kind == "one":
+                done[B // 2] = False
+            for s in (0, M - 1, M):
+                steps = torch.tensor([s], dtype=torch.int32, device=dev)
+                plain_steps = steps.clone()
+                before = loop_cuda.LAUNCHES
+                v = loop_cuda.lm_continue(done, steps, M)
+                want = loop_cuda.lm_continue_plain(done, plain_steps, M)
+                torch.cuda.synchronize()
+                require(loop_cuda.LAUNCHES == before + 1, "lm_continue launch counter did not move")
+                require(torch.equal(v, want) and torch.equal(steps, plain_steps),
+                        f"lm_continue B={B} {kind} steps={s}: kernel {int(v)}, {int(steps)}; "
+                        f"plain {int(want)}, {int(plain_steps)}")
+                cases += 1
+    done = torch.zeros(MC_B, dtype=torch.bool, device=dev)
+    steps = torch.zeros(1, dtype=torch.int32, device=dev)
+    ms = cuda_ms(lambda: loop_cuda.lm_continue(done, steps, M), COND_REPS)
+    plain_ms = cuda_ms(lambda: loop_cuda.lm_continue_plain(done, steps, M), COND_REPS)
+    b = bound(nbytes(done) + 2 * nbytes(steps), float(done.numel()))
+    print(f"[2 lm_continue] the LM loop's condition: {cases} cases (B in {list(COND_BATCHES)}; "
+          f"all, none, all but one lane stopped; steps 0, {M - 1}, {M}) equal to the plain "
+          f"version exactly | B={MC_B}: wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
+          f"{b['bound_ms']:.6f} ms by {b['bound_by']} (CUDA events, {COND_REPS} calls) on {card}",
+          flush=True)
+    return dict(name="lm_continue", route="cuda", source="cilqr_tpu_torch/csrc/loop.cu",
+                replaces="none: the cond of jax.lax.while_loop (cilqr_tpu/models/solver.py:167, "
+                         "cilqr_tpu/models/solver_batched.py:75), which XLA evaluates on the chip",
+                max_abs_err=0.0, ms=ms, plain_ms=plain_ms, **b, library_ms=NO_LIBRARY_CALL,
+                launches=0, cases=cases, timed=f"B={MC_B}")
+
+
 # Phase 18, the plain LM loop as CUDA graphs (models/solver.py, GRAPHS)
 GRAPH_BATCHES = (1, 64)   # the unbatched solve the benchmark times, and a batch
 GRAPH_CALLS = 6           # graphed calls on new egos after the capture
@@ -1619,14 +1771,19 @@ def graph_phase(card: str, counts, dev: torch.device) -> dict:
     benchmark's single solve times) and at B=64, on the example world with
     its obstacles and uncertainty map, the graphs captured on
     ``solver.STREAMS`` streams and on one: every field of every graphed
-    solve equal to the eager solve bit for bit; a call on new egos replays
-    the captured graphs (no capture); no kernel of the port launched.
-    Prints ms per solve graphed and eager; per capture (1 and
-    ``solver.STREAMS`` streams) ms per replay of the step graph (in turns),
-    device kernels per replay, the plan's longest chain and the bytes its
-    pool took; kernels per eager step, LM iterations; then the worst case,
-    B=1 "seq" with every lane running all ``max_iterations``.  Returns the
-    numbers by (impl, B)."""
+    solve (on the device loop, ``solver.DEVICE_LOOP``) equal to the
+    host-polled replay's and to the eager solve's bit for bit, the loop's
+    steps equal to the largest iteration count; a call on new egos replays
+    the captured graphs (no capture); no kernel of the port launched; the
+    unbatched "seq" solve, up to the loop's one read of its steps, reads
+    nothing on the host (``no_host_sync``).  Prints ms per solve graphed,
+    host-polled and eager, the loop graph's nodes and build seconds; per
+    capture (1 and ``solver.STREAMS`` streams) ms per replay of the step
+    graph (in turns), device kernels per replay, the plan's longest chain
+    and the bytes its pool took; kernels per eager step, LM iterations;
+    then the worst case, B=1 "seq" with every lane running all
+    ``max_iterations``, graphed and host-polled.  Returns the numbers by
+    (impl, B)."""
     from cilqr_tpu_torch import SolverParams
     from cilqr_tpu_torch.models import solver
     from cilqr_tpu_torch.models.reference_path import get_local_plan
@@ -1646,13 +1803,18 @@ def graph_phase(card: str, counts, dev: torch.device) -> dict:
                          dtype=torch.float32, device=dev)
         return (e[0], U0) if B == 1 else (e, U0.expand(B, HORIZON, 2).contiguous())
 
-    def wall_ms(solve, graphed: bool, e, u) -> tuple:
-        solver.GRAPHS = graphed
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        r = solve(e, u)
-        torch.cuda.synchronize()
+    def wall_ms(solve, mode: str, e, u) -> tuple:
+        with loop_mode(mode):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r = solve(e, u)
+            torch.cuda.synchronize()
         return (time.perf_counter() - t0) * 1e3, r
+
+    def steps_of(key, r) -> None:
+        loop = solver.CAPTURED[key].loop
+        require(int(loop.steps) == int(r.iterations.max()),
+                f"the device loop ran {int(loop.steps)} steps, iterations {r.iterations.max()}")
 
     try:
         for impl in ("seq", "pscan"):
@@ -1662,37 +1824,57 @@ def graph_phase(card: str, counts, dev: torch.device) -> dict:
                 e, u = inputs(B)
                 known = set(solver.CAPTURED)
                 zero_counts()
-                capture_ms, r_g = wall_ms(solve, True, e, u)
+                capture_ms, r_g = wall_ms(solve, "graphed", e, u)
                 launches = read_counts()
                 new_keys = [k for k in solver.CAPTURED if k not in known]
                 require(len(new_keys) == 1, f"{impl} B={B}: {len(new_keys)} captures")
                 require(not any(launches.values()),
                         f"{impl} B={B}: the plain solve launched {launches}")
-                _, r_e = wall_ms(solve, False, e, u)
+                steps_of(new_keys[0], r_g)
+                _, r_e = wall_ms(solve, "eager", e, u)
                 require(same_bits(r_g, r_e), f"{impl} B={B}: graphed != eager at the capture")
-                graphed, eager, its = [], [], []
+                _, r_h = wall_ms(solve, "host-polled", e, u)
+                require(same_bits(r_h, r_e), f"{impl} B={B}: host-polled != eager at the capture")
+                loop_line = loop_stats_line([solver.CAPTURED[new_keys[0]]])
+                graphed, host, eager, its = [], [], [], []
                 for i in range(GRAPH_CALLS):
                     e, u = inputs(B)
                     held = dict(solver.CAPTURED)
-                    ms, r_g = wall_ms(solve, True, e, u)
+                    ms, r_g = wall_ms(solve, "graphed", e, u)
+                    steps_of(new_keys[0], r_g)
+                    graphed.append(ms)
+                    ms, r_h = wall_ms(solve, "host-polled", e, u)
+                    require(same_bits(r_g, r_h), f"{impl} B={B}: graphed != host-polled, call {i}")
+                    host.append(ms)
                     require(held.keys() == solver.CAPTURED.keys() and all(
                         solver.CAPTURED[k] is g for k, g in held.items()),
                         f"{impl} B={B}: a call on new egos captured again")
-                    graphed.append(ms)
                     its.append(float(r_g.iterations.float().mean()))
                     if i < GRAPH_EAGER_CALLS:
-                        ms, r_e = wall_ms(solve, False, e, u)
+                        ms, r_e = wall_ms(solve, "eager", e, u)
                         require(same_bits(r_g, r_e), f"{impl} B={B}: graphed != eager, call {i}")
                         eager.append(ms)
-                solver.GRAPHS = True
+                host_free = ""
+                if impl == "seq" and B == 1:
+                    e, u = inputs(B)
+                    held_loops: list = []
+                    with no_host_sync(held_loops):
+                        r_g = solve(e, u)
+                    (loop,) = held_loops
+                    require(loop.count() == int(r_g.iterations),
+                            "the held-back read differs from the iterations")
+                    _, r_e = wall_ms(solve, "eager", e, u)
+                    require(same_bits(r_g, r_e), "the solve under no_host_sync != eager")
+                    host_free = (" | the whole solve up to the loop's one read of its steps ran "
+                                 "under torch.cuda.set_sync_debug_mode('error'): no host read")
                 # the same solve captured on one stream, then both step graphs in turns
                 solver.STREAMS, known = 1, set(solver.CAPTURED)
-                _, r_1 = wall_ms(solve, True, e, u)
+                _, r_1 = wall_ms(solve, "graphed", e, u)
                 keys_1 = [k for k in solver.CAPTURED if k not in known]
                 require(len(keys_1) == 1, f"{impl} B={B}: {len(keys_1)} captures on one stream")
-                _, r_e = wall_ms(solve, False, e, u)
+                _, r_e = wall_ms(solve, "eager", e, u)
                 require(same_bits(r_1, r_e), f"{impl} B={B}: one-stream graph != eager")
-                solver.GRAPHS, solver.STREAMS = True, streams
+                solver.STREAMS = streams
                 steps = {1: solver.CAPTURED[keys_1[0]].graphs[1],
                          streams: solver.CAPTURED[new_keys[0]].graphs[1]}
                 turns = {1: [], streams: []}
@@ -1716,19 +1898,24 @@ def graph_phase(card: str, counts, dev: torch.device) -> dict:
                 step_kernels, step_busy = device_kernels(
                     lambda: solver.lm_step(p, step, lamb_inv, *state))
                 row = dict(capture_ms=capture_ms, graphed_ms=statistics.median(graphed),
-                           graphed_max_ms=max(graphed), eager_ms=statistics.median(eager),
+                           graphed_max_ms=max(graphed), host_ms=statistics.median(host),
+                           host_max_ms=max(host), eager_ms=statistics.median(eager),
                            replay_ms=replay_ms, replay_kernels=replay_kernels,
                            replay_busy_ms=replay_busy, step_kernels=step_kernels,
                            step_busy_ms=step_busy, iterations=statistics.mean(its),
                            streams=per)
                 out[(impl, B)] = row
                 print(f"[18 graph {impl} B={B}] N={HORIZON}, solver.run_step, obstacles + map: "
-                      f"graphed = eager bit for bit on {1 + GRAPH_EAGER_CALLS} ego draws, "
-                      f"{GRAPH_CALLS} calls on new egos replayed (no capture), launches "
-                      f"{launches} | per solve (host clock, synchronised): graphed median "
-                      f"{row['graphed_ms']:.3f} ms (max {row['graphed_max_ms']:.3f}, first "
-                      f"call with the capture {capture_ms:.3f}), eager median {row['eager_ms']:.3f}"
-                      f" ms | step graph: {replay_ms:.4f} ms per replay (CUDA events, "
+                      f"graphed (device loop) = host-polled = eager bit for bit on "
+                      f"{1 + GRAPH_EAGER_CALLS} ego draws, graphed = host-polled on "
+                      f"{1 + GRAPH_CALLS}, the loop's steps = the largest iteration count on "
+                      f"every call, {GRAPH_CALLS} calls on new egos replayed (no capture), "
+                      f"launches {launches}{host_free} | per solve (host clock, synchronised): "
+                      f"graphed median {row['graphed_ms']:.3f} ms (max "
+                      f"{row['graphed_max_ms']:.3f}, first call with the capture "
+                      f"{capture_ms:.3f}), host-polled median {row['host_ms']:.3f} ms (max "
+                      f"{row['host_max_ms']:.3f}), eager median {row['eager_ms']:.3f} ms | loop "
+                      f"graph: {loop_line} | step graph: {replay_ms:.4f} ms per replay (CUDA events, "
                       f"{GRAPH_REPLAYS} replays), {replay_kernels} device kernels per replay "
                       f"({replay_busy:.4f} ms busy); eager lm_step {step_kernels} kernels "
                       f"({step_busy:.4f} ms busy) | mean LM iterations {row['iterations']:.2f} "
@@ -1754,9 +1941,10 @@ def worst_case_solve(card: str, p0, plan, n, obstacles, unc, inputs) -> dict:
     """18, the worst case of the single solve: B=1 "seq" on the example
     world with ``tolerance=0`` and ``lamb_max`` out of reach, so that every
     solve runs all ``max_iterations``; on ``solver.STREAMS`` streams and on
-    one, graphed equal to eager bit for bit; ms per solve (host clock,
-    synchronised, median and max of GRAPH_CALLS calls on new egos after
-    the capturing call)."""
+    one, on the device loop and host-polled, each equal to eager bit for
+    bit; ms per solve (host clock, synchronised, median and max of
+    GRAPH_CALLS calls on new egos after the capturing call), the two ways
+    in turns call by call."""
     from cilqr_tpu_torch.models import solver
 
     p = dataclasses.replace(p0, tolerance=0.0, lamb_max=1e30)
@@ -1765,27 +1953,34 @@ def worst_case_solve(card: str, p0, plan, n, obstacles, unc, inputs) -> dict:
     try:
         for k in (streams, 1):
             solver.STREAMS = k
-            ms = []
+            ms = {mode: [] for mode in ("graphed", "host-polled")}
             for i in range(GRAPH_CALLS + 1):
                 e, u = inputs(1)
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                r = solver.run_step(p, plan, n, e, u, obstacles, unc)
-                torch.cuda.synchronize()
-                ms.append((time.perf_counter() - t0) * 1e3)
-                require(int(r.iterations) == p.max_iterations,
-                        f"worst case: {int(r.iterations)} LM iterations")
-            solver.GRAPHS = False
-            require(same_bits(r, solver.run_step(p, plan, n, e, u, obstacles, unc)),
-                    f"worst case on {k} stream(s): graphed != eager")
-            solver.GRAPHS = True
-            res[k] = dict(median_ms=statistics.median(ms[1:]), max_ms=max(ms[1:]),
-                          capture_ms=ms[0])
+                for mode in (("graphed", "host-polled") if i % 2 else ("host-polled", "graphed")):
+                    with loop_mode(mode):
+                        torch.cuda.synchronize()
+                        t0 = time.perf_counter()
+                        r = solver.run_step(p, plan, n, e, u, obstacles, unc)
+                        torch.cuda.synchronize()
+                    ms[mode].append((time.perf_counter() - t0) * 1e3)
+                    require(int(r.iterations) == p.max_iterations,
+                            f"worst case: {int(r.iterations)} LM iterations")
+                    if i in (0, GRAPH_CALLS):
+                        with loop_mode("eager"):
+                            want = solver.run_step(p, plan, n, e, u, obstacles, unc)
+                        require(same_bits(r, want), f"worst case on {k} stream(s): {mode} != eager")
+            for mode, v in ms.items():
+                res[(k, mode)] = dict(median_ms=statistics.median(v[1:]), max_ms=max(v[1:]),
+                                      capture_ms=v[0])
+            g, h = res[(k, "graphed")], res[(k, "host-polled")]
             print(f"[18 worst case] seq B=1, {p.max_iterations} LM iterations per solve, {k} "
-                  f"stream(s): median {res[k]['median_ms']:.3f} ms, max {res[k]['max_ms']:.3f} ms "
-                  f"over {GRAPH_CALLS} calls on new egos (first call with the capture "
-                  f"{ms[0]:.3f} ms), graphed = eager bit for bit, budget 100 ms on {card}",
-                  flush=True)
+                  f"stream(s), over {GRAPH_CALLS} calls on new egos in turns (host clock, "
+                  f"synchronised): graphed (device loop) median {g['median_ms']:.3f} ms, max "
+                  f"{g['max_ms']:.3f} ms (first call with the capture {g['capture_ms']:.3f}); "
+                  f"host-polled median {h['median_ms']:.3f} ms, max {h['max_ms']:.3f} ms (first "
+                  f"{h['capture_ms']:.3f}); both = eager bit for bit | the 100 ms budget: "
+                  f"graphed max {'under' if g['max_ms'] < 100.0 else 'OVER'}, host-polled max "
+                  f"{'under' if h['max_ms'] < 100.0 else 'OVER'} on {card}", flush=True)
     finally:
         solver.GRAPHS, solver.STREAMS = True, streams
     return res
@@ -1868,6 +2063,7 @@ def scripts_phase(card: str, counts, dev: torch.device) -> dict:
 LOOP_CALLS = 3            # timed calls per path, graphed and eager (host clock, synchronised)
 LOOP_REPLAYS = 20         # step replays timed per capture, in turns on 1, 4, 4, 1 streams
 LOOP_COMPARE_ALGOS = ("cilqr", "ccnmpc")  # compare's planners on these loops (K3, K2)
+LOOP_COMPARE_CYCLES = 40  # of phase 15's 120, for the script's time: three runs of it here
 LOOP_IDLE_CYCLES = 3      # compare's cycles under the profiler, for the idle share
 
 
@@ -1883,9 +2079,10 @@ def tree_equal(a, b) -> bool:
 
 def idle_share(fn) -> tuple:
     """(the device's idle share of one fn() call, its device kernels and
-    copies) by ``torch.profiler`` after a warm-up call: one less the time
-    at least one device event runs (the events of several streams overlap)
-    over the call's time (CUDA events, under the profiler)."""
+    copies, the ms some device event runs, the call's ms) by
+    ``torch.profiler`` after a warm-up call: one less the time at least one
+    device event runs (the events of several streams overlap) over the
+    call's time (CUDA events, under the profiler)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1899,7 +2096,8 @@ def idle_share(fn) -> tuple:
         torch.cuda.synchronize()
     spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
              if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
-    return 1.0 - covered_us(spans) / (start.elapsed_time(end) * 1e3), len(spans)
+    busy_ms, call_ms = covered_us(spans) / 1e3, start.elapsed_time(end)
+    return 1.0 - busy_ms / call_ms, len(spans), busy_ms, call_ms
 
 
 @contextlib.contextmanager
@@ -1979,7 +2177,8 @@ def stream_study(label: str, call, card: str) -> dict:
             require(tree_equal(got, want), f"{label}: graphed on {k} stream(s) != eager")
             start, step = solver.CAPTURED[new[0]].graphs
             per[k] = dict(start=start, step=step, pool_bytes=start.pool_bytes + step.pool_bytes,
-                          capture_s=secs[0], turns=[])
+                          capture_s=secs[0], turns=[],
+                          loop=loop_stats_line([solver.CAPTURED[new[0]]]))
     finally:
         solver.GRAPHS, solver.STREAMS = True, S
     for k in (1, S, S, 1):
@@ -2000,7 +2199,9 @@ def stream_study(label: str, call, card: str) -> dict:
           f"{st.ops} ops (data's {st.dag_chain}), {st.waits} cross-stream waits | pool bytes "
           f"(start + step) 1 stream {per[1]['pool_bytes']}, {S} streams {per[S]['pool_bytes']} | "
           f"capture s 1 stream {per[1]['capture_s']:.3f}, {S} streams {per[S]['capture_s']:.3f} "
-          f"| graphed = eager bit for bit on both on {card}", flush=True)
+          f"(the loop graph's build included) | loop graph 1 stream: {per[1]['loop']}; {S} "
+          f"streams: {per[S]['loop']} | graphed = eager bit for bit on both on {card}",
+          flush=True)
     return dict(B=B, kernels_per_replay=per[S]["kernels"], kernels_per_replay_1=per[1]["kernels"],
                 start_kernels_per_replay=start_kernels,
                 replay_ms={k: v["replay_ms"] for k, v in per.items()}, ops=st.ops,
@@ -2011,40 +2212,58 @@ def stream_study(label: str, call, card: str) -> dict:
 
 def loop_path(label: str, run, counts, card: str, kind: str, slope=None) -> dict:
     """A path whose LM loop is ``kind`` ("hybrid" or "two_phase"), run()
-    once as a user calls it, graphed (``solver.GRAPHS``) against eager: its
-    outputs and every LM solve's (``solver.solve``: X, U, iterations, J,
-    lamb) equal bit for bit, the launch counts equal (a replay counts its
-    kernels), the graphed run's loops captured as ``kind``; ms per call both
-    ways (the median of LOOP_CALLS calls after the first), the device's idle
-    share both ways, with ``slope`` = (call, make_input, items, g2) the
-    benchmark's slope throughput both ways; then ``stream_study`` on the
-    first solve.  Returns the numbers."""
+    once as a user calls it in each mode of LOOP_MODES (graphed on the
+    device loop, host-polled, eager): its outputs and every LM solve's
+    (``solver.solve``: X, U, iterations, J, lamb) equal bit for bit, the
+    launch counts equal (a replay counts its kernels), the graphed run's
+    loops captured as ``kind``, each device loop's steps equal to its
+    solve's largest iteration count and the condition run steps + 1 times
+    per solve; ms per call each way (the median of LOOP_CALLS calls after
+    the first), the device's idle share each way (for the device loop also
+    from the host-polled run's busy time: the same kernels, which the
+    profiler sees whole), with ``slope`` = (call, make_input, items, g2)
+    the benchmark's slope throughput graphed and eager; the graphed loops'
+    start replays and launches under ``no_host_sync``; then
+    ``stream_study`` on the first solve.  Returns the numbers."""
     from cilqr_tpu_torch import benchmark
-    from cilqr_tpu_torch.models import solver, solver_batched
+    from cilqr_tpu_torch.models import solver
+    from cilqr_tpu_torch.ops import loop_cuda
+    from cilqr_tpu_torch.utils import graphs
 
     zero_counts, read_counts = counts
     out, firsts, launches, ms, idle, rate = {}, {}, {}, {}, {}, {}
-    calls = []
-    try:
-        for graphed in (True, False):
-            solver.GRAPHS = graphed
+    calls, cond_runs, loop_line, host_free = [], 0, "", 0
+    for mode in LOOP_MODES:
+        with loop_mode(mode):
             solver.CAPTURED.clear()
-            solves = []
+            solves, steps = [], []
             zero_counts()
+            cond0 = loop_cuda.LAUNCHES
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            with recording(solver, "solve", solves, keep=lambda res, a, k: (a, k, solved(res))):
+            with recording(solver, "solve", solves, keep=lambda res, a, k: (a, k, solved(res))), \
+                    recording(graphs.Loop, "count", steps):
                 res = run()
                 torch.cuda.synchronize()
-            firsts[graphed] = (time.perf_counter() - t0) * 1e3
-            launches[graphed] = read_counts()
-            out[graphed] = (res, [r for _, _, r in solves])
-            if graphed:
+            firsts[mode] = (time.perf_counter() - t0) * 1e3
+            launches[mode] = read_counts()
+            out[mode] = (res, [r for _, _, r in solves])
+            its_max = [int(r[2].max()) for _, _, r in solves]
+            if mode == "graphed":
                 calls = [(solver.solve, a, k) for a, k, _ in solves]
                 require(loop_kinds() == {kind}, f"{label}: graphed loops {loop_kinds()}, "
                         f"expected {kind}")
+                require(steps == its_max, f"{label}: device loops' steps {steps}, largest "
+                        f"iteration counts {its_max}")
+                cond_runs = loop_cuda.LAUNCHES - cond0
+                require(cond_runs == sum(its_max) + len(its_max),
+                        f"{label}: the condition ran {cond_runs} times for {len(its_max)} solves "
+                        f"of {sum(its_max)} steps")
+                loop_line = loop_stats_line(solver.CAPTURED.values())
             else:
-                require(not solver.CAPTURED, f"{label}: the eager run captured a graph")
+                require(not steps, f"{label}: {mode} ran a device loop")
+                if mode == "eager":
+                    require(not solver.CAPTURED, f"{label}: the eager run captured a graph")
             times = []
             for _ in range(LOOP_CALLS):
                 torch.cuda.synchronize()
@@ -2052,41 +2271,51 @@ def loop_path(label: str, run, counts, card: str, kind: str, slope=None) -> dict
                 run()
                 torch.cuda.synchronize()
                 times.append((time.perf_counter() - t0) * 1e3)
-            ms[graphed] = statistics.median(times)
-            idle[graphed] = idle_share(run)
-            if slope is not None:
-                rate[graphed] = benchmark.slope_throughput(*slope[:3], g2=slope[3])[0]
-    finally:
-        solver.GRAPHS = True
-    require(tree_equal(out[True], out[False]),
-            f"{label}: the graphed path's results differ from the eager path's")
-    require(launches[True] == launches[False],
-            f"{label}: launches graphed {launches[True]}, eager {launches[False]}")
-    its = torch.cat([r[2].reshape(-1).float() for r in out[True][1]])
-    print(f"[20 loops {label}] {len(out[True][1])} {kind} solves, graphed = eager bit for bit "
-          f"(X, U, iterations, J, lambda of every lane, and the path's outputs) | launches "
-          f"{launches[True]} both ways | ms per call (host clock, synchronised, median of "
-          f"{LOOP_CALLS}): graphed {ms[True]:.3f} (first call, with the captures, "
-          f"{firsts[True]:.3f}), eager {ms[False]:.3f} | device idle share graphed "
-          f"{100 * idle[True][0]:.1f}% ({idle[True][1]} device events), eager "
-          f"{100 * idle[False][0]:.1f}% ({idle[False][1]})"
-          + (f" | slope throughput (the benchmark's method) graphed {rate[True]:.1f}, eager "
-             f"{rate[False]:.1f} per s" if slope else "")
+            ms[mode] = statistics.median(times)
+            idle[mode] = idle_share(run)
+            if slope is not None and mode != "host-polled":
+                rate[mode] = benchmark.slope_throughput(*slope[:3], g2=slope[3])[0]
+            if mode == "graphed":
+                host_free = loops_host_free(label)
+    for mode in ("graphed", "host-polled"):
+        require(tree_equal(out[mode], out["eager"]),
+                f"{label}: the {mode} path's results differ from the eager path's")
+        require(launches[mode] == launches["eager"],
+                f"{label}: launches {mode} {launches[mode]}, eager {launches['eager']}")
+    # the device loop's busy time from the host-polled run's (the same kernels)
+    idle_from_host = 1.0 - idle["host-polled"][2] / idle["graphed"][3]
+    its = torch.cat([r[2].reshape(-1).float() for r in out["graphed"][1]])
+    print(f"[20 loops {label}] {len(out['graphed'][1])} {kind} solves, graphed (device loop) = "
+          f"host-polled = eager bit for bit (X, U, iterations, J, lambda of every lane, and the "
+          f"path's outputs) | launches {launches['graphed']} all three ways; the condition ran "
+          f"{cond_runs} times (steps + 1 per solve, steps = the largest iteration count) | "
+          f"{host_free} loops' start replay + loop launch under set_sync_debug_mode('error'): no "
+          f"host read | loop graphs: {loop_line} | ms per call (host clock, synchronised, median "
+          f"of {LOOP_CALLS}): graphed {ms['graphed']:.3f} (first call, with the captures, "
+          f"{firsts['graphed']:.3f}), host-polled {ms['host-polled']:.3f} (first "
+          f"{firsts['host-polled']:.3f}), eager {ms['eager']:.3f} | device idle share (profiler) "
+          + ", ".join(f"{m} {100 * v[0]:.1f}% ({v[1]} device events, {v[2]:.3f} of {v[3]:.3f} ms "
+                      f"busy)" for m, v in idle.items())
+          + f"; graphed from the host-polled busy time {100 * idle_from_host:.1f}%"
+          + (f" | slope throughput (the benchmark's method) graphed {rate['graphed']:.1f}, eager "
+             f"{rate['eager']:.1f} per s" if slope else "")
           + f" | mean LM iterations {float(its.mean()):.2f} on {card}", flush=True)
     study = stream_study(label, calls[0], card)
-    return dict(graphed_ms=ms[True], first_ms=firsts[True], eager_ms=ms[False],
-                idle={True: idle[True][0], False: idle[False][0]}, rate=rate,
-                launches=launches[True], mean_iterations=float(its.mean()), streams=study)
+    return dict(graphed_ms=ms["graphed"], first_ms=firsts["graphed"], host_ms=ms["host-polled"],
+                eager_ms=ms["eager"], idle={m: v[0] for m, v in idle.items()},
+                idle_from_host=idle_from_host, rate=rate, launches=launches["graphed"],
+                condition_runs=cond_runs, mean_iterations=float(its.mean()), streams=study)
 
 
 def compare_loops(card: str, counts, dev: torch.device) -> dict:
     """`compare --full-stack` on its two scenarios at phase 15's runs and
-    cycles, on the algorithms whose planners run these loops (`cilqr`: the
-    hybrid loop, K3; `ccnmpc`: two two-phase solves per cycle, K2), graphed
-    against eager: every planner step's (X, U, iterations, J, lamb) equal
-    bit for bit, the launches equal, the command's and each algorithm's
-    seconds both ways; the idle share over LOOP_IDLE_CYCLES cycles both
-    ways; ``stream_study`` on each algorithm's first solve."""
+    LOOP_COMPARE_CYCLES cycles, on the algorithms whose planners run these
+    loops (`cilqr`: the hybrid loop, K3; `ccnmpc`: two two-phase solves per
+    cycle, K2), in each mode of LOOP_MODES: every planner step's (X, U,
+    iterations, J, lamb) equal bit for bit, the launches equal, the
+    command's and each algorithm's seconds each way; the idle share over
+    LOOP_IDLE_CYCLES cycles each way; ``stream_study`` on each algorithm's
+    first solve."""
     from cilqr_tpu_torch.models import solver, solver_batched
     from cilqr_tpu_torch.sim import runner
 
@@ -2094,10 +2323,9 @@ def compare_loops(card: str, counts, dev: torch.device) -> dict:
     argv = ["compare", "--full-stack", "--scenarios", ",".join(EXP_SCENARIOS), "--runs",
             str(EXP_COMPARE_RUNS), "--algorithms", ",".join(LOOP_COMPARE_ALGOS)]
     steps, secs, launches, per_algo, idle, first = {}, {}, {}, {}, {}, {}
-    try:
-        with tempfile.TemporaryDirectory(prefix="cilqr_loops_") as tmp:
-            for graphed in (True, False):
-                solver.GRAPHS = graphed
+    with tempfile.TemporaryDirectory(prefix="cilqr_loops_") as tmp:
+        for mode in LOOP_MODES:
+            with loop_mode(mode):
                 solver.CAPTURED.clear()
                 rec, calls, solves = [], [], []
                 zero_counts()
@@ -2106,39 +2334,41 @@ def compare_loops(card: str, counts, dev: torch.device) -> dict:
                         lambda args, kw: (kw["algorithm"],)), recording(
                         solver_batched, "run_steps_batched", solves,
                         keep=lambda res, a, k: (a, k)):
-                    secs[graphed], _ = cli_call(argv + ["--cycles", str(EXP_COMPARE_CYCLES)], dev,
-                                                pathlib.Path(tmp) / str(graphed))
-                launches[graphed] = read_counts()
-                steps[graphed] = rec
-                per_algo[graphed] = {a: s for a, (s, _) in by_algorithm(
+                    secs[mode], _ = cli_call(argv + ["--cycles", str(LOOP_COMPARE_CYCLES)], dev,
+                                             pathlib.Path(tmp) / mode)
+                launches[mode] = read_counts()
+                steps[mode] = rec
+                per_algo[mode] = {a: s for a, (s, _) in by_algorithm(
                     calls, LOOP_COMPARE_ALGOS).items()}
-                if graphed:
+                if mode == "graphed":
                     require(loop_kinds() == {"hybrid", "two_phase"},
                             f"compare: graphed loops {loop_kinds()}")
                     two_phase = lambda a: a[5] is not None and a[5].pos.ndim == 4
                     first = {"ccnmpc": next(c for c in solves if two_phase(c[0])),
                              "cilqr": next(c for c in solves if c[0][6] is not None)}
-                idle[graphed] = idle_share(lambda: cli_call(
+                idle[mode] = idle_share(lambda: cli_call(
                     argv + ["--cycles", str(LOOP_IDLE_CYCLES)], dev,
-                    pathlib.Path(tmp) / f"idle{graphed}"))
-    finally:
-        solver.GRAPHS = True
-    require(len(steps[True]) == len(steps[False]) and tree_equal(steps[True], steps[False]),
-            "compare: a graphed planner step differs from the eager one")
-    require(launches[True] == launches[False],
-            f"compare: launches graphed {launches[True]}, eager {launches[False]}")
-    print(f"[20 loops compare] `{' '.join(argv)} --cycles {EXP_COMPARE_CYCLES}`: "
-          f"{len(steps[True])} planner steps, graphed = eager bit for bit (X, U, iterations, J, "
-          f"lambda of every lane) | launches {launches[True]} both ways | command s graphed "
-          f"{secs[True]:.3f}, eager {secs[False]:.3f} | "
-          + ", ".join(f"{a} s graphed {per_algo[True][a]:.3f}, eager {per_algo[False][a]:.3f}"
+                    pathlib.Path(tmp) / f"idle_{mode}"))
+    for mode in ("graphed", "host-polled"):
+        require(len(steps[mode]) == len(steps["eager"]) and tree_equal(steps[mode], steps["eager"]),
+                f"compare: a {mode} planner step differs from the eager one")
+        require(launches[mode] == launches["eager"],
+                f"compare: launches {mode} {launches[mode]}, eager {launches['eager']}")
+    print(f"[20 loops compare] `{' '.join(argv)} --cycles {LOOP_COMPARE_CYCLES}`: "
+          f"{len(steps['graphed'])} planner steps, graphed (device loop) = host-polled = eager "
+          f"bit for bit (X, U, iterations, J, lambda of every lane) | launches "
+          f"{launches['graphed']} all three ways | command s graphed {secs['graphed']:.3f}, "
+          f"host-polled {secs['host-polled']:.3f}, eager {secs['eager']:.3f} | "
+          + ", ".join(f"{a} s graphed {per_algo['graphed'][a]:.3f}, host-polled "
+                      f"{per_algo['host-polled'][a]:.3f}, eager {per_algo['eager'][a]:.3f}"
                       for a in LOOP_COMPARE_ALGOS)
-          + f" | device idle share ({LOOP_IDLE_CYCLES} cycles) graphed "
-          f"{100 * idle[True][0]:.1f}%, eager {100 * idle[False][0]:.1f}% on {card}", flush=True)
+          + f" | device idle share ({LOOP_IDLE_CYCLES} cycles, profiler) "
+          + ", ".join(f"{m} {100 * v[0]:.1f}%" for m, v in idle.items()) + f" on {card}",
+          flush=True)
     studies = {a: stream_study(f"compare {a}", (solver_batched.run_steps_batched,) + first[a],
                                card) for a in LOOP_COMPARE_ALGOS}
     return dict(seconds=secs, per_algo=per_algo, idle={k: v[0] for k, v in idle.items()},
-                launches=launches[True], streams=studies)
+                launches=launches["graphed"], streams=studies)
 
 
 # Phase 21, the K1 solve and the closed loops' stages as CUDA graphs
@@ -2146,64 +2376,74 @@ def compare_loops(card: str, counts, dev: torch.device) -> dict:
 STAGE_CALLS = 5           # timed calls per path, graphed and eager (host clock, synchronised)
 
 
-def graph_path(label: str, run, counts, card: str) -> dict:
+def graph_path(label: str, run, counts, card: str, loops: bool = False) -> dict:
     """A path run as a user calls it, graphed (``solver.GRAPHS``) against
-    eager: its outputs equal bit for bit and the launch counts equal (a
-    replay counts its kernels); ms per call both ways (the median of
+    eager, and with ``loops`` (its LM loops replayed) host-polled too
+    (LOOP_MODES): its outputs equal bit for bit and the launch counts equal
+    (a replay counts its kernels); ms per call each way (the median of
     STAGE_CALLS calls after the first; the first graphed call's with the
-    captures), the device's idle share both ways; the graphs the graphed
+    captures), the device's idle share each way; the graphs the graphed
     call captured (``solver.CAPTURED``), each replayed alone: device kernels
-    per replay, and their pools' bytes.  Returns the numbers."""
+    per replay, and their pools' bytes; the loop graphs' nodes and build
+    seconds.  Returns the numbers."""
     from cilqr_tpu_torch.models import solver
 
     zero_counts, read_counts = counts
     out, first, launches, ms, idle = {}, {}, {}, {}, {}
-    per_graph, pool = [], 0
+    per_graph, pool, loop_line = [], 0, ""
+    modes = [m for m in LOOP_MODES if loops or m != "host-polled"]
     try:
-        for graphed in (True, False):
-            solver.GRAPHS = graphed
-            solver.CAPTURED.clear()
-            zero_counts()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out[graphed] = run()
-            torch.cuda.synchronize()
-            first[graphed] = (time.perf_counter() - t0) * 1e3
-            launches[graphed] = read_counts()
-            times = []
-            for _ in range(STAGE_CALLS):
+        for mode in modes:
+            with loop_mode(mode):
+                solver.CAPTURED.clear()
+                zero_counts()
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                run()
+                out[mode] = run()
                 torch.cuda.synchronize()
-                times.append((time.perf_counter() - t0) * 1e3)
-            ms[graphed] = statistics.median(times)
-            idle[graphed] = idle_share(run)
-            if graphed:
-                # each graph replayed alone while its capture is held
-                held = [g for c in solver.CAPTURED.values() for g in c.graphs]
-                require(held, f"{label}: the graphed call captured nothing")
-                per_graph = [device_kernels(g.replay)[0] for g in held]
-                pool = sum(g.pool_bytes for g in held)
-            else:
-                require(not solver.CAPTURED, f"{label}: the eager call captured a graph")
+                first[mode] = (time.perf_counter() - t0) * 1e3
+                launches[mode] = read_counts()
+                times = []
+                for _ in range(STAGE_CALLS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    run()
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                ms[mode] = statistics.median(times)
+                idle[mode] = idle_share(run)
+                if mode == "graphed":
+                    # each graph replayed alone while its capture is held
+                    held = [g for c in solver.CAPTURED.values() for g in c.graphs]
+                    require(held, f"{label}: the graphed call captured nothing")
+                    per_graph = [device_kernels(g.replay)[0] for g in held]
+                    pool = sum(g.pool_bytes for g in held)
+                    loop_line = loop_stats_line(solver.CAPTURED.values())
+                    require(loops == (loop_line != "none"),
+                            f"{label}: device loops {loop_line}, expected {loops}")
+                elif mode == "eager":
+                    require(not solver.CAPTURED, f"{label}: the eager call captured a graph")
     finally:
-        solver.GRAPHS = True
         solver.CAPTURED.clear()
-    require(tree_equal(out[True], out[False]),
-            f"{label}: the graphed call's results differ from the eager call's")
-    require(launches[True] == launches[False],
-            f"{label}: launches graphed {launches[True]}, eager {launches[False]}")
-    print(f"[21 graphs {label}] graphed = eager bit for bit (every output) | launches "
-          f"{launches[True]} both ways | ms per call (host clock, synchronised, median of "
-          f"{STAGE_CALLS}): graphed {ms[True]:.3f} (first call, with the captures, "
-          f"{first[True]:.3f}), eager {ms[False]:.3f} | device idle share graphed "
-          f"{100 * idle[True][0]:.1f}% ({idle[True][1]} device events), eager "
-          f"{100 * idle[False][0]:.1f}% ({idle[False][1]}) | {len(per_graph)} graphs, device "
-          f"kernels per replay {per_graph}, pool bytes {pool} on {card}", flush=True)
-    return dict(graphed_ms=ms[True], first_ms=first[True], eager_ms=ms[False],
-                idle={True: idle[True][0], False: idle[False][0]}, launches=launches[True],
-                kernels_per_replay=per_graph, pool_bytes=pool)
+    for mode in modes[:-1]:
+        require(tree_equal(out[mode], out["eager"]),
+                f"{label}: the {mode} call's results differ from the eager call's")
+        require(launches[mode] == launches["eager"],
+                f"{label}: launches {mode} {launches[mode]}, eager {launches['eager']}")
+    print(f"[21 graphs {label}] {' = '.join(modes)} bit for bit (every output) | launches "
+          f"{launches['graphed']} {len(modes)} ways | ms per call (host clock, synchronised, "
+          f"median of {STAGE_CALLS}): "
+          + ", ".join(f"{m} {ms[m]:.3f}" for m in modes)
+          + f" (first graphed call, with the captures, {first['graphed']:.3f}) | device idle "
+          f"share (profiler) "
+          + ", ".join(f"{m} {100 * idle[m][0]:.1f}% ({idle[m][1]} device events)" for m in modes)
+          + (f"; graphed from the host-polled busy time "
+             f"{100 * (1.0 - idle['host-polled'][2] / idle['graphed'][3]):.1f}%" if loops else "")
+          + f" | {len(per_graph)} graphs, device kernels per replay {per_graph}, pool bytes "
+          f"{pool}; loop graphs: {loop_line} on {card}", flush=True)
+    return dict(graphed_ms=ms["graphed"], first_ms=first["graphed"], eager_ms=ms["eager"],
+                host_ms=ms.get("host-polled"), idle={m: v[0] for m, v in idle.items()},
+                launches=launches["graphed"], kernels_per_replay=per_graph, pool_bytes=pool)
 
 
 def main() -> None:
@@ -2238,12 +2478,15 @@ def main() -> None:
         for G in lm_cuda.GROUP_SIZES:
             require(any(ln.startswith(f"{kernel}<{G}>:") and "0/0 spill" in ln for ln in ptxas),
                     f"{kernel}<{G}> spills or is missing from the ptxas report: {ptxas}")
-    for kernel in ("riccati_kernel", "propagate_kernel", "fields_kernel", "sample_kernel"):
+    for kernel in ("riccati_kernel", "propagate_kernel", "fields_kernel", "sample_kernel",
+                   "lm_continue_kernel", "lm_reset_kernel"):
         found = [ln for ln in ptxas if ln.startswith(kernel)]
         require(found and all("0/0 spill" in ln for ln in found),
                 f"{kernel} spills or is missing from the ptxas report: {ptxas}")
     print(f"[2 build] {build_s:.2f} s -> {build.BUILD_DIR / build.LIB_NAME}; "
           f"ptxas: {' | '.join(ptxas)}", flush=True)
+    # the LM loops' condition, which every graphed LM loop below runs on the card
+    condition = condition_kernel(card, dev)
 
     p = dataclasses.replace(SolverParams(), horizon=HORIZON)
     S = p.n_closest_samples
@@ -3375,9 +3618,15 @@ def main() -> None:
     bench_rates = {k: bench_line[k] for k in ("mc_scenarios_per_sec", "full_stack_cycles_per_sec")}
     print(f"[20 bench] phase 17's bench (graphed loops): {json.dumps(bench_rates)} | this phase's "
           f"slope (the benchmark's method, same call) graphed / eager: mc_scenarios_per_sec "
-          f"{loops['mc']['rate'][True]:.1f} / {loops['mc']['rate'][False]:.1f}, "
-          f"full_stack_cycles_per_sec {loops['full_stack']['rate'][True]:.1f} / "
-          f"{loops['full_stack']['rate'][False]:.1f} on {card}", flush=True)
+          f"{loops['mc']['rate']['graphed']:.1f} / {loops['mc']['rate']['eager']:.1f}, "
+          f"full_stack_cycles_per_sec {loops['full_stack']['rate']['graphed']:.1f} / "
+          f"{loops['full_stack']['rate']['eager']:.1f} on {card}", flush=True)
+    # the condition's runs on this slice's path: the hybrid loop of the
+    # Monte-Carlo path on the device loop (counts zeroed just before it)
+    condition["launches"] = loops["mc"]["condition_runs"]
+    condition["path"] = "monte_carlo(impl='fast') on the device loop, phase 20"
+    condition["device_loop_runs"] = {k: v["condition_runs"] for k, v in loops.items()
+                                     if "condition_runs" in v}
     for name, paths in (("lm_iter", {"mc": loops["mc"]["streams"],
                                      "full_stack": loops["full_stack"]["streams"],
                                      "compare_cilqr": loops["compare"]["streams"]["cilqr"]}),
@@ -3405,9 +3654,11 @@ def main() -> None:
             lambda: plant.closed_loop_batched(p, noise, plan, n, egos_cl, None, CL_CYCLES,
                                               obstacles, unc, obs_xyyaw, obs_size, obs_mask,
                                               noise_draws=cl_draws), counts, card),
-        "mc": graph_path(f"monte_carlo B={MC_B}", lambda: mc_fast(samples), counts, card),
+        "mc": graph_path(f"monte_carlo B={MC_B}", lambda: mc_fast(samples), counts, card,
+                         loops=True),
         "full_stack": graph_path(f"full stack B={FS_B} x {FS_CYCLES} cycles",
-                                 lambda: full_stack(gmap, x0s, fs_draws), counts, card),
+                                 lambda: full_stack(gmap, x0s, fs_draws), counts, card,
+                                 loops=True),
     }
     want21 = {"mega_b1": dict(lm=1), "mega": dict(lm=1), "closed_loop": dict(lm=CL_CYCLES),
               "mc": dict(uncertainty=1), "full_stack": dict(sample=FS_CYCLES,
@@ -3447,8 +3698,9 @@ def main() -> None:
     require("jax" not in sys.modules and "cilqr_tpu" not in sys.modules,
             "jax or the JAX package was imported")
     print(f"[done] {time.perf_counter() - t_script:.1f} s, the build included", flush=True)
+    kernels["lm_continue"] = condition
     print(json.dumps({"kernels": [kernels[k] for k in ("lm", "riccati", "lm_iter", "uncertainty",
-                                                       "sample", "opchain")]}))
+                                                       "sample", "opchain", "lm_continue")]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

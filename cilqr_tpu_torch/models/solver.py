@@ -44,6 +44,11 @@ GRAPHS = True
 #: streams the graphs are captured on (``graphs.capture``): the iteration's
 #: independent kernels overlap in the replay; 1 captures on one stream
 STREAMS = 4
+#: run a graphed LM loop on the card as one launch of a loop graph
+#: (``graphs.Loop``: the condition evaluated on the card, as
+#: ``jax.lax.while_loop`` evaluates it); False: the host reads the done mask
+#: after each step replay
+DEVICE_LOOP = True
 #: the captures by parameters, device and shapes (``graphs.GraphCache``)
 CAPTURED = graphs.GraphCache(kept=8)
 
@@ -225,8 +230,9 @@ def optimize(p: SolverParams, plan: LocalPlan, x0: torch.Tensor, U_init: torch.T
     iteration.  On the card an ``Iteration`` runs as CUDA graphs
     (``GRAPHS``): the start and the step, captured once per parameters,
     iteration, launch route and shapes and replayed, the same kernels on the
-    same inputs, so the same bits as the eager loop.  Returns (X, U,
-    iterations, J, lamb)."""
+    same inputs, so the same bits as the eager loop; the loop over the step
+    runs on the card (``DEVICE_LOOP``).  Returns (X, U, iterations, J,
+    lamb)."""
     if iteration is None:
         iteration = Iteration(plain_iteration, (obstacles, unc_map))
     if isinstance(iteration, Iteration):
@@ -348,15 +354,15 @@ def _launch_route() -> tuple:
 def _key(p: SolverParams, leaves: list, spec, args: list) -> tuple:
     """A capture's key: the parameters, the device, the stage's structure,
     its tensors' shapes and dtypes, its constants (its function among them),
-    ``STREAMS`` and the launch route.  Every tensor must lie on the device
-    (a tensor elsewhere would be read once, when captured)."""
+    ``STREAMS``, ``DEVICE_LOOP`` and the launch route.  Every tensor must lie
+    on the device (a tensor elsewhere would be read once, when captured)."""
     dev = args[0].device
     if any(a.device != dev for a in args):
         raise ValueError(f"a graphed stage takes its tensors on one device, got "
                          f"{sorted({str(a.device) for a in args})}")
     return (p, dev, spec, tuple((a.shape, a.dtype) for a in args),
             tuple(t for t in leaves if not isinstance(t, torch.Tensor)), STREAMS,
-            _launch_route())
+            DEVICE_LOOP, _launch_route())
 
 
 def _copied(out):
@@ -369,14 +375,23 @@ def _replay(p: SolverParams, leaves: list, spec, args: list) -> tuple:
     """The LM loop after the stage ``tree_unflatten(leaves, spec)`` (its
     tensors ``args``) as CUDA graphs: the inputs copied into the capture's
     own, the start graph (the stage and the loop's start) replayed once,
-    then the step graph once per iteration until the done mask, read on the
-    host after each replay, says every lane has stopped.  Returns copies of
-    the state (X, U, lamb, J, it, done) and of the stage's carry."""
+    then the loop graph launched once (``DEVICE_LOOP``: it replays the step
+    until every lane has stopped or ``max_iterations`` steps have run, and
+    the host reads the step count once, after the copies out are enqueued),
+    or the step graph replayed once per iteration until the done mask, read
+    on the host after each replay, says every lane has stopped.  Returns
+    copies of the state (X, U, lamb, J, it, done) and of the stage's
+    carry."""
     g = CAPTURED.load(_key(p, leaves, spec, args), args,
                       lambda inputs: _capture(p, leaves, spec, inputs))
     start, step = g.graphs
     state, carry = g.out
     start.replay()
+    if g.loop is not None:
+        g.loop.launch()
+        out = tuple(t.clone() for t in state), _copied(carry)
+        g.loop.count()
+        return out
     for _ in range(p.max_iterations):
         if bool(state[-1].all()):
             break
@@ -417,8 +432,9 @@ def _capture(p: SolverParams, leaves: list, spec, inputs: list) -> tuple:
     The start graph runs the stage and writes the loop's start state into
     buffers of its own; the step graph reads the plan and the iteration's
     tensors where the start graph wrote them, in place.  Returns (graphs,
-    (the state, the stage's carry) they write, the constants they read).  A
-    failed capture raises."""
+    (the state, the stage's carry) they write, the constants they read) and,
+    with ``DEVICE_LOOP``, the ``graphs.Loop`` of the step on the done mask.
+    A failed capture raises."""
     before = _unflatten(leaves, spec, inputs)
     dev = inputs[0].device
     with graphs.building(), graphs.side_stream(dev), graphs.uncounted():
@@ -439,4 +455,5 @@ def _capture(p: SolverParams, leaves: list, spec, inputs: list) -> tuple:
     iteration = described.build(p, plan, *described.world)
     step = graphs.capture(lambda: _assign(state, lm_step(p, iteration, held[0], *state)), dev,
                           STREAMS)
-    return (start, step), (state, carry), held
+    loop = graphs.Loop(step, state[-1], p.max_iterations) if DEVICE_LOOP else None
+    return (start, step), (state, carry), held, loop

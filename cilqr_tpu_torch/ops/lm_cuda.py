@@ -472,9 +472,10 @@ def _lm_opt_kernel(params, fit, x0s, U_init, obs, values, scl, has_obs, has_unc,
         (N + 1, 4, Q), (N + 1, 4, Q), (N, 2, Q), (N, 2, Q), (N, 2, Q), (N, 8, Q))]
     cfg = _config(p, B, obs.shape[0] // 6, H, W, has_obs, has_unc)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.cilqr_lm_opt(
-        ctypes.byref(cfg), *(t.data_ptr() for t in ins + [X, U, J, lamb, it] + scratch),
-        blocks, G, stream)
+    with torch.cuda.device(dev):  # the card of the tensors, whichever is current
+        rc = lib.cilqr_lm_opt(
+            ctypes.byref(cfg), *(t.data_ptr() for t in ins + [X, U, J, lamb, it] + scratch),
+            blocks, G, stream)
     build.check(lib, rc, "LM kernel launch")
     LAUNCHES += 1
     return X, U, it, J, lamb
@@ -550,7 +551,8 @@ def _lm_iter_kernel(params, fit, table, X, U, lamb, uext, obs, has_obs, G, plans
     # a world without a map holds a 2 x 2 one (``prep_unc_map``), unread
     cfg = _config(p, B, obs.shape[0] // 6, 2, 2, has_obs, False)
     stream = torch.cuda.current_stream(X.device).cuda_stream
-    rc = lib.cilqr_lm_iter(ctypes.byref(cfg), *(t.data_ptr() for t in ins + outs), G, stream)
+    with torch.cuda.device(X.device):  # the card of the tensors, whichever is current
+        rc = lib.cilqr_lm_iter(ctypes.byref(cfg), *(t.data_ptr() for t in ins + outs), G, stream)
     build.check(lib, rc, "LM iteration kernel launch")
     ITER_LAUNCHES += 1
     Xn, Un, J, k, K = outs

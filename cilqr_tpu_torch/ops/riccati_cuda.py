@@ -161,10 +161,11 @@ def _riccati_kernel(params, l_x, l_xx, l_u, l_uu, X, U, lamb, do_forward):
     cfg = _RiccatiConfig(B=B, N=N, do_forward=int(do_forward), **dyn_constants(p))
     ptr = lambda t: None if t is None else t.data_ptr()
     stream = torch.cuda.current_stream(X.device).cuda_stream
-    rc = lib.cilqr_riccati(
-        ctypes.byref(cfg), lx.data_ptr(), lxx.data_ptr(), lu.data_ptr(), luu.data_ptr(),
-        lamb_c.data_ptr(), Xc.data_ptr(), Uc.data_ptr(), ptr(k), ptr(K), ptr(Xn), ptr(Un),
-        ptr(scratch), stream)
+    with torch.cuda.device(X.device):  # the card of the tensors, whichever is current
+        rc = lib.cilqr_riccati(
+            ctypes.byref(cfg), lx.data_ptr(), lxx.data_ptr(), lu.data_ptr(), luu.data_ptr(),
+            lamb_c.data_ptr(), Xc.data_ptr(), Uc.data_ptr(), ptr(k), ptr(K), ptr(Xn), ptr(Un),
+            ptr(scratch), stream)
     build.check(lib, rc, "riccati kernel launch")
     LAUNCHES += 1
     return (Xn, Un) if do_forward else (k, K)

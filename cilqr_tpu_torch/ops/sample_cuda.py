@@ -113,11 +113,12 @@ def _sample_kernel(geoms, rows, cols, global_map, global_geom, ego_xys, ego_yaws
     ptr = lambda t: None if t is None else t.data_ptr()
     lib = build.load_library()
     stream = torch.cuda.current_stream(global_map.device).cuda_stream
-    rc = lib.cilqr_sample_prior(
-        B, rows, cols, H, W, int(vec), global_map.data_ptr(), gcenter.data_ptr(),
-        glength.data_ptr(), global_geom.resolution.data_ptr(), first.data_ptr(), res.data_ptr(),
-        res.stride(0), ego_xys.data_ptr(), ego_xys.stride(0), cs.data_ptr(), sn.data_ptr(),
-        ptr(bbox_t), ptr(sem_t), out.data_ptr(), stream)
+    with torch.cuda.device(global_map.device):  # the card of the tensors, whichever is current
+        rc = lib.cilqr_sample_prior(
+            B, rows, cols, H, W, int(vec), global_map.data_ptr(), gcenter.data_ptr(),
+            glength.data_ptr(), global_geom.resolution.data_ptr(), first.data_ptr(), res.data_ptr(),
+            res.stride(0), ego_xys.data_ptr(), ego_xys.stride(0), cs.data_ptr(), sn.data_ptr(),
+            ptr(bbox_t), ptr(sem_t), out.data_ptr(), stream)
     build.check(lib, rc, "prior resample kernel launch")
     LAUNCHES += 1
     return out

@@ -377,12 +377,13 @@ def _run_kernel(cp: CostmapParams, prior: torch.Tensor, B: int, bands, disc_radi
     out = torch.empty((B, rows, cols), dtype=torch.float32, device=prior.device)
     lib = build.load_library()
     stream = torch.cuda.current_stream(prior.device).cuda_stream
-    rc = lib.cilqr_propagate(
-        B, rows, cols, r_max, int(table is not None), int(faithful_rho),
-        float(np.float32(cp.resolution)), float(np.float32(1.0 / cp.resolution)),
-        float(np.float32(cp.chisquare_val**2)),
-        prior.data_ptr(), stride, None if table is None else table.data_ptr(), *field_ptrs,
-        row_tab.data_ptr(), dy_tab.data_ptr(), out.data_ptr(), stream)
+    with torch.cuda.device(prior.device):  # the card of the tensors, whichever is current
+        rc = lib.cilqr_propagate(
+            B, rows, cols, r_max, int(table is not None), int(faithful_rho),
+            float(np.float32(cp.resolution)), float(np.float32(1.0 / cp.resolution)),
+            float(np.float32(cp.chisquare_val**2)),
+            prior.data_ptr(), stride, None if table is None else table.data_ptr(), *field_ptrs,
+            row_tab.data_ptr(), dy_tab.data_ptr(), out.data_ptr(), stream)
     build.check(lib, rc, "propagation kernel launch")
     LAUNCHES += 1
     return out
@@ -491,9 +492,10 @@ def fields_on_card(cp: CostmapParams, geom: gridmap.GridGeom, ego_yaw, sigmas,
     out = [torch.empty((B, rows, cols), dtype=torch.float32, device=table.device)
            for _ in range(4)]
     lib = build.load_library()
-    rc = lib.cilqr_fields(B, rows, cols, int(faithful_rho), table.data_ptr(),
-                          *(t.data_ptr() for t in out),
-                          torch.cuda.current_stream(table.device).cuda_stream)
+    with torch.cuda.device(table.device):  # the card of the tensors, whichever is current
+        rc = lib.cilqr_fields(B, rows, cols, int(faithful_rho), table.data_ptr(),
+                              *(t.data_ptr() for t in out),
+                              torch.cuda.current_stream(table.device).cuda_stream)
     build.check(lib, rc, "fields kernel launch")
     FIELD_LAUNCHES += 1
     return tuple(out)

@@ -117,6 +117,14 @@ def load_library() -> ctypes.CDLL:
     lib.cilqr_sample_prior.restype = i
     lib.cilqr_opchain.argtypes = [i, i, ctypes.c_longlong, p, p, p]
     lib.cilqr_opchain.restype = i
+    lib.cilqr_lm_continue.argtypes = [p, i, p, i, p, p]
+    lib.cilqr_lm_continue.restype = i
+    lib.cilqr_loop_graph.argtypes = [p, p, i, p, i, p, p, p]
+    lib.cilqr_loop_graph.restype = i
+    lib.cilqr_loop_launch.argtypes = [p, p]
+    lib.cilqr_loop_launch.restype = i
+    lib.cilqr_loop_destroy.argtypes = [p, p]
+    lib.cilqr_loop_destroy.restype = None
     lib.cilqr_riccati_config_size.argtypes = []
     lib.cilqr_riccati_config_size.restype = i
     lib.cilqr_lm_config_size.argtypes = []

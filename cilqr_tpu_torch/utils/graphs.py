@@ -32,17 +32,26 @@ A replay launches from the host nothing that a launch counter sees, so a
 ``Graph`` keeps what its capture added to each counter in ``COUNTERS``
 (taking it back: the capture ran nothing) and adds it again on each
 ``replay()``.
+
+A ``Loop`` runs a step graph while a condition computed on the card holds,
+as ``jax.lax.while_loop`` runs its body: one launch of a graph whose WHILE
+node holds the step graph (``ops/loop_cuda``), no host read between the
+iterations.  It reads the number of steps it ran once, afterwards, to
+count the launches.
 """
 
 from __future__ import annotations
 
 import contextlib
+import sys
 from collections.abc import Mapping
 from typing import Any, NamedTuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
+
+from cilqr_tpu_torch.ops import loop_cuda
 
 aten = torch.ops.aten
 #: the launch counters (module, attribute) of the kernels a graph may hold:
@@ -364,8 +373,10 @@ def capture(fn, device: torch.device, streams: int = 1) -> Graph:
     graph's ``stats`` (``PlanStats``; None on one stream) describe its plan.
     ``pool_bytes`` is the memory the graph's pool took; ``launches`` what
     fn() added to each counter of ``COUNTERS``, which the capture takes back
-    and each replay adds.  A failed capture raises."""
-    graph = Graph()
+    and each replay adds.  The graph is instantiated and also kept as
+    captured (``raw_cuda_graph()``, which a ``Loop`` copies).  A failed
+    capture raises."""
+    graph = Graph(keep_graph=True)
     with torch.cuda.device(device):
         # a capture stream of the device's own (torch.cuda.graph's default
         # one belongs to whichever device was current at its first use)
@@ -384,19 +395,73 @@ def capture(fn, device: torch.device, streams: int = 1) -> Graph:
             if planner is not None:
                 planner.release()
         graph.pool_bytes = torch.cuda.memory_reserved(device) - reserved
+        graph.instantiate()
     graph.out = out[0]
     graph.stats = planner and planner.stats
     return graph
 
 
+class Loop:
+    """``while v: step.replay()`` with v = ``loop_cuda.lm_continue`` on
+    ``done`` and a step count ``steps`` of its own (each launch resets it):
+    the loop of ``jax.lax.while_loop``, ``max_iterations`` steps at most.
+    On the card one launch of the loop graph (``loop_cuda.loop_graph``
+    around the step graph's ``raw_cuda_graph()``) runs it all, and the host
+    reads nothing in between; for a ``done`` on the CPU, ``launch()`` is the
+    plain version: the host replays ``step`` while ``lm_continue_plain``
+    holds.  ``count()`` reads ``steps`` (on the card the one host read) and
+    on the card adds ``steps`` times the step graph's ``launches`` to the
+    counters (the plain version's replays have added them) and the
+    condition's runs (steps + 1) to ``loop_cuda.LAUNCHES``.  It holds the
+    step graph and ``steps``, so the memory the loop graph reads stays
+    valid; the loop graph goes with the last reference (``GraphCache``
+    eviction)."""
+
+    def __init__(self, step, done: torch.Tensor, max_iterations: int):
+        self.step, self.done, self.max_iterations = step, done, max_iterations
+        self.steps = torch.zeros(1, dtype=torch.int32, device=done.device)
+        self.stats = None  # ``loop_cuda.LoopStats`` on the card
+        self._handles = None
+        if done.is_cuda:
+            graph, exec_, self.stats = loop_cuda.loop_graph(
+                step.raw_cuda_graph(), done, self.steps, max_iterations)
+            self._handles = (graph, exec_)
+
+    def launch(self) -> None:
+        """The loop, enqueued on the current stream (the plain version runs
+        it)."""
+        if self._handles is None:
+            self.steps.zero_()
+            while bool(loop_cuda.lm_continue_plain(self.done, self.steps, self.max_iterations)):
+                self.step.replay()
+            return
+        loop_cuda.launch(self._handles[1], self.done.device)
+
+    def count(self) -> int:
+        """The steps the last launch ran, counted (see the class)."""
+        n = int(self.steps)
+        if self._handles is not None:
+            count_launches(tuple(n * c for c in self.step.launches))
+            loop_cuda.LAUNCHES += n + 1
+        return n
+
+    def __del__(self):
+        # at the interpreter's exit the process's graphs go with its context
+        if self._handles is not None and not sys.is_finalizing():
+            loop_cuda.destroy(*self._handles)
+            self._handles = None
+
+
 class Captured(NamedTuple):
     """One entry of a ``GraphCache``: the graphs read ``inputs`` and write
-    ``out``."""
+    ``out``; ``loop``, where there is one, runs the step graph of an LM loop
+    (``graphs[1]``) on the card."""
 
     inputs: list   # static copies of the tensors of the call
     graphs: tuple  # the CUDA graphs
     out: Any       # the tensors the graphs write
     held: Any      # what else they read (kept alive with them)
+    loop: Any = None  # a ``Loop``
 
 
 class GraphCache(Mapping):
@@ -421,8 +486,9 @@ class GraphCache(Mapping):
 
     def load(self, key, args: list, make) -> Captured:
         """The capture of ``key`` with the tensors ``args`` copied into its
-        inputs.  On a miss ``make(inputs) -> (graphs, out, held)`` captures
-        it on ``inputs``, clones of ``args``."""
+        inputs.  On a miss ``make(inputs) -> (graphs, out, held)`` or
+        ``(graphs, out, held, loop)`` captures it on ``inputs``, clones of
+        ``args``."""
         entry = self._entries.get(key)
         if entry is None:
             while len(self._entries) >= self.kept:

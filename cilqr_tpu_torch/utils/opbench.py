@@ -108,7 +108,8 @@ def _launch(body: str, rounds: int, x: torch.Tensor) -> torch.Tensor:
     out = torch.empty_like(x)
     lib = build.load_library()
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = lib.cilqr_opchain(BODIES.index(body), rounds, n, x.data_ptr(), out.data_ptr(), stream)
+    with torch.cuda.device(x.device):  # the card of the tensors, whichever is current
+        rc = lib.cilqr_opchain(BODIES.index(body), rounds, n, x.data_ptr(), out.data_ptr(), stream)
     build.check(lib, rc, "op-chain kernel launch")
     LAUNCHES += 1
     return out
