@@ -30,7 +30,7 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_map, tree_unflatten
 
 from cilqr_tpu_torch.utils.params import SolverParams
-from cilqr_tpu_torch.utils import graphs
+from cilqr_tpu_torch.utils import graphs, profiling
 from cilqr_tpu_torch.utils.device import resolve
 from cilqr_tpu_torch.models import costs as costs_mod
 from cilqr_tpu_torch.models import dynamics
@@ -281,14 +281,18 @@ def run(p: SolverParams, stage: Stage):
     graph, captured once per key (parameters, device, the stage's structure
     and constants, its tensors' shapes, ``STREAMS``) and replayed on copies
     of the stage's tensors; its outputs are copied out.  The same kernels on
-    the same inputs: the eager call's bits."""
+    the same inputs: the eager call's bits.  Spans (``utils.profiling``):
+    the copy in, the replay on the card, the copy out."""
     leaves, spec, args = _stage_args(stage)
     if not _staged(args):
         return stage.fn(p, *stage.args)
-    g = CAPTURED.load(_key(p, leaves, spec, args), args,
-                      lambda inputs: _capture_run(p, leaves, spec, inputs))
-    g.graphs[0].replay()
-    return _copied(g.out)
+    with profiling.span("run.copy_in"):
+        g = CAPTURED.load(_key(p, leaves, spec, args), args,
+                          lambda inputs: _capture_run(p, leaves, spec, inputs))
+    with profiling.span("run.replay", device=args[0].device):
+        g.graphs[0].replay()
+    with profiling.span("run.copy_out"):
+        return _copied(g.out)
 
 
 def solve(p: SolverParams, before: Stage) -> tuple:
@@ -381,16 +385,24 @@ def _replay(p: SolverParams, leaves: list, spec, args: list) -> tuple:
     or the step graph replayed once per iteration until the done mask, read
     on the host after each replay, says every lane has stopped.  Returns
     copies of the state (X, U, lamb, J, it, done) and of the stage's
-    carry."""
-    g = CAPTURED.load(_key(p, leaves, spec, args), args,
-                      lambda inputs: _capture(p, leaves, spec, inputs))
+    carry.  Spans (``utils.profiling``): the copy in, the start replay and
+    the loop on the card, the copies out, and the host's wait for the step
+    count, which the loop's span keeps."""
+    dev = args[0].device
+    with profiling.span("replay.copy_in"):
+        g = CAPTURED.load(_key(p, leaves, spec, args), args,
+                          lambda inputs: _capture(p, leaves, spec, inputs))
     start, step = g.graphs
     state, carry = g.out
-    start.replay()
+    with profiling.span("replay.start", device=dev):
+        start.replay()
     if g.loop is not None:
-        g.loop.launch()
-        out = tuple(t.clone() for t in state), _copied(carry)
-        g.loop.count()
+        with profiling.span("replay.loop", device=dev) as loop:
+            g.loop.launch()
+        with profiling.span("replay.copy_out"):
+            out = tuple(t.clone() for t in state), _copied(carry)
+        with profiling.span("replay.count", wait=True):
+            loop.attach(g.loop.count())
         return out
     for _ in range(p.max_iterations):
         if bool(state[-1].all()):

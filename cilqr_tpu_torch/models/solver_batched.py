@@ -28,6 +28,7 @@ from cilqr_tpu_torch.utils.params import SolverParams
 from cilqr_tpu_torch.models import costs, solver
 from cilqr_tpu_torch.models.reference_path import get_local_plan
 from cilqr_tpu_torch.ops import lm_cuda, riccati_cuda
+from cilqr_tpu_torch.utils import profiling
 
 
 def _two_phase(p: SolverParams, plans, obstacles, unc_map):
@@ -88,6 +89,7 @@ def two_phase_before(p: SolverParams, egos, U_warm, plan_xy, plan_n, obstacles, 
             (plans.x_wpts, plans.y_fit))
 
 
+@profiling.spanned("entry.run_steps_batched")
 def run_steps_batched(p: SolverParams, plan_xy: torch.Tensor, plan_n, egos: torch.Tensor,
                       U_warm: torch.Tensor, obstacles=None, unc_map=None,
                       impl: str = "mega", world_batched: bool = False) -> solver.SolveResult:

@@ -25,6 +25,7 @@ from cilqr_tpu_torch.models import uncertainty as unc_mod
 from cilqr_tpu_torch.ops import costmap as costmap_mod
 from cilqr_tpu_torch.ops import uncertainty_cuda
 from cilqr_tpu_torch.parallel import batch as pbatch
+from cilqr_tpu_torch.utils import profiling
 from cilqr_tpu_torch.utils.device import resolve
 
 
@@ -95,6 +96,7 @@ def mc_solve_one(p: SolverParams, cp: CostmapParams, prior: torch.Tensor, geom, 
     return solver.run_step(p, plan_xy, plan_n, ego, U0, obstacles, umap)
 
 
+@profiling.spanned("entry.monte_carlo")
 def monte_carlo(p: SolverParams, cp: CostmapParams, prior: torch.Tensor, geom, origin_xy,
                 origin_yaw, plan_xy, plan_n, samples: MCSample, obstacles=None,
                 sigma_hi=DEFAULT_SIGMA_HI, impl: str = "auto",

@@ -43,6 +43,7 @@ from cilqr_tpu_torch.models import dynamics, solver, solver_batched, tracker
 from cilqr_tpu_torch.models import uncertainty as unc_mod
 from cilqr_tpu_torch.ops import costmap as costmap_mod
 from cilqr_tpu_torch.sim import collision, perception
+from cilqr_tpu_torch.utils import profiling
 from cilqr_tpu_torch.utils.device import constant
 from cilqr_tpu_torch.utils.params import CostmapParams, NoiseParams, SolverParams
 
@@ -368,6 +369,7 @@ def _full_record(rec: dict, res) -> dict:
             "iterations": res.iterations, **rec}
 
 
+@profiling.spanned("entry.full_stack")
 def closed_loop_full_stack_batched(p: SolverParams, cp: CostmapParams, noise: NoiseParams,
                                    global_map: torch.Tensor, global_geom, plan_xy: torch.Tensor,
                                    plan_n, x0s: torch.Tensor,
@@ -394,7 +396,8 @@ def closed_loop_full_stack_batched(p: SolverParams, cp: CostmapParams, noise: No
     -> batched SolveResult-like`` swaps in another batched planner.
     ``band_plan``, ``global_res``, ``use_kernels`` and ``costmap_sigmas``
     go to ``build_local_costmap_batched``.  ``noise_draws`` (T, B, 3) /
-    ``camera_draws`` (T, B, 4): see the module docstring.
+    ``camera_draws`` (T, B, 4): see the module docstring.  Spans
+    (``utils.profiling``): the call, each cycle, the records' stack.
 
     Returns (final states (B, 4), dict of (T, B, ...) records)."""
     B = x0s.shape[0]
@@ -420,20 +423,23 @@ def closed_loop_full_stack_batched(p: SolverParams, cp: CostmapParams, noise: No
 
     states, recs = x0s, []
     for t in range(n_cycles):
-        per = None
-        if percept is not None:
-            tdt = torch.full((), t * p.timestep, dtype=dtype, device=dev)
-            per = (percept, tdt, kf, None if cam is None else cam[t])
-        if plan_step_batched is None:
-            (X, U, it, J, lamb), (rec, kf) = solver.solve(p, solver.Stage(
-                _full_stack_before, (cp, noise, draws[t], states, U_warm, glob, plan, obs, cm_kw,
-                                     per, obstacles)))
-            res = solver.SolveResult(X, U, None, None, it, J, lamb)
-        else:
-            noisy, umaps, rec, kf = solver.run(p, solver.Stage(
-                _full_stack_world, (cp, noise, draws[t], states, glob, plan, obs, cm_kw, per)))
-            res = plan_step_batched(noisy, U_warm, umaps)
-        recs.append(_full_record(rec, res))
-        U_warm = res.U.to(dtype)
-        states = solver.run(p, solver.Stage(_advance, (states, U_warm)))
-    return states, _stack_records(recs)
+        with profiling.span("full_stack.cycle"):
+            per = None
+            if percept is not None:
+                tdt = torch.full((), t * p.timestep, dtype=dtype, device=dev)
+                per = (percept, tdt, kf, None if cam is None else cam[t])
+            if plan_step_batched is None:
+                (X, U, it, J, lamb), (rec, kf) = solver.solve(p, solver.Stage(
+                    _full_stack_before, (cp, noise, draws[t], states, U_warm, glob, plan, obs,
+                                         cm_kw, per, obstacles)))
+                res = solver.SolveResult(X, U, None, None, it, J, lamb)
+            else:
+                noisy, umaps, rec, kf = solver.run(p, solver.Stage(
+                    _full_stack_world, (cp, noise, draws[t], states, glob, plan, obs, cm_kw,
+                                        per)))
+                res = plan_step_batched(noisy, U_warm, umaps)
+            recs.append(_full_record(rec, res))
+            U_warm = res.U.to(dtype)
+            states = solver.run(p, solver.Stage(_advance, (states, U_warm)))
+    with profiling.span("full_stack.records"):
+        return states, _stack_records(recs)

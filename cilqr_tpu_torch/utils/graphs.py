@@ -38,12 +38,18 @@ as ``jax.lax.while_loop`` runs its body: one launch of a graph whose WHILE
 node holds the step graph (``ops/loop_cuda``), no host read between the
 iterations.  It reads the number of steps it ran once, afterwards, to
 count the launches.
+
+A ``GraphCache`` miss (the warm-up, the captures, their instantiation and
+a ``Loop``'s build) is counted, with its seconds, in ``CAPTURES`` and
+``CAPTURE_S``, whether or not tracing is on, and each capture dropped to
+make room in ``EVICTIONS``; ``utils.profiling`` spans the miss.
 """
 
 from __future__ import annotations
 
 import contextlib
 import sys
+import time
 from collections.abc import Mapping
 from typing import Any, NamedTuple
 
@@ -52,6 +58,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
 from cilqr_tpu_torch.ops import loop_cuda
+from cilqr_tpu_torch.utils import profiling
 
 aten = torch.ops.aten
 #: the launch counters (module, attribute) of the kernels a graph may hold:
@@ -63,6 +70,9 @@ COUNTERS: list = []
 #: their plain versions (``on_kernels``); the same modules enter them
 LAUNCHERS: list = []
 _BUILDS = 0  # warm-ups and captures under way (``building``)
+CAPTURES = 0     # ``GraphCache`` misses: captures made
+CAPTURE_S = 0.0  # the seconds they took
+EVICTIONS = 0    # captures dropped to make room for another
 # ops that launch no kernel besides the views (``is_view``): a view its schema
 # does not declare, and allocations (the first op to write the memory orders it)
 _NO_KERNEL = {aten._unsafe_view, aten.empty, aten.empty_like, aten.empty_strided,
@@ -488,13 +498,19 @@ class GraphCache(Mapping):
         """The capture of ``key`` with the tensors ``args`` copied into its
         inputs.  On a miss ``make(inputs) -> (graphs, out, held)`` or
         ``(graphs, out, held, loop)`` captures it on ``inputs``, clones of
-        ``args``."""
+        ``args`` (counted: ``CAPTURES``, ``CAPTURE_S``, ``EVICTIONS``)."""
+        global CAPTURES, CAPTURE_S, EVICTIONS
         entry = self._entries.get(key)
         if entry is None:
             while len(self._entries) >= self.kept:
                 self._entries.pop(next(iter(self._entries)))
-            inputs = [a.clone() for a in args]
-            entry = self._entries[key] = Captured(inputs, *make(inputs))
+                EVICTIONS += 1
+            t0 = time.perf_counter()
+            with profiling.span("capture"):
+                inputs = [a.clone() for a in args]
+                entry = self._entries[key] = Captured(inputs, *make(inputs))
+            CAPTURES += 1
+            CAPTURE_S += time.perf_counter() - t0
         for s, a in zip(entry.inputs, args):
             s.copy_(a)
         return entry

@@ -7,18 +7,43 @@ topic), and a ``torch.profiler`` trace in place of the ``jax.profiler``
 one.  ``PhaseTimer.timed`` waits for the card with
 ``torch.cuda.synchronize`` where ``jax.block_until_ready`` waited for the
 TPU.
+
+Spans name the stages of the program: the entry calls, the copies into and
+out of a capture, the graph replays, the device-side LM loop (whose kernels
+the profiler does not see inside the WHILE body) and the host's waits.
+Tracing is on while a ``torch.profiler`` session is active, or inside
+``tracing()``.  Off, a span site reads two flags and returns a shared null
+context: no clock read, no allocation, no CUDA event.  On, each span keeps
+its name, its id, its parent's, its call's (the outermost span's: one entry
+call), its host interval, and with ``device`` the interval on the card
+between two CUDA events it enqueues around its block.  Host times are
+Unix-epoch ns (``time.time_ns``), the clock the profiler converts its
+events' times to (``start_ns()``, the Chrome trace's ``ts``).  A device
+interval is placed on it by an anchor: at the first device span on a card
+the tracer waits for the card, then stamps an event between two host
+reads (the narrowest of a few tries), and takes the middle.  ``spans()``
+gives the spans out, in memory; ``counters()`` the change of the launch
+counters (``graphs.COUNTERS``, ``loop_cuda.LAUNCHES``) and of the captures
+(``graphs.CAPTURES``, ``CAPTURE_S``, ``EVICTIONS``) over the traced calls.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import time
 from collections import defaultdict
-from typing import Dict, Optional
+from typing import Dict, NamedTuple, Optional
 
 import torch
+import torch.autograd.profiler as _profiler  # ``_is_profiler_enabled``: a plain flag
+
+_clock = time.time_ns  # the host's stamps: Unix-epoch ns, as the profiler's events
+_TRACING = 0           # depth of ``tracing()`` blocks
+_SESSION = None        # what the tracer has recorded since ``reset``
+_HOST_TID, _DEVICE_TID = 0x5A4E0, 0x5A4E1  # the spans' rows in a Chrome trace
 
 
 def _tensors(tree):
@@ -104,19 +129,250 @@ def trace(log_dir: str):
     """A ``torch.profiler`` trace of the host and the card (CPU and CUDA
     activities; the CPU alone where PyTorch has no CUDA), written on exit
     as a Chrome trace ``trace_<pid>_<ns>.json`` into ``log_dir`` (view it
-    in chrome://tracing or Perfetto)."""
+    in chrome://tracing or Perfetto), with the program's spans (``tracing``)
+    on the profiler's clock: a row of host spans and a row of the device
+    intervals."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(log_dir, exist_ok=True)
-    with profile(activities=activities) as prof:
+    with tracing(), profile(activities=activities) as prof:
         yield prof
-    prof.export_chrome_trace(
-        os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json"))
+    path = os.path.join(log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+    prof.export_chrome_trace(path)
+    _write_spans(path, spans())
+
+
+def _write_spans(path: str, found: list) -> None:
+    """Adds ``found`` to the Chrome trace at ``path`` (``ts`` in us after its
+    ``baseTimeNanoseconds``)."""
+    with open(path) as f:
+        doc = json.load(f)
+    base, pid = doc.get("baseTimeNanoseconds", 0), os.getpid()
+    events = doc.setdefault("traceEvents", [])
+    for tid, label in ((_HOST_TID, "cilqr_tpu_torch spans"),
+                       (_DEVICE_TID, "cilqr_tpu_torch spans on the card")):
+        events.append({"ph": "M", "name": "thread_name", "pid": pid, "tid": tid,
+                       "args": {"name": label}})
+    for s in found:
+        args = {"id": s.id, "parent": s.parent, "call": s.call, "wait": s.wait,
+                "steps": s.steps}
+        ends = [(_HOST_TID, s.start_ns, s.end_ns)]
+        if s.device_start_ns is not None:
+            ends.append((_DEVICE_TID, s.device_start_ns, s.device_end_ns))
+        for tid, t0, t1 in ends:
+            events.append({"ph": "X", "cat": "cilqr_span", "name": s.name, "pid": pid,
+                           "tid": tid, "ts": (t0 - base) / 1e3, "dur": (t1 - t0) / 1e3,
+                           "args": args})
+    with open(path, "w") as f:
+        json.dump(doc, f)
 
 
 def annotate(name: str):
     """A named range inside a trace (``torch.profiler.record_function``)."""
     return torch.profiler.record_function(name)
+
+
+# ------------------------------------------------------------------- spans
+class Span(NamedTuple):
+    """One span as ``spans()`` gives it out: times in Unix-epoch ns."""
+
+    name: str
+    id: int
+    parent: Optional[int]           # the span it lies in (None: an entry call)
+    call: int                       # the entry call's id (its outermost span's)
+    start_ns: int                   # the host's interval
+    end_ns: int
+    wait: bool                      # the host waits for the card inside it
+    device_start_ns: Optional[int]  # what the block enqueued, on the card
+    device_end_ns: Optional[int]
+    steps: Optional[int]            # the LM steps its device loop ran (``attach``)
+
+
+class _Null:
+    """A span site while tracing is off."""
+
+    __slots__ = ()
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        return False
+
+    def attach(self, steps: int) -> None:
+        pass
+
+
+_NULL = _Null()
+
+
+def span(name: str, device: Optional[torch.device] = None, wait: bool = False):
+    """A span of the block (see the module docstring).  ``device``: the
+    card whose current stream the block enqueues on, whose interval the
+    span records (a CPU device: none); ``wait``: the host waits for the
+    card inside the block.  Off, the shared null context."""
+    if not (_profiler._is_profiler_enabled or _TRACING):
+        return _NULL
+    return _Live(name, device, wait)
+
+
+def spanned(name: str):
+    """A decorator: each call of the function is a span of ``name`` (an
+    entry call where it is the outermost)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
+
+
+@contextlib.contextmanager
+def tracing():
+    """Tracing on inside the block without a profiler; the outermost block
+    starts a new record (``reset``), which ``spans()`` and ``counters()``
+    read afterwards."""
+    global _TRACING
+    if not _TRACING:
+        reset()
+    _TRACING += 1
+    try:
+        yield
+    finally:
+        _TRACING -= 1
+
+
+def reset() -> None:
+    """Drops what the tracer has recorded; the next span starts anew."""
+    global _SESSION
+    _SESSION = None
+
+
+def spans() -> list:
+    """The spans recorded since ``reset`` (``Span``, by id).  Reading a
+    device interval waits for its end event: read after the traced calls
+    have been synchronised."""
+    s = _SESSION
+    if s is None:
+        return []
+    return sorted((s.resolve(r) for r in s.records), key=lambda r: r.id)
+
+
+def counters() -> dict:
+    """Each counter's change over the traced calls (the entry calls: the
+    outermost spans), by ``module.ATTRIBUTE``."""
+    return {} if _SESSION is None else dict(_SESSION.counts)
+
+
+def _counts() -> dict:
+    from cilqr_tpu_torch.ops import loop_cuda
+    from cilqr_tpu_torch.utils import graphs  # which imports this module
+
+    c = {f"{m.__name__.rsplit('.', 1)[-1]}.{n}": getattr(m, n) for m, n in graphs.COUNTERS}
+    c["loop_cuda.LAUNCHES"] = loop_cuda.LAUNCHES
+    for n in ("CAPTURES", "CAPTURE_S", "EVICTIONS"):
+        c[f"graphs.{n}"] = getattr(graphs, n)
+    return c
+
+
+def _card(device: Optional[torch.device]) -> Optional[int]:
+    """The index of the card a device span records on, or None (no card)."""
+    if device is None or device.type != "cuda":
+        return None
+    return torch.cuda.current_device() if device.index is None else device.index
+
+
+class _Session:
+    """The spans recorded since ``reset``: closed ones (``records``), the
+    open ones (``stack``), an anchor per card, the counters' change."""
+
+    def __init__(self):
+        self.records, self.stack, self.ids = [], [], 0
+        self.anchors: dict = {}  # card -> (event, its time on the host's clock, half width)
+        self.counts: dict = {}
+
+    def anchor(self, card: int) -> None:
+        """An event of ``card`` placed on the host's clock: the card idle,
+        the narrowest of five host intervals around an event's record and
+        its completion, and its middle.  A waiting span of its own."""
+        with _Live("profiling.anchor", None, True):
+            torch.cuda.synchronize(card)
+            stream = torch.cuda.current_stream(card)
+            best = None
+            for _ in range(5):
+                ev = torch.cuda.Event(enable_timing=True)
+                t0 = _clock()
+                ev.record(stream)
+                ev.synchronize()
+                t1 = _clock()
+                if best is None or t1 - t0 < best[2] - best[1]:
+                    best = (ev, t0, t1)
+        ev, t0, t1 = best
+        self.anchors[card] = (ev, (t0 + t1) // 2, (t1 - t0) // 2)
+
+    def resolve(self, r: "_Live") -> Span:
+        d0 = d1 = None
+        if r.events is not None:
+            card, e0, e1 = r.events
+            ev, host, _ = self.anchors[card]
+            e1.synchronize()
+            d0 = host + round(ev.elapsed_time(e0) * 1e6)
+            d1 = host + round(ev.elapsed_time(e1) * 1e6)
+        return Span(r.name, r.id, r.parent, r.call, r.t0, r.t1, r.wait, d0, d1, r.steps)
+
+
+def _session() -> _Session:
+    global _SESSION
+    if _SESSION is None:
+        _SESSION = _Session()
+    return _SESSION
+
+
+class _Live:
+    """A span site while tracing is on."""
+
+    __slots__ = ("name", "device", "wait", "id", "parent", "call", "t0", "t1", "events",
+                 "steps", "session", "before")
+
+    def __init__(self, name: str, device, wait: bool):
+        self.name, self.device, self.wait = name, device, wait
+        self.events = self.steps = self.before = None
+
+    def __enter__(self):
+        s = self.session = _session()
+        card = _card(self.device)
+        if card is not None and card not in s.anchors:
+            s.anchor(card)
+        up = s.stack[-1] if s.stack else None
+        s.ids += 1
+        self.id = s.ids
+        self.parent, self.call = (None, self.id) if up is None else (up.id, up.call)
+        if up is None:
+            self.before = _counts()
+        s.stack.append(self)
+        self.t0 = _clock()
+        if card is not None:
+            start = torch.cuda.Event(enable_timing=True)
+            start.record(torch.cuda.current_stream(card))
+            self.events = (card, start, torch.cuda.Event(enable_timing=True))
+        return self
+
+    def __exit__(self, *exc):
+        if self.events is not None:
+            self.events[2].record(torch.cuda.current_stream(self.events[0]))
+        self.t1 = _clock()
+        s = self.session
+        s.stack.pop()
+        s.records.append(self)
+        if self.before is not None:
+            for k, v in _counts().items():
+                s.counts[k] = s.counts.get(k, 0) + v - self.before.get(k, 0)
+        return False
+
+    def attach(self, steps: int) -> None:
+        """The LM steps the block's device loop ran (read afterwards)."""
+        self.steps = steps
