@@ -144,6 +144,7 @@ FS_NUDGES = 4
 FS_CALM_IT_OFF = 12  # a calm lane's count may lie this far beyond its spread (counts are 1..20)
 K5_CHECK_B = 256
 K5_PLAIN_CHUNK = 1024  # the plain resample makes (chunk, 152, 104) int64 indices
+LAYERS_REPS = 20    # back-to-back calls of the costmap layers kernel, timed
 CL_CYCLES = 10      # closed_loop_batched: the JAX benchmark's 10 cycles at MAIN_B
 K6_CHECK_ROUNDS = 8
 PEAK_TFLOPS = FP32_OPS_PER_S / 1e12
@@ -498,19 +499,21 @@ def k2_plain(p, d, X, U, lamb, do_forward):
 
 @contextlib.contextmanager
 def plain_versions():
-    """Inside: the wrappers of K1, K2, K3, K4 (fields given and fused) and
-    K5 (alone and with the overrides) run their plain versions on the card
+    """Inside: the wrappers of K1, K2, K3, K4 (fields given and fused), K5
+    (alone and with the overrides) and the costmap build's layers kernel
+    (``costmap_cuda``) run their plain versions on the card
     (the launch functions are swapped; their arguments are the plain
     versions').  Only the comparisons use it.  The LM loops' graphs are
     keyed by the launch functions (``solver._launch_route``), so a loop
     captured on the kernels is never replayed here, nor one captured here
     outside; the swapped functions are the same objects on every entry, so
     the captures made here serve every later entry."""
-    from cilqr_tpu_torch.ops import lm_cuda, riccati_cuda, sample_cuda, uncertainty_cuda
+    from cilqr_tpu_torch.ops import (costmap_cuda, lm_cuda, riccati_cuda, sample_cuda,
+                                     uncertainty_cuda)
 
     saved = (lm_cuda._launch, lm_cuda._launch_iteration, uncertainty_cuda._launch,
              uncertainty_cuda._launch_fused, sample_cuda._launch, sample_cuda._launch_vehicle_map,
-             riccati_cuda._launch)
+             riccati_cuda._launch, costmap_cuda._launch)
     lm_cuda._launch = k1_plain
     lm_cuda._launch_iteration = lm_cuda.fused_iteration_plain
     riccati_cuda._launch = k2_plain
@@ -518,12 +521,13 @@ def plain_versions():
     uncertainty_cuda._launch_fused = uncertainty_cuda.propagate_fused_plain
     sample_cuda._launch = sample_cuda.sample_prior_batched_plain
     sample_cuda._launch_vehicle_map = sample_cuda.vehicle_map_batched_plain
+    costmap_cuda._launch = costmap_cuda.costmap_layers_plain
     try:
         yield
     finally:
         (lm_cuda._launch, lm_cuda._launch_iteration, uncertainty_cuda._launch,
          uncertainty_cuda._launch_fused, sample_cuda._launch, sample_cuda._launch_vehicle_map,
-         riccati_cuda._launch) = saved
+         riccati_cuda._launch, costmap_cuda._launch) = saved
 
 
 def require(cond: bool, what: str) -> None:
@@ -661,11 +665,11 @@ def by_algorithm(calls: list, algorithms) -> dict:
 
 def expect_launches(label: str, algo: str, got: dict, cycles_built: int, lm_iter: int,
                     cycles_k1: int, k2: int) -> None:
-    """An algorithm's launches in one command: K5 and K4 once per cycle of
-    its full-stack loops, K3 ``lm_iter`` times (`cilqr`), K1 once per cycle
+    """An algorithm's launches in one command: the costmap layers kernel, K5
+    and K4 once per cycle of its full-stack loops, K3 ``lm_iter`` times (`cilqr`), K1 once per cycle
     of its shared-world solves (`cilqr_base`), K2 ``k2`` times (`ccnmpc`:
     once per LM iteration of each two-phase solve), nothing else."""
-    want = {"sample": cycles_built, "uncertainty": cycles_built,
+    want = {"costmap": cycles_built, "sample": cycles_built, "uncertainty": cycles_built,
             "lm_iter": lm_iter if algo == "cilqr" else 0,
             "lm": cycles_k1 if algo == "cilqr_base" else 0,
             "riccati": k2 if algo == "ccnmpc" else 0}
@@ -845,10 +849,11 @@ def experiment_layer(card: str, counts, dev: torch.device) -> tuple:
                 keep=lambda out, args, kw: (args, kw, pick(out))):
             run_s, run_out = cli_call(exp_run_argv(), dev, tmp / "run")
         launches["run"] = read_counts()
-        require(launches["run"] == {"sample": 0, "uncertainty": run_cycles + 1, "lm_iter": 0,
+        require(launches["run"] == {"costmap": run_cycles + 1, "sample": 0,
+                                    "uncertainty": run_cycles + 1, "lm_iter": 0,
                                     "lm": run_cycles + 1, "riccati": 0},
-                f"run --full-stack launches {launches['run']}, expected K4 and K1 "
-                f"{run_cycles + 1} times")
+                f"run --full-stack launches {launches['run']}, expected the costmap layers "
+                f"kernel, K4 and K1 {run_cycles + 1} times")
         rec = runs[0]
         check_records("run", [rec], 1, p.max_iterations)
         summary = json.loads(run_out)
@@ -1290,7 +1295,8 @@ def scale_out(card: str, counts, dev: torch.device) -> dict:
             (res, m), c = counted(lambda: fn(*world, samples.sigmas, samples.egos))
             b = MC_B // shards
             k3 = sum(int(res.iterations[i * b:(i + 1) * b].max()) for i in range(shards))
-            require(c == {"sample": 0, "uncertainty": shards, "lm_iter": k3, "lm": 0, "riccati": 0},
+            require(c == {"costmap": 0, "sample": 0, "uncertainty": shards, "lm_iter": k3,
+                          "lm": 0, "riccati": 0},
                     f"sharded MC on {shards} shards launched {c}, expected K4 {shards}, K3 {k3}")
             require(same_bits(res, mref), f"sharded MC on {shards} shards differs from the "
                     f"unsharded call: " + ", ".join(f"{f} max |d| {float((a.double() - w.double()).abs().max()):.3e}"
@@ -1328,9 +1334,11 @@ def scale_out(card: str, counts, dev: torch.device) -> dict:
         b = FS_B // SO_FS_SHARDS
         k3 = sum(int(v) for i in range(SO_FS_SHARDS)
                  for v in rec["iterations"][:, i * b:(i + 1) * b].amax(dim=1))
-        require(c == {"sample": SO_FS_SHARDS * FS_CYCLES, "uncertainty": SO_FS_SHARDS * FS_CYCLES,
-                      "lm_iter": k3, "lm": 0, "riccati": 0},
-                f"sharded full stack launched {c}, expected K5 and K4 {SO_FS_SHARDS * FS_CYCLES}, "
+        require(c == {"costmap": SO_FS_SHARDS * FS_CYCLES, "sample": SO_FS_SHARDS * FS_CYCLES,
+                      "uncertainty": SO_FS_SHARDS * FS_CYCLES, "lm_iter": k3, "lm": 0,
+                      "riccati": 0},
+                f"sharded full stack launched {c}, expected the costmap layers kernel, K5 and "
+                f"K4 {SO_FS_SHARDS * FS_CYCLES}, "
                 f"K3 {k3}")
         require(bool(torch.isfinite(xf).all()) and tuple(rec["J"].shape) == (FS_CYCLES, FS_B),
                 "sharded full stack: non-finite states or record shape")
@@ -1354,7 +1362,7 @@ def scale_out(card: str, counts, dev: torch.device) -> dict:
         fs_ms = cuda_ms(lambda: fs_fn(gmap, ggeom, plan, n, x0s, SO_SEED), 1)
         chunk_ms = cuda_ms(per_chunk, 1)
         out["full_stack"] = {"sample": c["sample"], "uncertainty": c["uncertainty"],
-                             "lm_iter": c["lm_iter"]}
+                             "lm_iter": c["lm_iter"], "costmap": c["costmap"]}
         print(f"[16d sharded full stack] B={FS_B} N={HORIZON} {FS_CYCLES} cycles, random map, "
               f"{SO_FS_SHARDS} shards: {fs_ms:.3f} ms/call ({FS_CYCLES * FS_B / fs_ms * 1e3:.0f} "
               f"cycles/s), the 4 per-chunk runs {chunk_ms:.3f} ms | launches {c} per call | final "
@@ -1496,12 +1504,13 @@ def bench_sections(calls: list, B: int) -> dict:
     call held to the launches its section implies: a batched solve K1 once
     (the main path at B, the serving path at B=1); the unfused single solve
     none; a Monte-Carlo call K4 once and K3 once per LM iteration of its
-    slowest lane; a full-stack call K5 and K4 once per cycle and K3 once per
+    slowest lane; a full-stack call the costmap layers kernel, K5 and K4
+    once per cycle and K3 once per
     LM iteration of each cycle's slowest lane; a closed-loop call K1 once
     per cycle."""
     from cilqr_tpu_torch import benchmark
 
-    zero = {"sample": 0, "uncertainty": 0, "lm_iter": 0, "lm": 0, "riccati": 0}
+    zero = {"costmap": 0, "sample": 0, "uncertainty": 0, "lm_iter": 0, "lm": 0, "riccati": 0}
     sections = {}
     for name, got, kept in calls:
         if name == "run_steps_batched":
@@ -1512,7 +1521,8 @@ def bench_sections(calls: list, B: int) -> dict:
         elif name == "monte_carlo":
             section, want = "mc", dict(zero, uncertainty=1, lm_iter=int(kept))
         elif name == "closed_loop_full_stack_batched":
-            section, want = "full_stack", dict(zero, sample=benchmark.FS_CYCLES,
+            section, want = "full_stack", dict(zero, costmap=benchmark.FS_CYCLES,
+                                               sample=benchmark.FS_CYCLES,
                                                uncertainty=benchmark.FS_CYCLES, lm_iter=int(kept))
         else:
             section, want = "closed_loop", dict(zero, lm=benchmark.CL_CYCLES)
@@ -2020,7 +2030,7 @@ def scripts_phase(card: str, counts, dev: torch.device) -> dict:
     require(len(rows) == cells and all(
         0 <= r["wall_hits"] <= r["collided"] <= R and 0 <= r["car_hits"] <= r["collided"]
         for r in rows), f"classification rows {rows}")
-    require(l_cls["sample"] == l_cls["uncertainty"] == cells * T
+    require(l_cls["costmap"] == l_cls["sample"] == l_cls["uncertainty"] == cells * T
             and l_cls["lm_iter"] >= cells * T and not l_cls["lm"] and not l_cls["riccati"],
             f"classification launches {l_cls} for {cells} cells x {T} cycles")
     cls_s = time.perf_counter() - t0
@@ -2050,7 +2060,8 @@ def scripts_phase(card: str, counts, dev: torch.device) -> dict:
             and all(math.isfinite(row[k]) for k in ("velocity_mean", "min_obstacle_distance",
                                                      "mean_jerk")),
             f"sweep row {row}")
-    require(l_ps["sample"] == l_ps["uncertainty"] == T and l_ps["lm_iter"] >= T,
+    require(l_ps["costmap"] == l_ps["sample"] == l_ps["uncertainty"] == T
+            and l_ps["lm_iter"] >= T,
             f"sweep cell launches {l_ps} for {T} cycles")
     print(f"[19c production_sweeps] r5_rot25, cilqr at sigma 0.5, {R} runs x {T} cycles, "
           f"{time.perf_counter() - t0:.1f} s, launches {l_ps}: {json.dumps(row)}", flush=True)
@@ -2455,7 +2466,8 @@ def main() -> None:
     from cilqr_tpu_torch.models import costs, dynamics, solver, solver_batched
     from cilqr_tpu_torch.models.reference_path import get_local_plan
     from cilqr_tpu_torch.ops import costmap as costmap_mod
-    from cilqr_tpu_torch.ops import gridmap, lm_cuda, riccati_cuda, sample_cuda, uncertainty_cuda
+    from cilqr_tpu_torch.ops import (costmap_cuda, gridmap, lm_cuda, riccati_cuda, sample_cuda,
+                                     uncertainty_cuda)
     from cilqr_tpu_torch.parallel import monte_carlo as mc
     from cilqr_tpu_torch.sim import perception, plant
     from cilqr_tpu_torch.sim.example_scenario import example_scenario
@@ -2479,7 +2491,7 @@ def main() -> None:
             require(any(ln.startswith(f"{kernel}<{G}>:") and "0/0 spill" in ln for ln in ptxas),
                     f"{kernel}<{G}> spills or is missing from the ptxas report: {ptxas}")
     for kernel in ("riccati_kernel", "propagate_kernel", "fields_kernel", "sample_kernel",
-                   "lm_continue_kernel", "lm_reset_kernel"):
+                   "costmap_layers_kernel", "lm_continue_kernel", "lm_reset_kernel"):
         found = [ln for ln in ptxas if ln.startswith(kernel)]
         require(found and all("0/0 spill" in ln for ln in found),
                 f"{kernel} spills or is missing from the ptxas report: {ptxas}")
@@ -3052,14 +3064,17 @@ def main() -> None:
                               sigma_hi=SIGMA_HI, impl="fast", band_plan=band_plan)
 
     lm_cuda.LAUNCHES = lm_cuda.ITER_LAUNCHES = 0
-    riccati_cuda.LAUNCHES = uncertainty_cuda.LAUNCHES = 0
+    riccati_cuda.LAUNCHES = uncertainty_cuda.LAUNCHES = costmap_cuda.LAUNCHES = 0
     res = mc_fast(samples)
     torch.cuda.synchronize()
     mc_launches = {"uncertainty": uncertainty_cuda.LAUNCHES, "lm_iter": lm_cuda.ITER_LAUNCHES,
-                   "lm": lm_cuda.LAUNCHES, "riccati": riccati_cuda.LAUNCHES}
+                   "lm": lm_cuda.LAUNCHES, "riccati": riccati_cuda.LAUNCHES,
+                   "costmap": costmap_cuda.LAUNCHES}
     it_min, it_max = int(res.iterations.min()), int(res.iterations.max())
-    require(mc_launches == {"uncertainty": 1, "lm_iter": it_max, "lm": 0, "riccati": 0},
-            f"MC path launches {mc_launches}, expected K4 once, K3 {it_max} times, K1 and K2 never")
+    require(mc_launches == {"uncertainty": 1, "lm_iter": it_max, "lm": 0, "riccati": 0,
+                            "costmap": 0},
+            f"MC path launches {mc_launches}, expected K4 once, K3 {it_max} times, K1, K2 and "
+            "the costmap layers kernel never")
     require("hybrid" in loop_kinds(MC_B), f"MC path: the graphed loops are {loop_kinds()}")
     require(bool(torch.isfinite(res.X).all() and torch.isfinite(res.U).all()),
             "non-finite X/U on the MC path")
@@ -3267,30 +3282,38 @@ def main() -> None:
           f"{turn_ms['fused']}", flush=True)
     del gotM5, geomsM5, bboxM5, semM5
 
-    # 12. the costmap build at B=8192: K5 once, K4 once (per-scenario priors,
-    # frames and yaws).  Against the same build on the plain versions: the
-    # vehicle map (a gather and two overrides) exactly, the uncertainty map
-    # at K4's bar; lane 0 against the single-scenario build in float64.
+    # 12. the costmap build at B=8192: the layers kernel once, K5 once, K4
+    # once (per-scenario priors, frames and yaws).  Against the same build on
+    # the plain versions: the corridor mask, the box layer and the vehicle
+    # map (a gather and two overrides) exactly, the uncertainty map at K4's
+    # bar; lane 0 against the single-scenario build in float64.
     def fs_build(states, **kw):
         return costmap_mod.build_local_costmap_batched(
             cpf, gmap, ggeom, plan, n, states, obs_xyyaw[:, :2], obs_size.expand(2, 2),
             obs_xyyaw[:, 2], obs_mask, band_plan=fs_band, **kw)
 
-    sample_cuda.LAUNCHES = uncertainty_cuda.LAUNCHES = 0
+    def build_counts():
+        return {"costmap": costmap_cuda.LAUNCHES, "sample": sample_cuda.LAUNCHES,
+                "uncertainty": uncertainty_cuda.LAUNCHES}
+
+    costmap_cuda.LAUNCHES = sample_cuda.LAUNCHES = uncertainty_cuda.LAUNCHES = 0
     torch.cuda.reset_peak_memory_stats()
-    cm = fs_build(x0s)
+    layer_terms = []
+    with recording(costmap_cuda, "_launch", layer_terms, keep=lambda out, args, kw: args):
+        cm = fs_build(x0s)
     torch.cuda.synchronize()
-    build_launches = {"sample": sample_cuda.LAUNCHES, "uncertainty": uncertainty_cuda.LAUNCHES}
+    build_launches = build_counts()
     build_peak = torch.cuda.max_memory_allocated() / 1e9
-    require(build_launches == {"sample": 1, "uncertainty": 1},
-            f"costmap build launches {build_launches}, expected K5 once and K4 once")
+    require(build_launches == {"costmap": 1, "sample": 1, "uncertainty": 1},
+            f"costmap build launches {build_launches}, expected the layers kernel, K5 and K4 "
+            "once each")
+    require(len(layer_terms) == 1, f"the build called the layers wrapper {len(layer_terms)} times")
     with plain_versions():
         cm_plain = fs_build(x0s)
-    require(build_launches == {"sample": sample_cuda.LAUNCHES,
-                               "uncertainty": uncertainty_cuda.LAUNCHES},
-            "the plain build launched a kernel")
-    require(torch.equal(cm.vehicle_map, cm_plain.vehicle_map),
-            "costmap build: the vehicle map differs from the plain build")
+    require(build_launches == build_counts(), "the plain build launched a kernel")
+    for f in ("corridor_mask", "bounding_box_map", "vehicle_map"):
+        require(torch.equal(getattr(cm, f), getattr(cm_plain, f)),
+                f"costmap build: {f} differs from the plain build")
     err12, excess12 = max_excess(cm.uncertainty_map, cm_plain.uncertainty_map, rtol=2e-5, atol=2e-4)
     require(excess12 <= 0.0, f"costmap build: uncertainty map off by {err12:.3e}, beyond 2e-5 rel "
             "+ 2e-4 abs")
@@ -3345,8 +3368,8 @@ def main() -> None:
     kernels["uncertainty"]["full_stack"] = dict(
         ms_with_fields=k4_fs_ms, kernel_only_ms=k4_fs_kernel_ms, max_abs_err=err12, **fs_k4_bound,
         fields_given=dict(ms=k4_fs_given_ms, prep_fields_ms=fields_fs_ms, **fs_given_bound))
-    print(f"[12 costmap build] B={FS_B}: launches {build_launches} | vehicle map equal to the plain "
-          f"build on every cell | uncertainty map max|kernel-plain| {err12:.3e} (bar 2e-5 rel + "
+    print(f"[12 costmap build] B={FS_B}: launches {build_launches} | corridor mask, box layer "
+          f"and vehicle map equal to the plain build on every cell | uncertainty map max|kernel-plain| {err12:.3e} (bar 2e-5 rel + "
           f"2e-4 abs) | lane 0 vs float64 build_local_costmap: {100 * same_cells:.2f}% of vehicle-"
           f"map cells equal, mean |uncertainty - float64| kernel {k_dev:.3e} plain {p_dev:.3e} | "
           f"{bbox_cells} obstacle cells in lane 0 | {len(fs_band.bands)} bands, radii "
@@ -3360,9 +3383,53 @@ def main() -> None:
           f"the build {build_peak:.2f} GB", flush=True)
     del cm, cm_plain, cm64, fields_fs, same
 
+    # the layers kernel alone on the build's own terms at B=8192 (the
+    # corridor bounds, cell centres, obstacle corners and flags the build
+    # formed): equal to its plain version on every cell of both layers, and
+    # timed against it.  Bound: the terms read once and the two maps written
+    # once; per cell 4 compares for the corridor and, per obstacle edge, a
+    # product, two subtractions and two compares.  Timed by CUDA events over
+    # back-to-back calls, with the host's seconds to issue them beside: where
+    # the host issues faster than the card runs, the events time the kernel.
+    # (torch.profiler's kernel time for this kernel read below its byte bound.)
+    (terms12,) = layer_terms
+    layers_call = lambda: costmap_cuda.costmap_layers(*terms12)
+    got12 = layers_call()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    for _ in range(LAYERS_REPS):
+        layers_call()
+    end.record()
+    layers_issue_ms = (time.perf_counter() - t0) * 1e3 / LAYERS_REPS
+    torch.cuda.synchronize()
+    layers_ms = start.elapsed_time(end) / LAYERS_REPS
+    layers_plain_ms, want12 = timed(lambda: costmap_cuda.costmap_layers_plain(*terms12), 2)
+    for f, g, w in zip(("corridor mask", "box layer"), got12, want12):
+        require(torch.equal(g, w), f"layers kernel B={FS_B}: {int((g != w).sum())} cells of the "
+                f"{f} differ from the plain version")
+    n_obs = terms12[3].shape[-3]
+    layers_bound = bound(nbytes(*terms12) + nbytes(*got12), got12[0].numel() * (4 + 20 * n_obs))
+    box_cells = int((got12[1] > 0).sum())
+    corridor_share = float(got12[0].double().mean())
+    kernels["costmap"] = dict(
+        name="costmap_layers", route="cuda", source="cilqr_tpu_torch/csrc/costmap.cu",
+        replaces="none: the corridor mask and rasterize_obstacles of cilqr_tpu/ops/costmap.py, "
+                 "which XLA fuses on the chip",
+        max_abs_err=0.0, ms=layers_ms, host_issue_ms=layers_issue_ms, plain_ms=layers_plain_ms,
+        **layers_bound, library_ms=NO_LIBRARY_CALL, timed=f"B={FS_B}, {n_obs} obstacles")
+    print(f"[12 costmap layers] B={FS_B} frames of {fs_rows} x {fs_cols}, {n_obs} obstacles "
+          f"(the build's terms): corridor mask ({100 * corridor_share:.1f}% of cells) and box "
+          f"layer ({box_cells} cells) equal to the plain version on every cell | wrapper "
+          f"{layers_ms:.3f} ms a call over {LAYERS_REPS} back-to-back calls (the host issued "
+          f"each in {layers_issue_ms:.3f} ms), plain {layers_plain_ms:.3f} ms, bound "
+          f"{layers_bound['bound_ms']:.3f} ms by {layers_bound['bound_by']} on {card}", flush=True)
+    del layer_terms, terms12, got12, want12
+
     # 13. the full-stack path: closed_loop_full_stack_batched at B=8192,
-    # 5 cycles.  Per cycle it launches K5 once, K4 once and K3 once per LM
-    # iteration of the slowest lane; never K1 or K2.
+    # 5 cycles.  Per cycle it launches the layers kernel once, K5 once, K4
+    # once and K3 once per LM iteration of the slowest lane; never K1 or K2.
     fs_draws = torch.randn((FS_CYCLES, FS_B, 3), dtype=torch.float32, device=dev,
                            generator=torch.Generator(device=dev).manual_seed(12))
 
@@ -3380,11 +3447,12 @@ def main() -> None:
             global_res=0.5, noise_draws=draws, **obs, **kw)
 
     def zero_counts():
-        lm_cuda.LAUNCHES = lm_cuda.ITER_LAUNCHES = 0
+        lm_cuda.LAUNCHES = lm_cuda.ITER_LAUNCHES = costmap_cuda.LAUNCHES = 0
         riccati_cuda.LAUNCHES = uncertainty_cuda.LAUNCHES = sample_cuda.LAUNCHES = 0
 
     def read_counts():
-        return {"sample": sample_cuda.LAUNCHES, "uncertainty": uncertainty_cuda.LAUNCHES,
+        return {"costmap": costmap_cuda.LAUNCHES, "sample": sample_cuda.LAUNCHES,
+                "uncertainty": uncertainty_cuda.LAUNCHES,
                 "lm_iter": lm_cuda.ITER_LAUNCHES, "lm": lm_cuda.LAUNCHES,
                 "riccati": riccati_cuda.LAUNCHES}
 
@@ -3397,10 +3465,11 @@ def main() -> None:
         fs_launches = read_counts()
         fs_peak = torch.cuda.max_memory_allocated() / 1e9
         it_max = [int(v) for v in rec["iterations"].amax(dim=1)]
-        require(fs_launches == {"sample": FS_CYCLES, "uncertainty": FS_CYCLES,
-                                "lm_iter": sum(it_max), "lm": 0, "riccati": 0},
-                f"full-stack launches {fs_launches} on the {label}, expected K5 and K4 once per "
-                f"cycle, K3 {it_max} per cycle, K1 and K2 never")
+        require(fs_launches == {"costmap": FS_CYCLES, "sample": FS_CYCLES,
+                                "uncertainty": FS_CYCLES, "lm_iter": sum(it_max), "lm": 0,
+                                "riccati": 0},
+                f"full-stack launches {fs_launches} on the {label}, expected the layers kernel, "
+                f"K5 and K4 once per cycle, K3 {it_max} per cycle, K1 and K2 never")
         require("hybrid" in loop_kinds(FS_B), f"full stack: the graphed loops are {loop_kinds()}")
         require(all(bool(torch.isfinite(v.float()).all()) for v in rec.values())
                 and bool(torch.isfinite(xf).all()), f"non-finite record on the {label}")
@@ -3455,7 +3524,8 @@ def main() -> None:
     for label, gm, cycles in (("all-zero map", gmap_zero, FS_CYCLES), ("random map", gmap, 2)):
         sub_launches, got_c, line = hold_loop(f"full-stack, {label}", captured(gm), x0s[:L],
                                               fs_draws[:cycles, :L], (zero_counts, read_counts))
-        require(sub_launches == {"sample": cycles, "uncertainty": cycles, "lm": 0, "riccati": 0,
+        require(sub_launches == {"costmap": cycles, "sample": cycles, "uncertainty": cycles,
+                                 "lm": 0, "riccati": 0,
                                  "lm_iter": sum(int(g[2].max()) for g in got_c)},
                 f"the {L}-lane run launched {sub_launches}")
         print(f"[13 lanes] {label}, first {L} lanes vs the loop on the plain versions: {line}",
@@ -3480,8 +3550,9 @@ def main() -> None:
     xf_cl, rec_cl = closed_loop()
     torch.cuda.synchronize()
     cl_launches = read_counts()
-    require(cl_launches == {"sample": 0, "uncertainty": 0, "lm_iter": 0, "lm": CL_CYCLES,
-                            "riccati": 0}, f"closed_loop_batched launches {cl_launches}")
+    require(cl_launches == {"costmap": 0, "sample": 0, "uncertainty": 0, "lm_iter": 0,
+                            "lm": CL_CYCLES, "riccati": 0},
+            f"closed_loop_batched launches {cl_launches}")
     require(bool(torch.isfinite(xf_cl).all()) and bool(torch.isfinite(rec_cl["J"]).all())
             and 1 <= int(rec_cl["iterations"].min())
             and int(rec_cl["iterations"].max()) <= p.max_iterations, "closed_loop_batched record")
@@ -3567,7 +3638,7 @@ def main() -> None:
 
     # 15. the experiment layer: the CLI's run, compare and sweep
     exp_launches, exp_algos = experiment_layer(card, (zero_counts, read_counts), dev)
-    for name in ("lm", "riccati", "lm_iter", "uncertainty", "sample"):
+    for name in ("lm", "riccati", "lm_iter", "uncertainty", "sample", "costmap"):
         kernels[name]["experiment_launches"] = {cmd: c[name] for cmd, c in exp_launches.items()}
         kernels[name]["experiment_launches_by_algorithm"] = {
             cmd: {a: v["launches"][name] for a, v in by.items() if v["launches"][name]}
@@ -3579,12 +3650,12 @@ def main() -> None:
     kernels["lm"]["sharded_solve_launches_by_shards"] = so["solve"]
     for name in ("uncertainty", "lm_iter"):
         kernels[name]["sharded_mc_launches_by_shards"] = {k: v[name] for k, v in so["mc"].items()}
-    for name in ("sample", "uncertainty", "lm_iter"):
+    for name in ("sample", "uncertainty", "lm_iter", "costmap"):
         kernels[name]["sharded_full_stack_launches"] = so["full_stack"][name]
 
     # 17. the benchmark driver at its defaults, and its trace
     bench, bench_line = benchmark_phase(card, (zero_counts, read_counts), dev, main_mean_it)
-    for name in ("lm", "riccati", "lm_iter", "uncertainty", "sample"):
+    for name in ("lm", "riccati", "lm_iter", "uncertainty", "sample", "costmap"):
         kernels[name]["benchmark_launches"] = {
             section: launches[name] for section, launches in bench.items() if launches[name]}
 
@@ -3593,7 +3664,7 @@ def main() -> None:
 
     # 19. the JAX package's programs on the port, cut small
     script_launches = scripts_phase(card, (zero_counts, read_counts), dev)
-    for name in ("lm_iter", "uncertainty", "sample"):
+    for name in ("lm_iter", "uncertainty", "sample", "costmap"):
         kernels[name]["scripts_launches"] = {k: v[name] for k, v in script_launches.items()}
 
     # 20. the hybrid (K3) and two-phase (K2) LM loops as CUDA graphs against
@@ -3661,8 +3732,8 @@ def main() -> None:
                                  loops=True),
     }
     want21 = {"mega_b1": dict(lm=1), "mega": dict(lm=1), "closed_loop": dict(lm=CL_CYCLES),
-              "mc": dict(uncertainty=1), "full_stack": dict(sample=FS_CYCLES,
-                                                            uncertainty=FS_CYCLES)}
+              "mc": dict(uncertainty=1, costmap=0),
+              "full_stack": dict(costmap=FS_CYCLES, sample=FS_CYCLES, uncertainty=FS_CYCLES)}
     for k, want in want21.items():
         got = {name: stages[k]["launches"][name] for name in want}
         require(got == want, f"phase 21 {k}: launches {stages[k]['launches']}, expected {want}")
@@ -3670,7 +3741,7 @@ def main() -> None:
         graphed_ms=stages[k]["graphed_ms"], eager_ms=stages[k]["eager_ms"],
         kernels_per_replay=stages[k]["kernels_per_replay"]) for k in ("mega_b1", "mega",
                                                                       "closed_loop")}
-    for name, k in (("uncertainty", "mc"), ("sample", "full_stack")):
+    for name, k in (("uncertainty", "mc"), ("sample", "full_stack"), ("costmap", "full_stack")):
         kernels[name]["graphed_stages"] = dict(
             graphed_ms=stages[k]["graphed_ms"], eager_ms=stages[k]["eager_ms"],
             kernels_per_replay=stages[k]["kernels_per_replay"])
@@ -3695,12 +3766,17 @@ def main() -> None:
     kernels["lm"]["closed_loop_batched_launches"] = cl_launches["lm"]
     kernels["sample"]["launches"] = fs_launches["sample"]
     kernels["sample"]["path"] = "closed_loop_full_stack_batched, phase 13"
+    kernels["costmap"]["launches"] = fs_launches["costmap"]
+    kernels["costmap"]["path"] = "closed_loop_full_stack_batched, phase 13"
+    kernels["costmap"]["mc_launches"] = mc_launches["costmap"]
+    kernels["costmap"]["closed_loop_batched_launches"] = cl_launches["costmap"]
     require("jax" not in sys.modules and "cilqr_tpu" not in sys.modules,
             "jax or the JAX package was imported")
     print(f"[done] {time.perf_counter() - t_script:.1f} s, the build included", flush=True)
     kernels["lm_continue"] = condition
     print(json.dumps({"kernels": [kernels[k] for k in ("lm", "riccati", "lm_iter", "uncertainty",
-                                                       "sample", "opchain", "lm_continue")]}))
+                                                       "sample", "costmap", "opchain",
+                                                       "lm_continue")]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -161,11 +161,18 @@ def rasterize_polygon(geom: GridGeom, rows: int, cols: int, vertices: torch.Tens
     """(..., rows, cols) float mask of cells whose centers lie inside the
     convex polygon ``vertices`` (..., K, 2), CCW or CW (grid_map's
     ``PolygonIterator`` as an all-same-side half-plane test).  ``geom`` is
-    shared or has the leading dims of ``vertices``.
+    shared or has the leading dims of ``vertices``."""
+    xs, ys = cell_positions(geom, rows, cols)
+    return polygon_mask(xs, ys, vertices, geom.center.dtype)
+
+
+def polygon_mask(xs: torch.Tensor, ys: torch.Tensor, vertices: torch.Tensor,
+                 dtype: torch.dtype) -> torch.Tensor:
+    """``rasterize_polygon`` on the cell-center coordinates xs (..., rows)
+    and ys (..., cols) of ``cell_positions``, as a ``dtype`` mask.
 
     The same-side test is accumulated edge by edge, so the temporaries stay
     (..., rows, cols) whatever K is."""
-    xs, ys = cell_positions(geom, rows, cols)
     px = xs[..., :, None]
     py = ys[..., None, :]
     K = vertices.shape[-2]
@@ -181,7 +188,7 @@ def rasterize_polygon(geom: GridGeom, rows: int, cols: int, vertices: torch.Tens
         ge, le = cross >= 0, cross <= 0
         all_ge = ge if all_ge is None else all_ge & ge
         all_le = le if all_le is None else all_le & le
-    return (all_ge | all_le).to(geom.center.dtype)
+    return (all_ge | all_le).to(dtype)
 
 
 def submap_mask(rows: int, cols: int, start: torch.Tensor, size: torch.Tensor,

@@ -115,6 +115,8 @@ def load_library() -> ctypes.CDLL:
     lib.cilqr_fields.restype = i
     lib.cilqr_sample_prior.argtypes = [i] * 6 + [p] * 6 + [i, p, i] + [p] * 5 + [p]
     lib.cilqr_sample_prior.restype = i
+    lib.cilqr_costmap_layers.argtypes = [i] * 5 + [p] * 7 + [p]
+    lib.cilqr_costmap_layers.restype = i
     lib.cilqr_opchain.argtypes = [i, i, ctypes.c_longlong, p, p, p]
     lib.cilqr_opchain.restype = i
     lib.cilqr_lm_continue.argtypes = [p, i, p, i, p, p]

@@ -237,8 +237,9 @@ class Recorder(TorchDispatchMode):
 
 def test_the_paths_reach_the_ops_on_the_cpu():
     """A recording dispatch mode finds ``cilqr_torch::lm_opt`` once in the
-    shared-world mega solve, and ``cilqr_torch::sample`` and
-    ``cilqr_torch::propagate`` once each in the batched costmap build."""
+    shared-world mega solve, and ``cilqr_torch::costmap_layers``,
+    ``cilqr_torch::sample`` and ``cilqr_torch::propagate`` once each in the
+    batched costmap build."""
     w = world(torch.float32, 3, seed=7)
     with Recorder() as rec:
         solver_batched.run_steps_batched(w["p"], w["plan"], w["n"], w["egos"], w["U"],
@@ -250,7 +251,7 @@ def test_the_paths_reach_the_ops_on_the_cpu():
                                             w["egos"], obs_xyyaw[:, :2], obs_size,
                                             obs_xyyaw[:, 2], obs_mask, use_kernels=True)
     assert [n for n in rec.names if n.startswith("cilqr_torch::")] == [
-        "cilqr_torch::sample", "cilqr_torch::propagate"]
+        "cilqr_torch::costmap_layers", "cilqr_torch::sample", "cilqr_torch::propagate"]
 
 
 def test_the_launch_functions_and_counters_are_entered():
@@ -264,11 +265,11 @@ def test_the_launch_functions_and_counters_are_entered():
     assert entered == {("lm_cuda", "_launch"), ("lm_cuda", "_launch_iteration"),
                        ("riccati_cuda", "_launch"), ("uncertainty_cuda", "_launch"),
                        ("uncertainty_cuda", "_launch_fused"), ("sample_cuda", "_launch"),
-                       ("sample_cuda", "_launch_vehicle_map")}
+                       ("sample_cuda", "_launch_vehicle_map"), ("costmap_cuda", "_launch")}
     counters = {(m.__name__.rsplit(".", 1)[-1], n) for m, n in graphs.COUNTERS}
     assert counters >= {("lm_cuda", "LAUNCHES"), ("lm_cuda", "ITER_LAUNCHES"),
                         ("riccati_cuda", "LAUNCHES"), ("uncertainty_cuda", "LAUNCHES"),
-                        ("sample_cuda", "LAUNCHES")}
+                        ("sample_cuda", "LAUNCHES"), ("costmap_cuda", "LAUNCHES")}
     assert graphs.on_kernels()
     with chip_smoke.plain_versions():
         assert not graphs.on_kernels()
