@@ -92,7 +92,16 @@ went through its kernels:
                host-polled too): outputs equal bit for bit, the launch
                counts equal; ms per call each way, the device's idle
                share, device kernels per replay and pool bytes of each
-               graph.
+               graph;
+  phase 22     the CCNMPC campaign on the benchmark's deployment
+               (``benchmarks/configs/ccnmpc_success1_n40.json``: N=40, the
+               three success1 obstacles, two SQP rounds) at B=8192 x 3
+               cycles: ``closed_loop_batched`` with the CCNMPC plan step,
+               graphed (per round a start graph and the device loop)
+               against ``solver.GRAPHS = False``, bit for bit; K2's
+               launches the sum of the rounds' largest iteration counts and
+               the rounds 6, both ways; K2 on one round's own derivatives at
+               (8192, 40) against its plain versions at phase 3's bars.
 
 Every phase prints a line (the profiles one per batch size); any failure
 raises, so the exit code is nonzero.  The last line is one JSON object:
@@ -146,6 +155,10 @@ K5_CHECK_B = 256
 K5_PLAIN_CHUNK = 1024  # the plain resample makes (chunk, 152, 104) int64 indices
 LAYERS_REPS = 20    # back-to-back calls of the costmap layers kernel, timed
 CL_CYCLES = 10      # closed_loop_batched: the JAX benchmark's 10 cycles at MAIN_B
+CC_B = 8192         # the CCNMPC campaign (phase 22): the benchmark cell's batch and deployment
+CC_CYCLES = 3
+CC_CONFIG = pathlib.Path(__file__).resolve().parent / "benchmarks" / "configs" / \
+    "ccnmpc_success1_n40.json"
 K6_CHECK_ROUNDS = 8
 PEAK_TFLOPS = FP32_OPS_PER_S / 1e12
 NO_LIBRARY_CALL = None  # where no single PyTorch call computes a kernel's function
@@ -341,6 +354,53 @@ def rollout_step_check(p, X, U, k, K, Xn, Un) -> list:
         require(excess <= 0.0, f"{name}: a rollout step is off by {err:.3e}, beyond "
                 "1e-4 rel + 1e-5 abs")
     return out
+
+
+def k2_held(p, d, X, U, lamb) -> tuple:
+    """K2, ``riccati_cuda``'s backward and backward + rollout calls (one
+    launch each), on the derivatives ``d`` at (X, U, lamb), held to its plain
+    versions (phase 3's bars): the gains within 1e-4 relative + 1e-5
+    absolute of the float32 plain version; each rollout step at the same
+    bar (``rollout_step_check``); the whole X_new and U_new no further from
+    the float64 plain version than twice the float32 plain version, + 1e-6.
+    Returns (the largest |kernel - plain|, the rollout checks' lines)."""
+    from cilqr_tpu_torch.models import costs
+    from cilqr_tpu_torch.ops import riccati_cuda
+
+    before = riccati_cuda.LAUNCHES
+    k_got, K_got = riccati_cuda.backward_batched(p, d, X, U, lamb)
+    Xn_got, Un_got = riccati_cuda.backward_forward_batched(p, d, X, U, lamb)
+    torch.cuda.synchronize()
+    require(riccati_cuda.LAUNCHES == before + 2, "K2 launch counter did not move")
+    k_want, K_want = riccati_cuda.backward_plain(p, d, X, U, lamb)
+    Xn_want, Un_want = riccati_cuda.backward_forward_plain(p, d, X, U, lamb)
+    # Gains: within 1e-4 relative + 1e-5 absolute of the float32 plain version
+    # (the two differ only in operation order and FMA contraction).
+    k2_err = 0.0
+    for name, got, want in (("k", k_got, k_want), ("K", K_got, K_want)):
+        err, excess = max_excess(got, want, rtol=1e-4, atol=1e-5)
+        k2_err = max(k2_err, err)
+        require(excess <= 0.0, f"K2 {name}: max |diff| {err:.3e} exceeds 1e-4 rel + 1e-5 abs")
+    # Rollout, step by step at the same bar: each step of the kernel is held
+    # to that step computed in float64 from the kernel's own previous state
+    # and gains.  The whole trajectories of two float32 rollouts drift apart
+    # by ~1e-4 in u (float32 positions near 300 m carry an ulp of 3e-5 m,
+    # which the gains, |K| up to ~13, amplify along the horizon), so the
+    # whole trajectory is held instead to the float64 plain version: at most
+    # twice as far from it as the float32 plain version is.
+    roll = [f"{name} per step {err:.3e}"
+            for name, err in rollout_step_check(p, X, U, k_got, K_got, Xn_got, Un_got)]
+    d64 = costs.CostDerivs(*(t.double() for t in d))
+    Xn_64, Un_64 = riccati_cuda.backward_forward_plain(
+        p, d64, X.double(), U.double(), lamb.double())
+    for name, got, want, ref in (("X_new", Xn_got, Xn_want, Xn_64), ("U_new", Un_got, Un_want, Un_64)):
+        k_dev = float((got.double() - ref).abs().max())
+        p_dev = float((want.double() - ref).abs().max())
+        k2_err = max(k2_err, float((got - want).abs().max()))
+        roll.append(f"{name} whole: kernel-f64 {k_dev:.3e} plain32-f64 {p_dev:.3e}")
+        require(k_dev <= 2.0 * p_dev + 1e-6, f"K2 {name}: kernel {k_dev:.3e} from float64, "
+                f"float32 plain {p_dev:.3e}")
+    return k2_err, roll
 
 
 def max_excess(got: torch.Tensor, want: torch.Tensor, rtol: float, atol: float):
@@ -825,7 +885,7 @@ def experiment_layer(card: str, counts, dev: torch.device) -> tuple:
     each.  Returns (the launch counts of each command, per command and
     algorithm its seconds, launches and vehicle-cycles/s)."""
     from cilqr_tpu_torch import CostmapParams, NoiseParams, SolverParams
-    from cilqr_tpu_torch.models import nrb_rrt, reference_path as rp, solver_batched
+    from cilqr_tpu_torch.models import ccnmpc, nrb_rrt, reference_path as rp, solver_batched
     from cilqr_tpu_torch.ops import costmap as costmap_mod, sample_cuda
     from cilqr_tpu_torch.sim import plant, runner, scenarios, sweep
 
@@ -891,15 +951,15 @@ def experiment_layer(card: str, counts, dev: torch.device) -> tuple:
         # axis: per scenario and algorithm one batched loop of B = runs, in
         # the order compare/cilqr, ..., compare/nrb_rrt, gauntlet/cilqr, ...
         # Each loop's seconds and launches are read around its call; the
-        # two-phase solves are recorded, for K2's expected count
+        # two-phase solves (`ccnmpc`'s SQP rounds) are recorded, for K2's
+        # expected count
         calls, solves = [], []
         cmp_cycles = EXP_COMPARE_CYCLES
-        two_phase = lambda out, args, kw: (args[5] is not None and args[5].pos.ndim == 4,
-                                           out.iterations.amax())
+        steps_of = lambda out, args, kw: out.iterations.amax()
         zero_counts()
         with per_call(runner, "run_experiment_batch", read_counts, calls,
                       lambda args, kw: (kw["algorithm"], args[5].name, len(solves))), \
-                recording(solver_batched, "run_steps_batched", solves, keep=two_phase):
+                recording(ccnmpc, "solve_round", solves, keep=steps_of):
             cmp_s, cmp_out = cli_call(exp_compare_argv(), dev, tmp / "compare")
         launches["compare"] = read_counts()
         require(loop_kinds(EXP_COMPARE_RUNS) >= {"hybrid", "two_phase"},
@@ -908,7 +968,7 @@ def experiment_layer(card: str, counts, dev: torch.device) -> tuple:
         require([c[0][:2] for c in calls] == [(a, sc) for sc in EXP_SCENARIOS for a in algos],
                 f"compare ran {[c[0][:2] for c in calls]}")
         ends = [c[0][2] for c in calls[1:]] + [len(solves)]
-        k2_of = lambda i: sum(int(it) for tp, it in solves[calls[i][0][2]:ends[i]] if tp)
+        k2_of = lambda i: sum(int(it) for it in solves[calls[i][0][2]:ends[i]])
         per_algo = by_algorithm(calls, algos)
         cmp_algo = {}
         for a in algos:
@@ -949,7 +1009,7 @@ def experiment_layer(card: str, counts, dev: torch.device) -> tuple:
         zero_counts()
         with per_call(sweep, "run_cell", read_counts, calls,
                       lambda args, kw: (args[0], args[8], len(solves))), \
-                recording(solver_batched, "run_steps_batched", solves, keep=two_phase):
+                recording(ccnmpc, "solve_round", solves, keep=steps_of):
             sw_s, sw_out = cli_call(exp_sweep_argv(), dev, tmp / "sweep")
         launches["sweep"] = read_counts()
         algos_sw = sweep.SWEEP_ALGORITHMS
@@ -2138,7 +2198,7 @@ def loop_kinds(B: int | None = None) -> set:
     """The iterations (``solver.Iteration.build``) of the LM loops in
     ``solver.CAPTURED`` (with ``B``: of those captured for B lanes; a key
     holds the inputs' (shape, dtype), x0's first, and the constants)."""
-    from cilqr_tpu_torch.models import solver, solver_batched
+    from cilqr_tpu_torch.models import ccnmpc, solver, solver_batched
     from cilqr_tpu_torch.ops import lm_cuda
     from cilqr_tpu_torch.parallel import monte_carlo as mc
     from cilqr_tpu_torch.sim import plant
@@ -2147,7 +2207,7 @@ def loop_kinds(B: int | None = None) -> set:
     kinds = {lm_cuda._hybrid: "hybrid", solver_batched._two_phase: "two_phase",
              solver.plain_iteration: "plain", solver_batched.hybrid_before: "hybrid",
              mc._fast_before: "hybrid", plant._full_stack_before: "hybrid",
-             solver_batched.two_phase_before: "two_phase"}
+             solver_batched.two_phase_before: "two_phase", ccnmpc._round_before: "two_phase"}
     return {kinds[leaf] for key in solver.CAPTURED for leaf in key[4]
             if callable(leaf) and leaf in kinds and B in (None, key[3][0][0][0])}
 
@@ -2159,8 +2219,9 @@ def solved(res) -> tuple:
 
 
 def stream_study(label: str, call, card: str) -> dict:
-    """One recorded solve of a path, (``run_steps_batched`` or
-    ``solver.solve``, args, keywords), solved again alone: eagerly, then
+    """One recorded solve of a path, (``run_steps_batched``,
+    ``ccnmpc.solve_round`` or ``solver.solve``, args, keywords), solved
+    again alone: eagerly, then
     graphed on one stream and on ``solver.STREAMS``, each equal to the eager
     solve bit for bit; the two step graphs' replays timed in turns (1, S, S,
     1), their device kernels per replay and the S-stream start graph's, the
@@ -2321,19 +2382,24 @@ def loop_path(label: str, run, counts, card: str, kind: str, slope=None) -> dict
 def compare_loops(card: str, counts, dev: torch.device) -> dict:
     """`compare --full-stack` on its two scenarios at phase 15's runs and
     LOOP_COMPARE_CYCLES cycles, on the algorithms whose planners run these
-    loops (`cilqr`: the hybrid loop, K3; `ccnmpc`: two two-phase solves per
-    cycle, K2), in each mode of LOOP_MODES: every planner step's (X, U,
+    loops (`cilqr`: the hybrid loop, K3; `ccnmpc`: two SQP rounds per cycle,
+    each a start graph (rollout, covariance, tightening, plan fit) and the
+    two-phase loop, K2), in each mode of LOOP_MODES: every planner step's (X, U,
     iterations, J, lamb) equal bit for bit, the launches equal, the
     command's and each algorithm's seconds each way; the idle share over
     LOOP_IDLE_CYCLES cycles each way; ``stream_study`` on each algorithm's
     first solve."""
-    from cilqr_tpu_torch.models import solver, solver_batched
+    from cilqr_tpu_torch.models import ccnmpc, solver, solver_batched
     from cilqr_tpu_torch.sim import runner
 
     zero_counts, read_counts = counts
     argv = ["compare", "--full-stack", "--scenarios", ",".join(EXP_SCENARIOS), "--runs",
             str(EXP_COMPARE_RUNS), "--algorithms", ",".join(LOOP_COMPARE_ALGOS)]
     steps, secs, launches, per_algo, idle, first = {}, {}, {}, {}, {}, {}
+    # the solves recorded with the function that ran them (`cilqr`'s
+    # run_steps_batched calls, `ccnmpc`'s SQP rounds)
+    by = lambda fn: (lambda res, a, k: (fn, a, k))
+    mega, rounds = solver_batched.run_steps_batched, ccnmpc.solve_round
     with tempfile.TemporaryDirectory(prefix="cilqr_loops_") as tmp:
         for mode in LOOP_MODES:
             with loop_mode(mode):
@@ -2343,8 +2409,8 @@ def compare_loops(card: str, counts, dev: torch.device) -> dict:
                 with steps_recorded(runner, rec), per_call(
                         runner, "run_experiment_batch", read_counts, calls,
                         lambda args, kw: (kw["algorithm"],)), recording(
-                        solver_batched, "run_steps_batched", solves,
-                        keep=lambda res, a, k: (a, k)):
+                        solver_batched, "run_steps_batched", solves, keep=by(mega)), \
+                        recording(ccnmpc, "solve_round", solves, keep=by(rounds)):
                     secs[mode], _ = cli_call(argv + ["--cycles", str(LOOP_COMPARE_CYCLES)], dev,
                                              pathlib.Path(tmp) / mode)
                 launches[mode] = read_counts()
@@ -2354,9 +2420,8 @@ def compare_loops(card: str, counts, dev: torch.device) -> dict:
                 if mode == "graphed":
                     require(loop_kinds() == {"hybrid", "two_phase"},
                             f"compare: graphed loops {loop_kinds()}")
-                    two_phase = lambda a: a[5] is not None and a[5].pos.ndim == 4
-                    first = {"ccnmpc": next(c for c in solves if two_phase(c[0])),
-                             "cilqr": next(c for c in solves if c[0][6] is not None)}
+                    first = {"ccnmpc": next(c for c in solves if c[0] is rounds),
+                             "cilqr": next(c for c in solves if c[1][6] is not None)}
                 idle[mode] = idle_share(lambda: cli_call(
                     argv + ["--cycles", str(LOOP_IDLE_CYCLES)], dev,
                     pathlib.Path(tmp) / f"idle_{mode}"))
@@ -2376,8 +2441,7 @@ def compare_loops(card: str, counts, dev: torch.device) -> dict:
           + f" | device idle share ({LOOP_IDLE_CYCLES} cycles, profiler) "
           + ", ".join(f"{m} {100 * v[0]:.1f}%" for m, v in idle.items()) + f" on {card}",
           flush=True)
-    studies = {a: stream_study(f"compare {a}", (solver_batched.run_steps_batched,) + first[a],
-                               card) for a in LOOP_COMPARE_ALGOS}
+    studies = {a: stream_study(f"compare {a}", first[a], card) for a in LOOP_COMPARE_ALGOS}
     return dict(seconds=secs, per_algo=per_algo, idle={k: v[0] for k, v in idle.items()},
                 launches=launches["graphed"], streams=studies)
 
@@ -2457,6 +2521,111 @@ def graph_path(label: str, run, counts, card: str, loops: bool = False) -> dict:
                 launches=launches["graphed"], kernels_per_replay=per_graph, pool_bytes=pool)
 
 
+def ccnmpc_campaign(card: str, counts, dev: torch.device) -> dict:
+    """Phase 22: ``closed_loop_batched`` with the CCNMPC plan step on the
+    benchmark's deployment (CC_CONFIG: N=40, the three success1 obstacles,
+    delta 0.05, two SQP rounds; CC_B starts along the lane, its noise) for
+    CC_CYCLES cycles, graphed (per round a start graph, which runs the
+    rollout, the covariance, the tightening and the plan fit, and one launch
+    of the device loop) and with ``solver.GRAPHS = False``: every record and
+    every round's X, U, iterations, J and lambda equal bit for bit; with the
+    counters zeroed just before each call, K2's launches the sum of the
+    rounds' largest iteration counts (a replay counts the launches its
+    capture recorded) and ``ccnmpc.ROUNDS`` n_sqp x CC_CYCLES, both ways.
+    Then K2 on one round's own derivatives at (CC_B, N), those of the last
+    cycle's first round at its start, held to its plain versions at phase
+    3's bars (``k2_held``).  Returns the numbers."""
+    from cilqr_tpu_torch import NoiseParams, SolverParams
+    from cilqr_tpu_torch.models import ccnmpc, costs, dynamics, solver
+    from cilqr_tpu_torch.models import obstacles as obs_mod, reference_path as rp
+    from cilqr_tpu_torch.sim import plant, runner
+
+    t_phase = time.perf_counter()
+    zero_counts, read_counts = counts
+    cfg = json.loads(CC_CONFIG.read_text())
+    w, lane = cfg["world"], cfg["world"]["plan"]
+    p = dataclasses.replace(SolverParams(), **cfg["solver"])
+    noise, cc = NoiseParams(**cfg["noise"]), ccnmpc.CCParams(**cfg["chance"])
+    f32 = dict(dtype=torch.float32, device=dev)
+    xs = lane["x0"] + lane["spacing"] * np.arange(int(lane["length"] / lane["spacing"]) + 1)
+    plan_xy, plan_n = rp.pad_global_plan(p, np.stack([xs, np.full_like(xs, lane["y"])], axis=1),
+                                         **f32)
+    obs = np.asarray(w["obstacles"], dtype=np.float64)  # (M, 3): x, y, yaw
+    sizes = np.tile(np.asarray(w["obstacle_size"], dtype=np.float64), (len(obs), 1))
+    ob = obs_mod.make_static_obstacles(p, obs[:, :2], sizes, obs[:, 2], **f32)
+    sat = (torch.tensor(obs, **f32), torch.tensor(sizes, **f32), torch.ones(len(obs), **f32))
+    gen = torch.Generator(device=dev).manual_seed(22)
+    x0s = torch.tensor(w["start"], **f32).repeat(CC_B, 1)
+    x0s[:, 0] += w["start_spread_m"] * torch.rand(CC_B, generator=gen, **f32)
+    draws = torch.randn((CC_CYCLES, CC_B, 3), generator=gen, **f32)
+
+    def closed_loop():
+        step = runner.make_plan_step("ccnmpc", p, noise, plan_xy, plan_n, ob, cc_params=cc)
+        return plant.closed_loop_batched(p, noise, plan_xy, plan_n, x0s, None, CC_CYCLES,
+                                         obs_xyyaw=sat[0], obs_size=sat[1], obs_mask=sat[2],
+                                         noise_draws=draws, plan_step_batched=step)
+
+    out, launches, rounds, secs, graphs_held = {}, {}, {}, {}, 0
+    try:
+        for mode in ("graphed", "eager"):
+            with loop_mode(mode), recording(ccnmpc, "solve_round", [],
+                                            keep=lambda res, a, kw: (a[4], a[5], res)) as solves:
+                solver.CAPTURED.clear()
+                torch.cuda.synchronize()
+                zero_counts()
+                ccnmpc.ROUNDS = 0
+                t0 = time.perf_counter()
+                final, rec = closed_loop()
+                torch.cuda.synchronize()
+                secs[mode] = time.perf_counter() - t0
+                launches[mode], rounds[mode] = read_counts(), ccnmpc.ROUNDS
+                out[mode] = (final, rec, [r for _, _, r in solves])
+                if mode == "graphed":
+                    graphs_held = len(solver.CAPTURED)
+                    require("two_phase" in loop_kinds(CC_B),
+                            f"ccnmpc: graphed loops {loop_kinds(CC_B)}, expected the two-phase")
+                else:
+                    eager_solves = list(solves)
+    finally:
+        solver.CAPTURED.clear()
+    its = [int(r.iterations.max()) for r in out["eager"][2]]
+    require(tree_equal(out["graphed"], out["eager"]),
+            "ccnmpc: the graphed closed loop differs from the eager one")
+    require(graphs_held == 3, f"ccnmpc: {graphs_held} captures, expected the noise stage, "
+            "a round and the advance")
+    for mode in out:
+        require(launches[mode]["riccati"] == sum(its) and rounds[mode] == cc.n_sqp * CC_CYCLES,
+                f"ccnmpc {mode}: K2 {launches[mode]['riccati']} launches, rounds {rounds[mode]}; "
+                f"expected {sum(its)} (the rounds' largest counts {its}) and "
+                f"{cc.n_sqp * CC_CYCLES}")
+    require(launches["graphed"] == launches["eager"],
+            f"ccnmpc: launches graphed {launches['graphed']}, eager {launches['eager']}")
+
+    # K2 on the derivatives of the last cycle's first round at its start:
+    # the rollout of its warm start, the obstacles tightened along it, the
+    # damping the loop starts from
+    egos, U, _ = eager_solves[cc.n_sqp * (CC_CYCLES - 1)]
+    W = ccnmpc.process_noise(noise, torch.float32, dev)
+    X = dynamics.rollout(p, egos, U)
+    ob_t = ccnmpc.tightened_obstacles(p, cc, ob, ccnmpc.propagate_covariance(p, X, U, W, W))
+    d, _ = costs.all_cost_derivs_and_J(p, rp.get_local_plan(p, plan_xy, plan_n, egos), X, U,
+                                       ob_t, None)
+    lamb = torch.full((CC_B,), p.lamb_init, **f32)
+    k2_err, roll = k2_held(p, d, X, U, lamb)
+    print(f"[22 ccnmpc campaign] {CC_CONFIG.name} at B={CC_B} x {CC_CYCLES} cycles, N="
+          f"{p.horizon}: graphed = eager bit for bit (every record; every round's X, U, "
+          f"iterations, J, lambda) | {graphs_held} captures | rounds {rounds['graphed']} both "
+          f"ways, K2 launches {launches['graphed']['riccati']} both ways = the rounds' largest "
+          f"iteration counts {its} | s per call graphed {secs['graphed']:.3f} (the captures "
+          f"included), eager {secs['eager']:.3f} | K2 on the last cycle's first round's "
+          f"derivatives ({CC_B}, {p.horizon}): max|kernel-plain| {k2_err:.3e} (k/K bar 1e-4 rel "
+          f"+ 1e-5 abs) | {' | '.join(roll)} on {card}", flush=True)
+    print(f"[22 done] phase 22 took {time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
+    return dict(B=CC_B, cycles=CC_CYCLES, launches=launches["graphed"]["riccati"],
+                rounds=rounds["graphed"], round_max_iterations=its, max_abs_err=k2_err,
+                graphed_s=secs["graphed"], eager_s=secs["eager"])
+
+
 def main() -> None:
     t_script = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2530,39 +2699,7 @@ def main() -> None:
     d, _ = costs.all_cost_derivs_and_J(p, plans, X, U0s, obstacles, unc)
     lamb = torch.tensor(np.random.default_rng(1).uniform(0.1, 10.0, K2_CHECK_B),
                         dtype=torch.float32, device=dev)
-    before = riccati_cuda.LAUNCHES
-    k_got, K_got = riccati_cuda.backward_batched(p, d, X, U0s, lamb)
-    Xn_got, Un_got = riccati_cuda.backward_forward_batched(p, d, X, U0s, lamb)
-    torch.cuda.synchronize()
-    require(riccati_cuda.LAUNCHES == before + 2, "K2 launch counter did not move")
-    k_want, K_want = riccati_cuda.backward_plain(p, d, X, U0s, lamb)
-    Xn_want, Un_want = riccati_cuda.backward_forward_plain(p, d, X, U0s, lamb)
-    # Gains: within 1e-4 relative + 1e-5 absolute of the float32 plain version
-    # (the two differ only in operation order and FMA contraction).
-    k2_err = 0.0
-    for name, got, want in (("k", k_got, k_want), ("K", K_got, K_want)):
-        err, excess = max_excess(got, want, rtol=1e-4, atol=1e-5)
-        k2_err = max(k2_err, err)
-        require(excess <= 0.0, f"K2 {name}: max |diff| {err:.3e} exceeds 1e-4 rel + 1e-5 abs")
-    # Rollout, step by step at the same bar: each step of the kernel is held
-    # to that step computed in float64 from the kernel's own previous state
-    # and gains.  The whole trajectories of two float32 rollouts drift apart
-    # by ~1e-4 in u (float32 positions near 300 m carry an ulp of 3e-5 m,
-    # which the gains, |K| up to ~13, amplify along the horizon), so the
-    # whole trajectory is held instead to the float64 plain version: at most
-    # twice as far from it as the float32 plain version is.
-    roll = [f"{name} per step {err:.3e}"
-            for name, err in rollout_step_check(p, X, U0s, k_got, K_got, Xn_got, Un_got)]
-    d64 = costs.CostDerivs(*(t.double() for t in d))
-    Xn_64, Un_64 = riccati_cuda.backward_forward_plain(
-        p, d64, X.double(), U0s.double(), lamb.double())
-    for name, got, want, ref in (("X_new", Xn_got, Xn_want, Xn_64), ("U_new", Un_got, Un_want, Un_64)):
-        k_dev = float((got.double() - ref).abs().max())
-        p_dev = float((want.double() - ref).abs().max())
-        k2_err = max(k2_err, float((got - want).abs().max()))
-        roll.append(f"{name} whole: kernel-f64 {k_dev:.3e} plain32-f64 {p_dev:.3e}")
-        require(k_dev <= 2.0 * p_dev + 1e-6, f"K2 {name}: kernel {k_dev:.3e} from float64, "
-                f"float32 plain {p_dev:.3e}")
+    k2_err, roll = k2_held(p, d, X, U0s, lamb)
     # time at the main-path shapes: derivatives of B=32768 scenarios
     egos_m, U0_m = scenario_batch(MAIN_B, seed=2)
     plans_m = get_local_plan(p, plan, n, egos_m)
@@ -3747,6 +3884,10 @@ def main() -> None:
             kernels_per_replay=stages[k]["kernels_per_replay"])
     del egos_m, U0_m, egos_cl, cl_draws
     print(f"[21 done] phase 21 took {time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
+
+    # 22. the CCNMPC campaign of the benchmark's deployment, graphed against
+    # eager, and K2 on one of its rounds' derivatives
+    kernels["riccati"]["ccnmpc_campaign"] = ccnmpc_campaign(card, counts, dev)
 
     kernels["lm"]["launches"] = main_launches["lm"]
     # K2's own path: ccnmpc's two-phase solves in `compare --full-stack`

@@ -15,23 +15,42 @@ ego states.  The standard linearized chance-constraint tightening
   3. solve the tightened problem with the CILQR solver, and repeat the
      linearize-tighten-solve loop ``n_sqp`` times.
 
-The tightened obstacles differ per lane, so each solve is
-``solver_batched.run_steps_batched`` with per-scenario obstacles: the
-two-phase path, plain PyTorch derivatives and the Riccati kernel K2 once per
-LM iteration.  Without obstacles it is the shared-world solve (K1).
+The tightened obstacles differ per lane, so each round's solve is the
+two-phase LM loop on per-scenario obstacles: plain PyTorch derivatives and
+the Riccati kernel K2 once per LM iteration.  A round is one
+``solver.solve`` whose stage (``_round_before``) runs the rollout, the
+covariance, the tightening and the plan fit: on the card a start graph and
+one launch of the device-side loop (``utils.graphs.Loop``), elsewhere the
+same functions eagerly.  Without obstacles it is the shared-world solve
+(K1).
+
+Spans (``utils.profiling``): each round, ``ccnmpc.round`` with its index.
+Host counters (entered in ``profiling.HOST_COUNTERS``, read by
+``profiling.counters()``): ``ROUNDS``, the rounds run, and ``TIGHTENED``,
+the (lane, obstacle slot, step) tightenings they issued.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import sys
 from typing import Optional
 
 import torch
 
 from cilqr_tpu_torch.models import dynamics, obstacles as obs_mod, solver, solver_batched
+from cilqr_tpu_torch.utils import profiling
 from cilqr_tpu_torch.utils.device import resolve
 from cilqr_tpu_torch.utils.params import NoiseParams, SolverParams
+
+#: SQP rounds run (host counter, ``profiling.counters()``)
+ROUNDS = 0
+#: (lane, obstacle slot, step) tightenings the rounds issued, padding slots
+#: included, as ``tightened_obstacles`` grows every slot (host counter)
+TIGHTENED = 0
+profiling.HOST_COUNTERS.extend([(sys.modules[__name__], "ROUNDS"),
+                                (sys.modules[__name__], "TIGHTENED")])
 
 
 @dataclasses.dataclass(frozen=True)
@@ -96,13 +115,39 @@ def tightened_obstacles(p: SolverParams, cc: CCParams, obstacles: obs_mod.Obstac
     return obs_mod.Obstacles(dims, pos, obstacles.mask)
 
 
+def _round_before(p: SolverParams, egos: torch.Tensor, U: torch.Tensor, plan_xy, plan_n,
+                  obstacles: obs_mod.Obstacles, Sigma0: torch.Tensor, W: torch.Tensor,
+                  cc: CCParams) -> tuple:
+    """One linearize-tighten round up to its LM loop (a ``solver.solve``
+    stage): the rollout of the current controls, the covariance along it,
+    the tightened obstacles, then the plan fit and the two-phase iteration
+    on them (``solver_batched.two_phase_before``)."""
+    X_nom = dynamics.rollout(p, egos, U)
+    ob_t = tightened_obstacles(p, cc, obstacles, propagate_covariance(p, X_nom, U, Sigma0, W))
+    return solver_batched.two_phase_before(p, egos, U, plan_xy, plan_n, ob_t, None)
+
+
+def solve_round(p: SolverParams, cc: CCParams, plan_xy: torch.Tensor, plan_n,
+                egos: torch.Tensor, U: torch.Tensor, obstacles: obs_mod.Obstacles,
+                Sigma0: torch.Tensor, W: torch.Tensor) -> solver.SolveResult:
+    """One SQP round from the controls U (B, N, 2): ``_round_before``, then
+    the two-phase LM loop on the tightened obstacles."""
+    global ROUNDS, TIGHTENED
+    ROUNDS += 1
+    TIGHTENED += egos.shape[0] * obstacles.dims.shape[-3] * obstacles.dims.shape[-2]
+    (X, U, it, J, lamb), (x_wpts, y_fit) = solver.solve(p, solver.Stage(
+        _round_before, (egos, U, plan_xy, plan_n, obstacles, Sigma0, W, cc)))
+    return solver.SolveResult(X, U, x_wpts, y_fit, it, J, lamb)
+
+
 def run_steps(p: SolverParams, cc: CCParams, noise: NoiseParams, plan_xy: torch.Tensor,
               plan_n, egos: torch.Tensor, U_warm: torch.Tensor, obstacles=None,
               Sigma0: Optional[torch.Tensor] = None) -> solver.SolveResult:
     """One chance-constrained planning cycle per lane (``run_step`` of the
     JAX package, vmapped): egos (B, 4), U_warm (B, N, 2).  No uncertainty
     map is read: CCNMPC handles uncertainty by tightening the constraints
-    (that is the axis the reference's experiments compare)."""
+    (that is the axis the reference's experiments compare).  Each of the
+    ``cc.n_sqp`` rounds is ``solve_round`` on the last round's controls."""
     W = process_noise(noise, egos.dtype, egos.device)
     if Sigma0 is None:
         Sigma0 = W
@@ -110,11 +155,8 @@ def run_steps(p: SolverParams, cc: CCParams, noise: NoiseParams, plan_xy: torch.
         return solver_batched.run_steps_batched(p, plan_xy, plan_n, egos, U_warm.contiguous())
 
     res, U = None, U_warm
-    for _ in range(cc.n_sqp):
-        X_nom = dynamics.rollout(p, egos, U)
-        Sig = propagate_covariance(p, X_nom, U, Sigma0, W)
-        ob_t = tightened_obstacles(p, cc, obstacles, Sig)
-        res = solver_batched.run_steps_batched(p, plan_xy, plan_n, egos, U.contiguous(), ob_t,
-                                               world_batched=True)
+    for i in range(cc.n_sqp):
+        with profiling.span("ccnmpc.round", index=i):
+            res = solve_round(p, cc, plan_xy, plan_n, egos, U.contiguous(), obstacles, Sigma0, W)
         U = res.U
     return res

@@ -283,6 +283,7 @@ def _mega_cycle(p: SolverParams, noise: NoiseParams, r, states, U_warm, obs, wor
     return _record(states, noisy, res, hits), _advance(p, states, res.U), res.U
 
 
+@profiling.spanned("entry.closed_loop")
 def closed_loop_batched(p: SolverParams, noise: NoiseParams, plan_xy: torch.Tensor, plan_n,
                         x0s: torch.Tensor, generator: Optional[torch.Generator], n_cycles: int,
                         obstacles=None, unc_map=None, obs_xyyaw=None, obs_size=None,
@@ -293,7 +294,8 @@ def closed_loop_batched(p: SolverParams, noise: NoiseParams, plan_xy: torch.Tens
     shared world: on the card one CUDA graph per cycle.
     ``plan_step_batched(noisy_states, U_warm) -> batched SolveResult-like``
     swaps in another batched planner (the baselines of
-    ``sim.runner.make_plan_step``).  ``noise_draws`` (T, B, 3).
+    ``sim.runner.make_plan_step``).  ``noise_draws`` (T, B, 3).  Span
+    (``utils.profiling``): the call, ``entry.closed_loop``.
 
     Returns (final states (B, 4), dict of (T, B, ...) records)."""
     B = x0s.shape[0]

@@ -23,7 +23,8 @@ interval is placed on it by an anchor: at the first device span on a card
 the tracer waits for the card, then stamps an event between two host
 reads (the narrowest of a few tries), and takes the middle.  ``spans()``
 gives the spans out, in memory; ``counters()`` the change of the launch
-counters (``graphs.COUNTERS``, ``loop_cuda.LAUNCHES``) and of the captures
+counters (``graphs.COUNTERS``, ``loop_cuda.LAUNCHES``), of the host counters
+the program's modules enter in ``HOST_COUNTERS`` and of the captures
 (``graphs.CAPTURES``, ``CAPTURE_S``, ``EVICTIONS``) over the traced calls.
 """
 
@@ -44,6 +45,9 @@ _clock = time.time_ns  # the host's stamps: Unix-epoch ns, as the profiler's eve
 _TRACING = 0           # depth of ``tracing()`` blocks
 _SESSION = None        # what the tracer has recorded since ``reset``
 _HOST_TID, _DEVICE_TID = 0x5A4E0, 0x5A4E1  # the spans' rows in a Chrome trace
+#: host counters (module, attribute) that ``counters()`` reads besides the
+#: launch counters: the modules that keep them enter them on import
+HOST_COUNTERS: list = []
 
 
 def _tensors(tree):
@@ -158,7 +162,7 @@ def _write_spans(path: str, found: list) -> None:
                        "args": {"name": label}})
     for s in found:
         args = {"id": s.id, "parent": s.parent, "call": s.call, "wait": s.wait,
-                "steps": s.steps}
+                "steps": s.steps, "index": s.index}
         ends = [(_HOST_TID, s.start_ns, s.end_ns)]
         if s.device_start_ns is not None:
             ends.append((_DEVICE_TID, s.device_start_ns, s.device_end_ns))
@@ -189,6 +193,7 @@ class Span(NamedTuple):
     device_start_ns: Optional[int]  # what the block enqueued, on the card
     device_end_ns: Optional[int]
     steps: Optional[int]            # the LM steps its device loop ran (``attach``)
+    index: Optional[int] = None     # its place in a sequence of like spans (``span(index=)``)
 
 
 class _Null:
@@ -209,14 +214,16 @@ class _Null:
 _NULL = _Null()
 
 
-def span(name: str, device: Optional[torch.device] = None, wait: bool = False):
+def span(name: str, device: Optional[torch.device] = None, wait: bool = False,
+         index: Optional[int] = None):
     """A span of the block (see the module docstring).  ``device``: the
     card whose current stream the block enqueues on, whose interval the
     span records (a CPU device: none); ``wait``: the host waits for the
-    card inside the block.  Off, the shared null context."""
+    card inside the block; ``index``: the block's place in a sequence of
+    like blocks (an SQP round's).  Off, the shared null context."""
     if not (_profiler._is_profiler_enabled or _TRACING):
         return _NULL
-    return _Live(name, device, wait)
+    return _Live(name, device, wait, index)
 
 
 def spanned(name: str):
@@ -272,7 +279,8 @@ def _counts() -> dict:
     from cilqr_tpu_torch.ops import loop_cuda
     from cilqr_tpu_torch.utils import graphs  # which imports this module
 
-    c = {f"{m.__name__.rsplit('.', 1)[-1]}.{n}": getattr(m, n) for m, n in graphs.COUNTERS}
+    c = {f"{m.__name__.rsplit('.', 1)[-1]}.{n}": getattr(m, n)
+         for m, n in graphs.COUNTERS + HOST_COUNTERS}
     c["loop_cuda.LAUNCHES"] = loop_cuda.LAUNCHES
     for n in ("CAPTURES", "CAPTURE_S", "EVICTIONS"):
         c[f"graphs.{n}"] = getattr(graphs, n)
@@ -322,7 +330,7 @@ class _Session:
             e1.synchronize()
             d0 = host + round(ev.elapsed_time(e0) * 1e6)
             d1 = host + round(ev.elapsed_time(e1) * 1e6)
-        return Span(r.name, r.id, r.parent, r.call, r.t0, r.t1, r.wait, d0, d1, r.steps)
+        return Span(r.name, r.id, r.parent, r.call, r.t0, r.t1, r.wait, d0, d1, r.steps, r.index)
 
 
 def _session() -> _Session:
@@ -335,11 +343,11 @@ def _session() -> _Session:
 class _Live:
     """A span site while tracing is on."""
 
-    __slots__ = ("name", "device", "wait", "id", "parent", "call", "t0", "t1", "events",
+    __slots__ = ("name", "device", "wait", "index", "id", "parent", "call", "t0", "t1", "events",
                  "steps", "session", "before")
 
-    def __init__(self, name: str, device, wait: bool):
-        self.name, self.device, self.wait = name, device, wait
+    def __init__(self, name: str, device, wait: bool, index: Optional[int] = None):
+        self.name, self.device, self.wait, self.index = name, device, wait, index
         self.events = self.steps = self.before = None
 
     def __enter__(self):

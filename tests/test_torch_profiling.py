@@ -193,6 +193,29 @@ def test_counters_give_the_change_over_the_traced_calls(fresh, monkeypatch):
     assert {f"{m.__name__.rsplit('.', 1)[-1]}.{n}" for m, n in graphs.COUNTERS} <= set(c)
 
 
+def test_host_counters_are_read_from_their_registry(fresh, monkeypatch):
+    """A host counter that a module enters in ``HOST_COUNTERS`` is read
+    like the launch counters, by its change inside the traced calls; CCNMPC
+    enters its rounds and tightenings so, and the tracer imports no model."""
+    import inspect
+    import types
+
+    from cilqr_tpu_torch.models import ccnmpc
+
+    mod = types.ModuleType("cilqr_tpu_torch.models.a_planner")
+    mod.STEPS = 0
+    monkeypatch.setattr(profiling, "HOST_COUNTERS", profiling.HOST_COUNTERS + [(mod, "STEPS")])
+    with profiling.tracing():
+        with profiling.span("entry"):
+            mod.STEPS += 4
+        mod.STEPS += 10  # between the traced calls
+    c = profiling.counters()
+    assert c["a_planner.STEPS"] == 4
+    assert c["ccnmpc.ROUNDS"] == 0 and c["ccnmpc.TIGHTENED"] == 0
+    assert {(ccnmpc, "ROUNDS"), (ccnmpc, "TIGHTENED")} <= set(profiling.HOST_COUNTERS)
+    assert "cilqr_tpu_torch.models" not in inspect.getsource(profiling)
+
+
 def test_graph_cache_counts_captures_and_evictions(fresh, monkeypatch):
     """A miss is one capture, with its seconds and (tracing on) its span; a
     hit none; a miss beyond ``kept`` one eviction."""
