@@ -10,7 +10,10 @@ went through its kernels:
   phases 1-7   the batched solve ``run_steps_batched(impl="mega")`` at
                B=32768, N=50 on the example world (kernels K1 and K2), and
                where a call's time goes; K1 and K3 at every lane-group size
-               G, which must all give the same bits;
+               G, which must all give the same bits; beside K2's profile
+               the two-phase step's derivatives kernel (``cost_cuda``) on
+               phase 22's deployment at (8192, 40), one device kernel per
+               call by the profiler, and its time there;
   phases 8-10  the Monte-Carlo path ``monte_carlo(impl="fast")`` at B=8192,
                N=50 on the full 152x104 costmap (kernels K4 and K3), and
                where its time goes; K4's own covariance fields must equal
@@ -99,9 +102,18 @@ went through its kernels:
                cycles: ``closed_loop_batched`` with the CCNMPC plan step,
                graphed (per round a start graph and the device loop)
                against ``solver.GRAPHS = False``, bit for bit; K2's
-               launches the sum of the rounds' largest iteration counts and
-               the rounds 6, both ways; K2 on one round's own derivatives at
-               (8192, 40) against its plain versions at phase 3's bars.
+               launches and the two-phase step's derivatives kernel's
+               (``cost_cuda``) each the sum of the rounds' largest iteration
+               counts and the rounds 6, both ways; the derivatives kernel on
+               one round's inputs at (8192, 40) against its plain version
+               at phase 3's bars, one device kernel per call (the nodes of
+               a graph of one call), its time alone and by events against
+               its bound and the plain version's; K2
+               on the kernel's derivatives against its plain versions at
+               phase 3's bars; the two-phase solve with one uncertainty map
+               per scenario (B=1024) graphed = eager, one launch of each
+               kernel per step, its derivatives from the sampled planes
+               against the plain version with the maps.
 
 Every phase prints a line (the profiles one per batch size); any failure
 raises, so the exit code is nonzero.  The last line is one JSON object:
@@ -112,6 +124,7 @@ printing any result.
 from __future__ import annotations
 
 import contextlib
+import ctypes
 import dataclasses
 import io
 import json
@@ -124,6 +137,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -189,10 +203,59 @@ def cuda_ms(fn, reps: int) -> float:
     return timed(fn, reps)[0]
 
 
+def graph_ms(fn, reps: int) -> float:
+    """Device ms per call of ``fn``, from CUDA events around replays of one
+    CUDA graph holding ``reps`` calls: the kernels alone, without the host's
+    time between launches (for a kernel the profiler cannot see)."""
+    fn()
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (3 * reps)
+
+
+def graph_nodes(fn, dev: torch.device) -> tuple:
+    """(nodes, kernel nodes) of one fn() captured as a CUDA graph
+    (``graphs.capture``, after a warm-up call), read with libcuda's
+    ``cuGraphGetNodes`` and ``cuGraphNodeGetType``: the device work one call
+    enqueues, whether or not the profiler sees it."""
+    from cilqr_tpu_torch.utils import graphs
+
+    fn()
+    torch.cuda.synchronize()
+    graph = graphs.capture(fn, dev)
+    cu = ctypes.CDLL("libcuda.so.1")
+    raw, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
+    require(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    nodes = (ctypes.c_void_p * max(n.value, 1))()
+    require(cu.cuGraphGetNodes(raw, nodes, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
+    kind, kernels = ctypes.c_int(), 0
+    for node in nodes[:n.value]:
+        require(cu.cuGraphNodeGetType(ctypes.c_void_p(node), ctypes.byref(kind)) == 0,
+                "cuGraphNodeGetType failed")
+        kernels += kind.value == 0  # CU_GRAPH_NODE_TYPE_KERNEL
+    return n.value, kernels
+
+
 def kernel_profile(fn, reps: int, name: str) -> tuple:
     """(device ms per call of the kernels whose name holds ``name``, device
     ms per call of every other kernel or copy, device kernels and copies per
-    call), from ``torch.profiler`` over reps calls after a warm-up call."""
+    call), from ``torch.profiler`` over reps calls after a warm-up call.
+    The profiler must see the kernel."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -390,7 +453,7 @@ def k2_held(p, d, X, U, lamb) -> tuple:
     # twice as far from it as the float32 plain version is.
     roll = [f"{name} per step {err:.3e}"
             for name, err in rollout_step_check(p, X, U, k_got, K_got, Xn_got, Un_got)]
-    d64 = costs.CostDerivs(*(t.double() for t in d))
+    d64 = costs.CostDerivs(*(None if t is None else t.double() for t in d))
     Xn_64, Un_64 = riccati_cuda.backward_forward_plain(
         p, d64, X.double(), U.double(), lamb.double())
     for name, got, want, ref in (("X_new", Xn_got, Xn_want, Xn_64), ("U_new", Un_got, Un_want, Un_64)):
@@ -557,23 +620,32 @@ def k2_plain(p, d, X, U, lamb, do_forward):
     return plain(p, d, X, U, lamb)
 
 
+def cost_plain(p, plans, X, U, obstacles, planes, prepared):
+    """The two-phase derivatives kernel's launch function inside
+    ``plain_versions``."""
+    from cilqr_tpu_torch.models import costs
+
+    return costs.all_cost_derivs_and_J(p, plans, X, U, obstacles, None, unc_planes=planes)
+
+
 @contextlib.contextmanager
 def plain_versions():
     """Inside: the wrappers of K1, K2, K3, K4 (fields given and fused), K5
-    (alone and with the overrides) and the costmap build's layers kernel
-    (``costmap_cuda``) run their plain versions on the card
+    (alone and with the overrides), the costmap build's layers kernel
+    (``costmap_cuda``) and the two-phase step's derivatives kernel
+    (``cost_cuda``) run their plain versions on the card
     (the launch functions are swapped; their arguments are the plain
     versions').  Only the comparisons use it.  The LM loops' graphs are
     keyed by the launch functions (``solver._launch_route``), so a loop
     captured on the kernels is never replayed here, nor one captured here
     outside; the swapped functions are the same objects on every entry, so
     the captures made here serve every later entry."""
-    from cilqr_tpu_torch.ops import (costmap_cuda, lm_cuda, riccati_cuda, sample_cuda,
+    from cilqr_tpu_torch.ops import (cost_cuda, costmap_cuda, lm_cuda, riccati_cuda, sample_cuda,
                                      uncertainty_cuda)
 
     saved = (lm_cuda._launch, lm_cuda._launch_iteration, uncertainty_cuda._launch,
              uncertainty_cuda._launch_fused, sample_cuda._launch, sample_cuda._launch_vehicle_map,
-             riccati_cuda._launch, costmap_cuda._launch)
+             riccati_cuda._launch, costmap_cuda._launch, cost_cuda._launch)
     lm_cuda._launch = k1_plain
     lm_cuda._launch_iteration = lm_cuda.fused_iteration_plain
     riccati_cuda._launch = k2_plain
@@ -582,12 +654,13 @@ def plain_versions():
     sample_cuda._launch = sample_cuda.sample_prior_batched_plain
     sample_cuda._launch_vehicle_map = sample_cuda.vehicle_map_batched_plain
     costmap_cuda._launch = costmap_cuda.costmap_layers_plain
+    cost_cuda._launch = cost_plain
     try:
         yield
     finally:
         (lm_cuda._launch, lm_cuda._launch_iteration, uncertainty_cuda._launch,
          uncertainty_cuda._launch_fused, sample_cuda._launch, sample_cuda._launch_vehicle_map,
-         riccati_cuda._launch, costmap_cuda._launch) = saved
+         riccati_cuda._launch, costmap_cuda._launch, cost_cuda._launch) = saved
 
 
 def require(cond: bool, what: str) -> None:
@@ -727,12 +800,13 @@ def expect_launches(label: str, algo: str, got: dict, cycles_built: int, lm_iter
                     cycles_k1: int, k2: int) -> None:
     """An algorithm's launches in one command: the costmap layers kernel, K5
     and K4 once per cycle of its full-stack loops, K3 ``lm_iter`` times (`cilqr`), K1 once per cycle
-    of its shared-world solves (`cilqr_base`), K2 ``k2`` times (`ccnmpc`:
-    once per LM iteration of each two-phase solve), nothing else."""
+    of its shared-world solves (`cilqr_base`), K2 and the two-phase step's
+    derivatives kernel ``k2`` times each (`ccnmpc`: once per LM iteration of
+    each two-phase solve), nothing else."""
     want = {"costmap": cycles_built, "sample": cycles_built, "uncertainty": cycles_built,
             "lm_iter": lm_iter if algo == "cilqr" else 0,
             "lm": cycles_k1 if algo == "cilqr_base" else 0,
-            "riccati": k2 if algo == "ccnmpc" else 0}
+            "riccati": k2 if algo == "ccnmpc" else 0, "cost": k2 if algo == "ccnmpc" else 0}
     require(got == want, f"{label} {algo}: launches {got}, expected {want}")
     if algo == "ccnmpc":
         require(k2 > 0, f"{label} ccnmpc launched no K2")
@@ -911,7 +985,7 @@ def experiment_layer(card: str, counts, dev: torch.device) -> tuple:
         launches["run"] = read_counts()
         require(launches["run"] == {"costmap": run_cycles + 1, "sample": 0,
                                     "uncertainty": run_cycles + 1, "lm_iter": 0,
-                                    "lm": run_cycles + 1, "riccati": 0},
+                                    "lm": run_cycles + 1, "riccati": 0, "cost": 0},
                 f"run --full-stack launches {launches['run']}, expected the costmap layers "
                 f"kernel, K4 and K1 {run_cycles + 1} times")
         rec = runs[0]
@@ -1356,7 +1430,7 @@ def scale_out(card: str, counts, dev: torch.device) -> dict:
             b = MC_B // shards
             k3 = sum(int(res.iterations[i * b:(i + 1) * b].max()) for i in range(shards))
             require(c == {"costmap": 0, "sample": 0, "uncertainty": shards, "lm_iter": k3,
-                          "lm": 0, "riccati": 0},
+                          "lm": 0, "riccati": 0, "cost": 0},
                     f"sharded MC on {shards} shards launched {c}, expected K4 {shards}, K3 {k3}")
             require(same_bits(res, mref), f"sharded MC on {shards} shards differs from the "
                     f"unsharded call: " + ", ".join(f"{f} max |d| {float((a.double() - w.double()).abs().max()):.3e}"
@@ -1396,7 +1470,7 @@ def scale_out(card: str, counts, dev: torch.device) -> dict:
                  for v in rec["iterations"][:, i * b:(i + 1) * b].amax(dim=1))
         require(c == {"costmap": SO_FS_SHARDS * FS_CYCLES, "sample": SO_FS_SHARDS * FS_CYCLES,
                       "uncertainty": SO_FS_SHARDS * FS_CYCLES, "lm_iter": k3, "lm": 0,
-                      "riccati": 0},
+                      "riccati": 0, "cost": 0},
                 f"sharded full stack launched {c}, expected the costmap layers kernel, K5 and "
                 f"K4 {SO_FS_SHARDS * FS_CYCLES}, "
                 f"K3 {k3}")
@@ -1570,7 +1644,8 @@ def bench_sections(calls: list, B: int) -> dict:
     per cycle."""
     from cilqr_tpu_torch import benchmark
 
-    zero = {"costmap": 0, "sample": 0, "uncertainty": 0, "lm_iter": 0, "lm": 0, "riccati": 0}
+    zero = {"costmap": 0, "sample": 0, "uncertainty": 0, "lm_iter": 0, "lm": 0, "riccati": 0,
+            "cost": 0}
     sections = {}
     for name, got, kept in calls:
         if name == "run_steps_batched":
@@ -2535,29 +2610,15 @@ def ccnmpc_campaign(card: str, counts, dev: torch.device) -> dict:
     Then K2 on one round's own derivatives at (CC_B, N), those of the last
     cycle's first round at its start, held to its plain versions at phase
     3's bars (``k2_held``).  Returns the numbers."""
-    from cilqr_tpu_torch import NoiseParams, SolverParams
-    from cilqr_tpu_torch.models import ccnmpc, costs, dynamics, solver
-    from cilqr_tpu_torch.models import obstacles as obs_mod, reference_path as rp
+    from cilqr_tpu_torch.models import ccnmpc, solver
+    from cilqr_tpu_torch.ops import cost_cuda
     from cilqr_tpu_torch.sim import plant, runner
 
     t_phase = time.perf_counter()
     zero_counts, read_counts = counts
-    cfg = json.loads(CC_CONFIG.read_text())
-    w, lane = cfg["world"], cfg["world"]["plan"]
-    p = dataclasses.replace(SolverParams(), **cfg["solver"])
-    noise, cc = NoiseParams(**cfg["noise"]), ccnmpc.CCParams(**cfg["chance"])
+    world = cc_deployment(dev)
+    p, noise, cc, plan_xy, plan_n, ob, sat, x0s, draws = world
     f32 = dict(dtype=torch.float32, device=dev)
-    xs = lane["x0"] + lane["spacing"] * np.arange(int(lane["length"] / lane["spacing"]) + 1)
-    plan_xy, plan_n = rp.pad_global_plan(p, np.stack([xs, np.full_like(xs, lane["y"])], axis=1),
-                                         **f32)
-    obs = np.asarray(w["obstacles"], dtype=np.float64)  # (M, 3): x, y, yaw
-    sizes = np.tile(np.asarray(w["obstacle_size"], dtype=np.float64), (len(obs), 1))
-    ob = obs_mod.make_static_obstacles(p, obs[:, :2], sizes, obs[:, 2], **f32)
-    sat = (torch.tensor(obs, **f32), torch.tensor(sizes, **f32), torch.ones(len(obs), **f32))
-    gen = torch.Generator(device=dev).manual_seed(22)
-    x0s = torch.tensor(w["start"], **f32).repeat(CC_B, 1)
-    x0s[:, 0] += w["start_spread_m"] * torch.rand(CC_B, generator=gen, **f32)
-    draws = torch.randn((CC_CYCLES, CC_B, 3), generator=gen, **f32)
 
     def closed_loop():
         step = runner.make_plan_step("ccnmpc", p, noise, plan_xy, plan_n, ob, cc_params=cc)
@@ -2598,32 +2659,249 @@ def ccnmpc_campaign(card: str, counts, dev: torch.device) -> dict:
                 f"ccnmpc {mode}: K2 {launches[mode]['riccati']} launches, rounds {rounds[mode]}; "
                 f"expected {sum(its)} (the rounds' largest counts {its}) and "
                 f"{cc.n_sqp * CC_CYCLES}")
+        require(launches[mode]["cost"] == launches[mode]["riccati"],
+                f"ccnmpc {mode}: the derivatives kernel launched {launches[mode]['cost']} times, "
+                f"K2 {launches[mode]['riccati']}: expected once per LM step each")
     require(launches["graphed"] == launches["eager"],
             f"ccnmpc: launches graphed {launches['graphed']}, eager {launches['eager']}")
 
-    # K2 on the derivatives of the last cycle's first round at its start:
-    # the rollout of its warm start, the obstacles tightened along it, the
-    # damping the loop starts from
+    # the derivatives kernel and K2 on the last cycle's first round at its
+    # start: the rollout of its warm start, the obstacles tightened along it,
+    # the damping the loop starts from
     egos, U, _ = eager_solves[cc.n_sqp * (CC_CYCLES - 1)]
-    W = ccnmpc.process_noise(noise, torch.float32, dev)
-    X = dynamics.rollout(p, egos, U)
-    ob_t = ccnmpc.tightened_obstacles(p, cc, ob, ccnmpc.propagate_covariance(p, X, U, W, W))
-    d, _ = costs.all_cost_derivs_and_J(p, rp.get_local_plan(p, plan_xy, plan_n, egos), X, U,
-                                       ob_t, None)
+    plans, X, ob_t, prepared = cc_round_inputs(world, egos, U)
+    cost = cost_kernel_check(card, p, plans, X, U, ob_t, prepared)
+    d, _ = cost_cuda.cost_derivs(p, plans, X, U, ob_t, None, prepared)
     lamb = torch.full((CC_B,), p.lamb_init, **f32)
     k2_err, roll = k2_held(p, d, X, U, lamb)
+    mapped = two_phase_with_maps(card, p, plan_xy, plan_n, egos, U, ob_t, counts)
     print(f"[22 ccnmpc campaign] {CC_CONFIG.name} at B={CC_B} x {CC_CYCLES} cycles, N="
           f"{p.horizon}: graphed = eager bit for bit (every record; every round's X, U, "
           f"iterations, J, lambda) | {graphs_held} captures | rounds {rounds['graphed']} both "
-          f"ways, K2 launches {launches['graphed']['riccati']} both ways = the rounds' largest "
+          f"ways, K2 launches {launches['graphed']['riccati']} both ways = the derivatives "
+          f"kernel's {launches['graphed']['cost']} = the rounds' largest "
           f"iteration counts {its} | s per call graphed {secs['graphed']:.3f} (the captures "
-          f"included), eager {secs['eager']:.3f} | K2 on the last cycle's first round's "
-          f"derivatives ({CC_B}, {p.horizon}): max|kernel-plain| {k2_err:.3e} (k/K bar 1e-4 rel "
-          f"+ 1e-5 abs) | {' | '.join(roll)} on {card}", flush=True)
+          f"included), eager {secs['eager']:.3f} | K2 on the derivatives kernel's output for the "
+          f"last cycle's first round ({CC_B}, {p.horizon}): max|kernel-plain| {k2_err:.3e} (k/K "
+          f"bar 1e-4 rel + 1e-5 abs) | {' | '.join(roll)} on {card}", flush=True)
     print(f"[22 done] phase 22 took {time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
     return dict(B=CC_B, cycles=CC_CYCLES, launches=launches["graphed"]["riccati"],
+                cost_launches=launches["graphed"]["cost"],
                 rounds=rounds["graphed"], round_max_iterations=its, max_abs_err=k2_err,
-                graphed_s=secs["graphed"], eager_s=secs["eager"])
+                graphed_s=secs["graphed"], eager_s=secs["eager"], cost_kernel=cost,
+                two_phase_with_maps=mapped)
+
+
+COST_REPS = 20    # back-to-back calls of the derivatives kernel, timed
+COST_MAP_B = 1024  # the two-phase solve with one uncertainty map per scenario
+
+
+class CCWorld(NamedTuple):
+    """Phase 22's deployment (CC_CONFIG) at CC_B lanes on the card."""
+    p: object
+    noise: object
+    cc: object
+    plan_xy: torch.Tensor
+    plan_n: torch.Tensor
+    ob: object           # the obstacles, shared
+    sat: tuple           # (x, y, yaw), sizes, mask: what the plant carries
+    x0s: torch.Tensor    # (CC_B, 4) starts along the lane
+    draws: torch.Tensor  # (CC_CYCLES, CC_B, 3) the plant's noise
+
+
+def cc_deployment(dev: torch.device) -> CCWorld:
+    """CC_CONFIG's deployment (N=40, the three success1 obstacles, delta
+    0.05, two SQP rounds) at CC_B starts along the lane, with its noise."""
+    from cilqr_tpu_torch import NoiseParams, SolverParams
+    from cilqr_tpu_torch.models import ccnmpc
+    from cilqr_tpu_torch.models import obstacles as obs_mod, reference_path as rp
+
+    cfg = json.loads(CC_CONFIG.read_text())
+    w, lane = cfg["world"], cfg["world"]["plan"]
+    p = dataclasses.replace(SolverParams(), **cfg["solver"])
+    f32 = dict(dtype=torch.float32, device=dev)
+    xs = lane["x0"] + lane["spacing"] * np.arange(int(lane["length"] / lane["spacing"]) + 1)
+    plan_xy, plan_n = rp.pad_global_plan(p, np.stack([xs, np.full_like(xs, lane["y"])], axis=1),
+                                         **f32)
+    obs = np.asarray(w["obstacles"], dtype=np.float64)  # (M, 3): x, y, yaw
+    sizes = np.tile(np.asarray(w["obstacle_size"], dtype=np.float64), (len(obs), 1))
+    ob = obs_mod.make_static_obstacles(p, obs[:, :2], sizes, obs[:, 2], **f32)
+    sat = (torch.tensor(obs, **f32), torch.tensor(sizes, **f32), torch.ones(len(obs), **f32))
+    gen = torch.Generator(device=dev).manual_seed(22)
+    x0s = torch.tensor(w["start"], **f32).repeat(CC_B, 1)
+    x0s[:, 0] += w["start_spread_m"] * torch.rand(CC_B, generator=gen, **f32)
+    draws = torch.randn((CC_CYCLES, CC_B, 3), generator=gen, **f32)
+    return CCWorld(p, NoiseParams(**cfg["noise"]), ccnmpc.CCParams(**cfg["chance"]), plan_xy,
+                   plan_n, ob, sat, x0s, draws)
+
+
+def cc_round_inputs(world: CCWorld, egos: torch.Tensor, U: torch.Tensor) -> tuple:
+    """A CCNMPC round's inputs at its start from (egos, U), as its start
+    graph makes them: (plans, X the rollout of U, the obstacles tightened
+    along it, (table, fit) of ``lm_cuda.prep_iteration(plans)``)."""
+    from cilqr_tpu_torch.models import ccnmpc, dynamics
+    from cilqr_tpu_torch.models import reference_path as rp
+    from cilqr_tpu_torch.ops import lm_cuda
+
+    p = world.p
+    W = ccnmpc.process_noise(world.noise, torch.float32, egos.device)
+    X = dynamics.rollout(p, egos, U)
+    ob_t = ccnmpc.tightened_obstacles(p, world.cc, world.ob,
+                                      ccnmpc.propagate_covariance(p, X, U, W, W))
+    plans = rp.get_local_plan(p, world.plan_xy, world.plan_n, egos)
+    prep = lm_cuda.prep_iteration(plans)
+    return plans, X, ob_t, (prep.table, prep.fit)
+
+
+def cost_kernel_profile(card: str, dev: torch.device) -> dict:
+    """The two-phase step's derivatives kernel (``cost_cuda``) on the first
+    round of phase 22's deployment (its starts, the cold controls) at
+    (CC_B, N) under ``torch.profiler``: one call one device kernel, no copy
+    and no other kernel; the kernel's device time per call."""
+    from cilqr_tpu_torch.models import solver
+    from cilqr_tpu_torch.ops import cost_cuda
+
+    world = cc_deployment(dev)
+    p = world.p
+    U = solver.initial_controls(p, torch.float32, dev)[None].expand(CC_B, -1, -1).contiguous()
+    plans, X, ob_t, prepared = cc_round_inputs(world, world.x0s, U)
+    call = lambda: cost_cuda.cost_derivs(p, plans, X, U, ob_t, None, prepared)
+    kernel_ms, other_ms, events = kernel_profile(call, COST_REPS, "cost_derivs_kernel")
+    require(events == 1 and other_ms < 1e-6, f"a derivatives-kernel call launched {events} device "
+            "kernels or copies, expected its one kernel")
+    print(f"[3 derivatives kernel] cost_derivs_kernel at ({CC_B}, {p.horizon}) on "
+          f"{CC_CONFIG.name}'s first round: kernel alone {kernel_ms:.4f} ms (profiler; "
+          f"{events:.0f} device kernel per call, no copy) on {card}", flush=True)
+    return dict(profiler_ms=kernel_ms, profiler_events_per_call=events)
+
+
+def cost_held(label: str, got: tuple, want: tuple) -> float:
+    """The derivatives kernel's (l_x, l_xx, l_u, l_uu, J) held element by
+    element to the plain version's at phase 3's bars (1e-4 relative + 1e-5
+    absolute), every value finite.  Returns the largest |kernel - plain|."""
+    err = 0.0
+    for name, g, w in zip(("l_x", "l_xx", "l_u", "l_uu", "J"), got, want):
+        require(bool(torch.isfinite(g).all()) and bool(torch.isfinite(w).all()),
+                f"{label} {name}: a value is not finite")
+        e, excess = max_excess(g, w, rtol=1e-4, atol=1e-5)
+        err = max(err, e)
+        require(excess <= 0.0, f"{label} {name}: max |kernel - plain| {e:.3e} beyond 1e-4 rel + "
+                "1e-5 abs")
+    return err
+
+
+def cost_kernel_check(card: str, p, plans, X, U, obstacles, prepared) -> dict:
+    """The two-phase step's derivatives kernel (``cost_cuda``) on one CCNMPC
+    round's inputs at (CC_B, N), ``prepared`` (table, fit) as the start
+    graph prepares it: every output held to the plain version
+    (``cost_held``); one call one device kernel (the nodes of a graph of
+    one call: ``graph_nodes``); its time alone (CUDA events around a graph
+    of COST_REPS calls), by CUDA events around eager calls and the host's
+    issue time of those calls, the plain version's time, the bound (bytes:
+    X, U, the table, the fit and the live obstacle slots' per-lane dims in;
+    the four derivative tensors and J out) and the compiler's resources.
+    The profiler's reading is phase 3's (``cost_kernel_profile``)."""
+    from cilqr_tpu_torch.models import costs
+    from cilqr_tpu_torch.ops import cost_cuda
+    from cilqr_tpu_torch.utils.roofline import cost_step_ops
+
+    B, N, S = X.shape[0], p.horizon, p.n_closest_samples
+    d, J = cost_cuda.cost_derivs(p, plans, X, U, obstacles, None, prepared)
+    want, want_J = costs.all_cost_derivs_and_J(p, plans, X, U, obstacles, None)
+    got = (d.l_x, d.l_xx, d.l_u, d.l_uu, J)
+    err = cost_held("derivatives kernel", got, (want.l_x, want.l_xx, want.l_u, want.l_uu, want_J))
+    call = lambda: cost_cuda.cost_derivs(p, plans, X, U, obstacles, None, prepared)
+    ms = cuda_ms(call, COST_REPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(COST_REPS):
+        call()
+    host_ms = (time.perf_counter() - t0) * 1e3 / COST_REPS
+    torch.cuda.synchronize()
+    alone_ms = graph_ms(call, COST_REPS)
+    plain_ms = cuda_ms(lambda: costs.all_cost_derivs_and_J(p, plans, X, U, obstacles, None), 5)
+    nodes, kernel_nodes = graph_nodes(call, X.device)
+    require(nodes == kernel_nodes == 1, f"a derivatives-kernel call enqueued {nodes} graph nodes, "
+            f"{kernel_nodes} of them kernels: expected its one kernel")
+    live = int((obstacles.mask != 0).sum()) if obstacles.mask.ndim == 1 else obstacles.mask.shape[-1]
+    n_bytes = (nbytes(X[:, :N], U, *prepared, *got)
+               + B * live * N * 2 * 4 * (obstacles.dims.ndim == 4))
+    b = bound(n_bytes, B * N * cost_step_ops(S, live, 0))
+    res = cost_cuda.kernel_resources(N, S)
+    print(f"[22 derivatives kernel] cost_derivs_kernel at ({B}, {N}), S={S}, {live} live of "
+          f"{obstacles.mask.shape[-1]} obstacle slots per lane: max|kernel-plain| {err:.3e} "
+          f"(every output at 1e-4 rel + 1e-5 abs) | {res['lanes']} lanes per block, "
+          f"{res['registers']} registers, {res['local_bytes']} B local, {res['shared_bytes']} B "
+          f"shared per block, {res['blocks_per_sm']} blocks/SM | events {ms:.4f} ms per call "
+          f"(the host issues a call in {host_ms:.4f} ms), kernel alone {alone_ms:.4f} ms (events "
+          f"over a graph of {COST_REPS} calls; a graph of one call holds {nodes} node, a kernel), "
+          f"plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms by {b['bound_by']} "
+          f"({n_bytes / 1e6:.1f} MB) on {card}", flush=True)
+    return dict(name="cost_derivs", source="cilqr_tpu_torch/csrc/cost.cu", max_abs_err=err,
+                ms=ms, host_issue_ms=host_ms, kernel_only_ms=alone_ms, graph_nodes=nodes,
+                plain_ms=plain_ms, **b, **res)
+
+
+def two_phase_with_maps(card: str, p, plan_xy, plan_n, egos, U, obstacles, counts) -> dict:
+    """The two-phase solve with one uncertainty map per scenario (the full
+    stack's per-lane route, phase 20's loop) at COST_MAP_B lanes of a CCNMPC
+    round, the tightened obstacles per lane: graphed on the device loop and
+    with ``solver.GRAPHS = False``, bit for bit, the derivatives kernel and
+    K2 launched once per step each (the largest iteration count) both ways;
+    one iteration's derivatives from the sampled planes held to the plain
+    version with the maps (``cost_held``)."""
+    from cilqr_tpu_torch.models import costs, dynamics, solver, solver_batched
+    from cilqr_tpu_torch.models import reference_path as rp
+    from cilqr_tpu_torch.ops import cost_cuda, lm_cuda
+    from cilqr_tpu_torch.parallel import monte_carlo as mc
+    from cilqr_tpu_torch.sim.example_scenario import example_scenario
+
+    zero_counts, read_counts = counts
+    B = COST_MAP_B
+    egos, U = egos[:B].contiguous(), U[:B].contiguous()
+    ob = obstacles._replace(dims=obstacles.dims[:B], pos=obstacles.pos[:B])
+    unc = example_scenario(p, device=egos.device)[-1]
+    H, W = unc.values.shape
+    gen = torch.Generator(device=egos.device).manual_seed(23)
+    values = 100.0 * torch.rand((B, H, W), generator=gen, device=egos.device)
+    # the maps' frame at the lane's obstacles, so that every lane meets them
+    maps = mc.per_scenario_map(values, unc.geom, egos.new_tensor([100.0, -306.74]),
+                               unc.origin_yaw)
+    out, launches = {}, {}
+    try:
+        for mode in ("graphed", "eager"):
+            with loop_mode(mode):
+                solver.CAPTURED.clear()
+                torch.cuda.synchronize()
+                zero_counts()
+                out[mode] = solver_batched.run_steps_batched(
+                    p, plan_xy, plan_n, egos, U, ob, maps, impl="two_phase", world_batched=True)
+                torch.cuda.synchronize()
+                launches[mode] = read_counts()
+    finally:
+        solver.CAPTURED.clear()
+    steps = int(out["eager"].iterations.max())
+    require(tree_equal(out["graphed"], out["eager"]) and bool(torch.isfinite(out["eager"].U).all()),
+            "two-phase with maps: the graphed solve differs from the eager one")
+    for mode in out:
+        require(launches[mode]["cost"] == launches[mode]["riccati"] == steps,
+                f"two-phase with maps {mode}: launches {launches[mode]}, expected the derivatives "
+                f"kernel and K2 {steps} times each")
+    plans = rp.get_local_plan(p, plan_xy, plan_n, egos)
+    X = dynamics.rollout(p, egos, U)
+    planes = solver_batched.uncertainty_planes(p, maps, X[:, :p.horizon])
+    prep = lm_cuda.prep_iteration(plans)
+    d, J = cost_cuda.cost_derivs(p, plans, X, U, ob, planes, (prep.table, prep.fit))
+    want, want_J = costs.all_cost_derivs_and_J(p, plans, X, U, ob, maps)
+    err = cost_held("derivatives kernel with maps", (d.l_x, d.l_xx, d.l_u, d.l_uu, J),
+                    (want.l_x, want.l_xx, want.l_u, want.l_uu, want_J))
+    inside = float((planes[..., 0] != 0).float().mean())
+    print(f"[22 two-phase with maps] B={B}, one {H}x{W} map per scenario ({100 * inside:.1f}% of "
+          f"(lane, step) inside their map), per-lane obstacles: graphed = eager bit for bit, "
+          f"{steps} LM steps, the derivatives kernel and K2 {steps} launches each both ways | "
+          f"one iteration's derivatives from the sampled planes vs the plain version with the "
+          f"maps: max|kernel-plain| {err:.3e} on {card}", flush=True)
+    return dict(B=B, steps=steps, max_abs_err=err, inside_share=inside)
 
 
 def main() -> None:
@@ -2635,8 +2913,8 @@ def main() -> None:
     from cilqr_tpu_torch.models import costs, dynamics, solver, solver_batched
     from cilqr_tpu_torch.models.reference_path import get_local_plan
     from cilqr_tpu_torch.ops import costmap as costmap_mod
-    from cilqr_tpu_torch.ops import (costmap_cuda, gridmap, lm_cuda, riccati_cuda, sample_cuda,
-                                     uncertainty_cuda)
+    from cilqr_tpu_torch.ops import (cost_cuda, costmap_cuda, gridmap, lm_cuda, riccati_cuda,
+                                     sample_cuda, uncertainty_cuda)
     from cilqr_tpu_torch.parallel import monte_carlo as mc
     from cilqr_tpu_torch.sim import perception, plant
     from cilqr_tpu_torch.sim.example_scenario import example_scenario
@@ -2660,7 +2938,8 @@ def main() -> None:
             require(any(ln.startswith(f"{kernel}<{G}>:") and "0/0 spill" in ln for ln in ptxas),
                     f"{kernel}<{G}> spills or is missing from the ptxas report: {ptxas}")
     for kernel in ("riccati_kernel", "propagate_kernel", "fields_kernel", "sample_kernel",
-                   "costmap_layers_kernel", "lm_continue_kernel", "lm_reset_kernel"):
+                   "costmap_layers_kernel", "lm_continue_kernel", "lm_reset_kernel",
+                   "cost_derivs_kernel"):
         found = [ln for ln in ptxas if ln.startswith(kernel)]
         require(found and all("0/0 spill" in ln for ln in found),
                 f"{kernel} spills or is missing from the ptxas report: {ptxas}")
@@ -2721,6 +3000,8 @@ def main() -> None:
     require(k2_events == 1 and k2b_events == 1 and max(k2_other_ms, k2b_other_ms) < 1e-6,
             f"a K2 call launched {k2_events} / {k2b_events} device kernels or copies, expected "
             "its one kernel")
+    # the kernel before K2 in the two-phase step, on phase 22's deployment
+    cost_profile = cost_kernel_profile(card, dev)
     # bound: the derivatives the recursion reads (l_ux is identically zero
     # and is not read), X, U and lambda in; X_new and U_new out (backward
     # only: k and K out); one Riccati step and one rollout step per (b, j)
@@ -2878,13 +3159,16 @@ def main() -> None:
     b1_ms = cuda_ms(lambda: solver_batched.run_steps_batched(
         p, plan, n, e1, u1, obstacles, unc, impl="mega"), 20)
     e4, u4 = scenario_batch(K2_CHECK_B, seed=5)
-    riccati_cuda.LAUNCHES = 0
+    riccati_cuda.LAUNCHES = cost_cuda.LAUNCHES = 0
     r4 = solver_batched.run_steps_batched(p, plan, n, e4, u4, obstacles, unc, impl="two_phase")
     torch.cuda.synchronize()
     two_phase_launches = riccati_cuda.LAUNCHES
-    # one K2 launch per LM iteration, until the last lane stops
-    require(two_phase_launches == int(r4.iterations.max()) and bool(torch.isfinite(r4.U).all()),
-            f"two_phase: {two_phase_launches} K2 launches for {int(r4.iterations.max())} iterations")
+    # one K2 launch and one of the derivatives kernel per LM iteration, until
+    # the last lane stops
+    require(two_phase_launches == int(r4.iterations.max()) == cost_cuda.LAUNCHES
+            and bool(torch.isfinite(r4.U).all()),
+            f"two_phase: {two_phase_launches} K2 launches, {cost_cuda.LAUNCHES} of the "
+            f"derivatives kernel for {int(r4.iterations.max())} iterations")
     tp_ms = cuda_ms(lambda: solver_batched.run_steps_batched(
         p, plan, n, e4, u4, obstacles, unc, impl="two_phase"), 2)
     b1_equal = bool(torch.equal(r1.U[0], res.U[0]) and torch.equal(r1.X[0], res.X[0]))
@@ -3586,12 +3870,13 @@ def main() -> None:
     def zero_counts():
         lm_cuda.LAUNCHES = lm_cuda.ITER_LAUNCHES = costmap_cuda.LAUNCHES = 0
         riccati_cuda.LAUNCHES = uncertainty_cuda.LAUNCHES = sample_cuda.LAUNCHES = 0
+        cost_cuda.LAUNCHES = 0
 
     def read_counts():
         return {"costmap": costmap_cuda.LAUNCHES, "sample": sample_cuda.LAUNCHES,
                 "uncertainty": uncertainty_cuda.LAUNCHES,
                 "lm_iter": lm_cuda.ITER_LAUNCHES, "lm": lm_cuda.LAUNCHES,
-                "riccati": riccati_cuda.LAUNCHES}
+                "riccati": riccati_cuda.LAUNCHES, "cost": cost_cuda.LAUNCHES}
 
     fs_lines = []
     for label, gm in (("all-zero map", gmap_zero), ("random map", gmap)):
@@ -3604,7 +3889,7 @@ def main() -> None:
         it_max = [int(v) for v in rec["iterations"].amax(dim=1)]
         require(fs_launches == {"costmap": FS_CYCLES, "sample": FS_CYCLES,
                                 "uncertainty": FS_CYCLES, "lm_iter": sum(it_max), "lm": 0,
-                                "riccati": 0},
+                                "riccati": 0, "cost": 0},
                 f"full-stack launches {fs_launches} on the {label}, expected the layers kernel, "
                 f"K5 and K4 once per cycle, K3 {it_max} per cycle, K1 and K2 never")
         require("hybrid" in loop_kinds(FS_B), f"full stack: the graphed loops are {loop_kinds()}")
@@ -3662,7 +3947,7 @@ def main() -> None:
         sub_launches, got_c, line = hold_loop(f"full-stack, {label}", captured(gm), x0s[:L],
                                               fs_draws[:cycles, :L], (zero_counts, read_counts))
         require(sub_launches == {"costmap": cycles, "sample": cycles, "uncertainty": cycles,
-                                 "lm": 0, "riccati": 0,
+                                 "lm": 0, "riccati": 0, "cost": 0,
                                  "lm_iter": sum(int(g[2].max()) for g in got_c)},
                 f"the {L}-lane run launched {sub_launches}")
         print(f"[13 lanes] {label}, first {L} lanes vs the loop on the plain versions: {line}",
@@ -3688,7 +3973,7 @@ def main() -> None:
     torch.cuda.synchronize()
     cl_launches = read_counts()
     require(cl_launches == {"costmap": 0, "sample": 0, "uncertainty": 0, "lm_iter": 0,
-                            "lm": CL_CYCLES, "riccati": 0},
+                            "lm": CL_CYCLES, "riccati": 0, "cost": 0},
             f"closed_loop_batched launches {cl_launches}")
     require(bool(torch.isfinite(xf_cl).all()) and bool(torch.isfinite(rec_cl["J"]).all())
             and 1 <= int(rec_cl["iterations"].min())
@@ -3887,7 +4172,10 @@ def main() -> None:
 
     # 22. the CCNMPC campaign of the benchmark's deployment, graphed against
     # eager, and K2 on one of its rounds' derivatives
-    kernels["riccati"]["ccnmpc_campaign"] = ccnmpc_campaign(card, counts, dev)
+    cc = kernels["riccati"]["ccnmpc_campaign"] = ccnmpc_campaign(card, counts, dev)
+    kernels["cost_derivs"] = dict(cc["cost_kernel"], **cost_profile,
+                                  launches=cc["cost_launches"],
+                                  path="campaign.ccnmpc_b8192's deployment, phase 22")
 
     kernels["lm"]["launches"] = main_launches["lm"]
     # K2's own path: ccnmpc's two-phase solves in `compare --full-stack`
@@ -3917,7 +4205,7 @@ def main() -> None:
     kernels["lm_continue"] = condition
     print(json.dumps({"kernels": [kernels[k] for k in ("lm", "riccati", "lm_iter", "uncertainty",
                                                        "sample", "costmap", "opchain",
-                                                       "lm_continue")]}))
+                                                       "lm_continue", "cost_derivs")]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -346,13 +346,13 @@ def _run_step_graphed(p: SolverParams, plan_xy, plan_n, ego_state, U_warm, obsta
 
 
 def _launch_route() -> tuple:
-    """The launch functions the wrappers of K3 and K2 call now: a graph
-    captured on the kernels is never replayed where they are swapped for
-    their plain versions (``chip_smoke.plain_versions``), nor the other way
-    round."""
-    from cilqr_tpu_torch.ops import lm_cuda, riccati_cuda
+    """The launch functions the wrappers of K3, K2 and the two-phase step's
+    derivatives kernel call now: a graph captured on the kernels is never
+    replayed where they are swapped for their plain versions
+    (``chip_smoke.plain_versions``), nor the other way round."""
+    from cilqr_tpu_torch.ops import cost_cuda, lm_cuda, riccati_cuda
 
-    return lm_cuda._launch_iteration, riccati_cuda._launch
+    return lm_cuda._launch_iteration, riccati_cuda._launch, cost_cuda._launch
 
 
 def _key(p: SolverParams, leaves: list, spec, args: list) -> tuple:

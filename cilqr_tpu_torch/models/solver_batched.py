@@ -8,8 +8,10 @@ same algorithm, each matching ``solver.run_step`` per lane:
                     (``world_batched``): the hybrid loop, the map sampled in
                     PyTorch at each iteration's trajectory and one
                     LM-iteration kernel (K3) per iteration
-  impl="two_phase"  LM loop here: batched cost derivatives in PyTorch, then
-                    the backward + rollout kernel (``ops.riccati_cuda``, K2)
+  impl="two_phase"  LM loop here: batched cost derivatives and J (on the
+                    card one kernel, ``ops.cost_cuda``; elsewhere plain
+                    PyTorch), then the backward + rollout kernel
+                    (``ops.riccati_cuda``, K2)
 
 On the card every call is CUDA graphs (``solver.GRAPHS``): the shared-world
 mega solve (the plan fit, the world's payload and K1) one graph
@@ -27,25 +29,57 @@ import torch
 from cilqr_tpu_torch.utils.params import SolverParams
 from cilqr_tpu_torch.models import costs, solver
 from cilqr_tpu_torch.models.reference_path import get_local_plan
-from cilqr_tpu_torch.ops import lm_cuda, riccati_cuda
+from cilqr_tpu_torch.models import uncertainty as uncertainty_mod
+from cilqr_tpu_torch.ops import cost_cuda, lm_cuda, riccati_cuda
 from cilqr_tpu_torch.utils import profiling
 
 
-def _two_phase(p: SolverParams, plans, obstacles, unc_map):
+def uncertainty_planes(p: SolverParams, unc_map, Xh: torch.Tensor):
+    """(B, N, 3) planes [e, gx, gy] of ``unc_map`` at the states Xh (B, N,
+    >=2): one map per scenario (``map_sampler``) or one shared map
+    (``uncertainty.uncertainty_sample``); None without a map."""
+    if unc_map is None:
+        return None
+    if unc_map.values.ndim == 3:
+        return map_sampler(p, unc_map)(Xh)
+    return torch.stack(uncertainty_mod.uncertainty_sample(p, unc_map, Xh), dim=-1)
+
+
+def _on_kernel(t: torch.Tensor) -> bool:
+    """Whether the two-phase step's derivatives take the kernel: float32
+    CUDA tensors."""
+    return t.is_cuda and t.dtype == torch.float32
+
+
+def _two_phase(p: SolverParams, plans, obstacles, unc_map, prepared):
     """The two-phase iteration (X, U, lamb) -> (X_new, U_new, J): the cost
-    derivatives and J in PyTorch, then the backward + rollout kernel K2.
+    derivatives and J, then the backward + rollout kernel K2.  On float32
+    CUDA tensors the derivatives are one kernel (``cost_cuda``) on
+    ``prepared``, (table, fit) of ``lm_cuda.prep_iteration(plans)``, the map
+    sampled into planes before it; elsewhere ``costs.all_cost_derivs_and_J``.
     The ``build`` of ``two_phase_iteration``'s ``solver.Iteration``."""
     def iteration(X, U, lamb):
-        d, J = costs.all_cost_derivs_and_J(p, plans, X, U, obstacles, unc_map)
+        if _on_kernel(X):
+            planes = uncertainty_planes(p, unc_map, X[:, :p.horizon])
+            d, J = cost_cuda.cost_derivs(p, plans, X, U, obstacles, planes, prepared)
+        else:
+            d, J = costs.all_cost_derivs_and_J(p, plans, X, U, obstacles, unc_map)
         return (*riccati_cuda.backward_forward_batched(p, d, X, U, lamb), J)
 
     return iteration
 
 
-def two_phase_iteration(obstacles=None, unc_map=None) -> solver.Iteration:
+def two_phase_iteration(plans, obstacles=None, unc_map=None) -> solver.Iteration:
     """The two-phase LM iteration on (obstacles, unc_map), as
-    ``solver.optimize`` takes it (on the card: replayed as CUDA graphs)."""
-    return solver.Iteration(_two_phase, (obstacles, unc_map))
+    ``solver.optimize`` takes it (on the card: replayed as CUDA graphs).
+    For ``plans`` of float32 CUDA tensors the derivatives kernel's payload
+    (``lm_cuda.prep_iteration``) is prepared here, once per solve (None
+    elsewhere)."""
+    prepared = None
+    if _on_kernel(plans.coeffs):
+        prep = lm_cuda.prep_iteration(plans)
+        prepared = (prep.table, prep.fit)
+    return solver.Iteration(_two_phase, (obstacles, unc_map, prepared))
 
 
 def batched_optimize(p: SolverParams, plans, x0s: torch.Tensor, U_init: torch.Tensor,
@@ -56,7 +90,7 @@ def batched_optimize(p: SolverParams, plans, x0s: torch.Tensor, U_init: torch.Te
     per scenario (see ``costs.state_cost_derivs``).  Returns (X (B,N+1,4),
     U (B,N,2), iterations (B,), J (B,), lamb (B,))."""
     return solver.optimize(p, plans, x0s, U_init,
-                           iteration=two_phase_iteration(obstacles, unc_map))
+                           iteration=two_phase_iteration(plans, obstacles, unc_map))
 
 
 def map_sampler(p: SolverParams, unc_map):
@@ -83,9 +117,10 @@ def hybrid_before(p: SolverParams, egos, U_warm, plan_xy, plan_n, obstacles, unc
 
 
 def two_phase_before(p: SolverParams, egos, U_warm, plan_xy, plan_n, obstacles, unc_map):
-    """What comes before the two-phase LM loop: the plan fit."""
+    """What comes before the two-phase LM loop: the plan fit and the
+    derivatives kernel's payload."""
     plans = get_local_plan(p, plan_xy, plan_n, egos)
-    return (egos, U_warm, plans, two_phase_iteration(obstacles, unc_map),
+    return (egos, U_warm, plans, two_phase_iteration(plans, obstacles, unc_map),
             (plans.x_wpts, plans.y_fit))
 
 

@@ -117,6 +117,12 @@ def load_library() -> ctypes.CDLL:
     lib.cilqr_sample_prior.restype = i
     lib.cilqr_costmap_layers.argtypes = [i] * 5 + [p] * 7 + [p]
     lib.cilqr_costmap_layers.restype = i
+    lib.cilqr_cost_derivs.argtypes = [p] * 14 + [p]
+    lib.cilqr_cost_derivs.restype = i
+    lib.cilqr_cost_resources.argtypes = [i, i, i, p]
+    lib.cilqr_cost_resources.restype = i
+    lib.cilqr_cost_config_size.argtypes = []
+    lib.cilqr_cost_config_size.restype = i
     lib.cilqr_opchain.argtypes = [i, i, ctypes.c_longlong, p, p, p]
     lib.cilqr_opchain.restype = i
     lib.cilqr_lm_continue.argtypes = [p, i, p, i, p, p]

@@ -43,13 +43,19 @@ RICCATI_STEP_OPS = 646  # Jacobians 20; Q_x 32, Q_u 16, V_xx fx 112, Q_xx 128, Q
 ROLLOUT_STEP_OPS = 45   # K dx 16, the sum 4, one dynamics step with its clamps 25
 
 
+def cost_step_ops(S: int, M: int, unc_ops: int) -> int:
+    """The cost derivatives' and J's operations per horizon step: the
+    closest-point tournament over S samples (5 each) and its 3-candidate
+    refine (26), the tracking and control terms with four barriers (80), M
+    obstacles of two discs (70 each), the uncertainty term (50 from the map,
+    20 from given planes, 0 without), J (10)."""
+    return 5 * S + 26 + 80 + 70 * M + unc_ops + 10
+
+
 def lm_step_ops(S: int, M: int, unc_ops: int) -> int:
-    """One LM iteration's operations per horizon step: the closest-point
-    tournament over S samples (5 each) and its 3-candidate refine (26), the
-    tracking and control terms with four barriers (80), M obstacles of two
-    discs (70 each), the uncertainty term (50 from the map, 20 from given
-    planes), J (10), the Riccati step and the rollout step."""
-    return 5 * S + 26 + 80 + 70 * M + unc_ops + 10 + RICCATI_STEP_OPS + ROLLOUT_STEP_OPS
+    """One LM iteration's operations per horizon step: the cost derivatives
+    and J (``cost_step_ops``), the Riccati step and the rollout step."""
+    return cost_step_ops(S, M, unc_ops) + RICCATI_STEP_OPS + ROLLOUT_STEP_OPS
 
 
 class IterationCost(NamedTuple):

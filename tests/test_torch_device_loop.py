@@ -132,7 +132,7 @@ def loop_call(kind: str, p, w, graphed: bool, k3=k3_op):
         it = lm_cuda.hybrid_iteration(p, plans, obstacles, solver_batched.map_sampler(p, maps),
                                       k3)
     else:
-        it = solver_batched.two_phase_iteration(obstacles, unc)
+        it = solver_batched.two_phase_iteration(plans, obstacles, unc)
     if graphed:
         return lambda: solver._optimize_graphed(p, plans, egos, U, iteration=it)
     return lambda: solver.optimize(p, plans, egos, U, iteration=it)

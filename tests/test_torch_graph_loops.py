@@ -29,7 +29,7 @@ import chip_smoke
 from cilqr_tpu_torch.models import solver, solver_batched
 from cilqr_tpu_torch.models.obstacles import Obstacles
 from cilqr_tpu_torch.models.reference_path import get_local_plan
-from cilqr_tpu_torch.ops import lm_cuda, riccati_cuda
+from cilqr_tpu_torch.ops import cost_cuda, lm_cuda, riccati_cuda
 from cilqr_tpu_torch.parallel import monte_carlo as mc
 from cilqr_tpu_torch.sim.example_scenario import example_scenario
 from cilqr_tpu_torch.utils import graphs
@@ -171,7 +171,7 @@ def test_two_phase_loop_graph_path_gives_the_eager_bits(dtype, planned_captures,
     plan, n, ego, U0, obstacles, unc = example_scenario(p, dtype, device=DEV)
     plans, egos, U, _, _ = hybrid_world(p, dtype, 6, seed=5)
     for world in ((per_lane_obstacles(obstacles, 6, 7), None), (obstacles, unc)):
-        it = solver_batched.two_phase_iteration(*world)
+        it = solver_batched.two_phase_iteration(plans, *world)
         planners = len(PlannedEagerly.planners)
         got = solver._optimize_graphed(p, plans, egos, U, iteration=it)
         want = solver.optimize(p, plans, egos, U, iteration=it)
@@ -214,7 +214,7 @@ def test_step_plans_order_every_dependency(kind, monkeypatch):
         op = "lm_iter.default"
     else:
         monkeypatch.setattr(riccati_cuda, "backward_forward_batched", k2_op)
-        it = solver_batched.two_phase_iteration(per_lane_obstacles(obstacles, 4, 17), None)
+        it = solver_batched.two_phase_iteration(plans, per_lane_obstacles(obstacles, 4, 17))
         op = "riccati.default"
     planner = planned_step(p, it, plans, egos, U, solver.STREAMS)
     ops = planner.ops
@@ -318,7 +318,7 @@ def test_launch_counters_advance_by_replays(kind, planned_captures, monkeypatch)
             return k2_op(*args)
 
         monkeypatch.setattr(riccati_cuda, "backward_forward_batched", counted)
-        it = solver_batched.two_phase_iteration(obstacles, None)
+        it = solver_batched.two_phase_iteration(plans, obstacles)
         read = lambda: riccati_cuda.LAUNCHES
     for module, name in graphs.COUNTERS:
         monkeypatch.setattr(module, name, 0)
@@ -340,13 +340,14 @@ def test_graph_key_holds_the_launch_route(planned_captures):
     under ``chip_smoke.plain_versions`` (its key differs, so it captures
     anew), nor the one captured there outside; on every later entry the
     plain route's capture serves again (the swapped functions are the same
-    objects).  The key's route is (K3's, K2's) launch function."""
+    objects).  The key's route is (K3's, K2's, the two-phase derivatives
+    kernel's) launch function."""
     p = dataclasses.replace(SolverParams(), horizon=8, max_iterations=3)
     plans, egos, U, obstacles, maps = hybrid_world(p, torch.float32, 3, seed=13)
     it = lm_cuda.hybrid_iteration(p, plans, obstacles, lm_cuda.MapSampler(p, maps),
                                   lm_cuda.fused_iteration)
     solve = lambda: solver._optimize_graphed(p, plans, egos, U, iteration=it)
-    kernel_route = (lm_cuda._launch_iteration, riccati_cuda._launch)
+    kernel_route = (lm_cuda._launch_iteration, riccati_cuda._launch, cost_cuda._launch)
     keys = []
     for plain in (False, True, False, True):
         before = set(solver.CAPTURED)
@@ -354,7 +355,8 @@ def test_graph_key_holds_the_launch_route(planned_captures):
             solve()
             route = solver._launch_route()
         assert (route == kernel_route) != plain
-        assert (route == (lm_cuda.fused_iteration_plain, chip_smoke.k2_plain)) == plain
+        assert (route == (lm_cuda.fused_iteration_plain, chip_smoke.k2_plain,
+                          chip_smoke.cost_plain)) == plain
         keys.append([k for k in solver.CAPTURED if k not in before])
     assert [len(k) for k in keys] == [1, 1, 0, 0]
     (kernel_key,), (plain_key,) = keys[:2]

@@ -265,11 +265,13 @@ def test_the_launch_functions_and_counters_are_entered():
     assert entered == {("lm_cuda", "_launch"), ("lm_cuda", "_launch_iteration"),
                        ("riccati_cuda", "_launch"), ("uncertainty_cuda", "_launch"),
                        ("uncertainty_cuda", "_launch_fused"), ("sample_cuda", "_launch"),
-                       ("sample_cuda", "_launch_vehicle_map"), ("costmap_cuda", "_launch")}
+                       ("sample_cuda", "_launch_vehicle_map"), ("costmap_cuda", "_launch"),
+                       ("cost_cuda", "_launch")}
     counters = {(m.__name__.rsplit(".", 1)[-1], n) for m, n in graphs.COUNTERS}
     assert counters >= {("lm_cuda", "LAUNCHES"), ("lm_cuda", "ITER_LAUNCHES"),
                         ("riccati_cuda", "LAUNCHES"), ("uncertainty_cuda", "LAUNCHES"),
-                        ("sample_cuda", "LAUNCHES"), ("costmap_cuda", "LAUNCHES")}
+                        ("sample_cuda", "LAUNCHES"), ("costmap_cuda", "LAUNCHES"),
+                        ("cost_cuda", "LAUNCHES")}
     assert graphs.on_kernels()
     with chip_smoke.plain_versions():
         assert not graphs.on_kernels()
