@@ -147,6 +147,7 @@ import torch
 # float32 operations over the rate outside the tensor cores.
 from cilqr_tpu_torch.utils.roofline import (FP32_OPS_PER_S, RICCATI_STEP_OPS, ROLLOUT_STEP_OPS,
                                            bound, k4_bound, lm_step_ops, nbytes)
+from cilqr_tpu_torch.ops import route
 
 MAIN_B = 32768      # main-path batch (the benchmark's B)
 HORIZON = 50
@@ -605,64 +606,6 @@ def pick(r) -> tuple:
     return (r.X, r.U, r.iterations, r.J, r.lamb)
 
 
-def k1_plain(p, plans, x0s, U_init, obstacles, unc_map, G=None):
-    """K1's launch function inside ``plain_versions``."""
-    from cilqr_tpu_torch.ops import lm_cuda
-
-    return lm_cuda.fused_optimize_plain(p, plans, x0s, U_init, obstacles, unc_map)
-
-
-def k2_plain(p, d, X, U, lamb, do_forward):
-    """K2's launch function inside ``plain_versions``."""
-    from cilqr_tpu_torch.ops import riccati_cuda
-
-    plain = riccati_cuda.backward_forward_plain if do_forward else riccati_cuda.backward_plain
-    return plain(p, d, X, U, lamb)
-
-
-def cost_plain(p, plans, X, U, obstacles, planes, prepared):
-    """The two-phase derivatives kernel's launch function inside
-    ``plain_versions``."""
-    from cilqr_tpu_torch.models import costs
-
-    return costs.all_cost_derivs_and_J(p, plans, X, U, obstacles, None, unc_planes=planes)
-
-
-@contextlib.contextmanager
-def plain_versions():
-    """Inside: the wrappers of K1, K2, K3, K4 (fields given and fused), K5
-    (alone and with the overrides), the costmap build's layers kernel
-    (``costmap_cuda``) and the two-phase step's derivatives kernel
-    (``cost_cuda``) run their plain versions on the card
-    (the launch functions are swapped; their arguments are the plain
-    versions').  Only the comparisons use it.  The LM loops' graphs are
-    keyed by the launch functions (``solver._launch_route``), so a loop
-    captured on the kernels is never replayed here, nor one captured here
-    outside; the swapped functions are the same objects on every entry, so
-    the captures made here serve every later entry."""
-    from cilqr_tpu_torch.ops import (cost_cuda, costmap_cuda, lm_cuda, riccati_cuda, sample_cuda,
-                                     uncertainty_cuda)
-
-    saved = (lm_cuda._launch, lm_cuda._launch_iteration, uncertainty_cuda._launch,
-             uncertainty_cuda._launch_fused, sample_cuda._launch, sample_cuda._launch_vehicle_map,
-             riccati_cuda._launch, costmap_cuda._launch, cost_cuda._launch)
-    lm_cuda._launch = k1_plain
-    lm_cuda._launch_iteration = lm_cuda.fused_iteration_plain
-    riccati_cuda._launch = k2_plain
-    uncertainty_cuda._launch = uncertainty_cuda.propagate_banded_plain
-    uncertainty_cuda._launch_fused = uncertainty_cuda.propagate_fused_plain
-    sample_cuda._launch = sample_cuda.sample_prior_batched_plain
-    sample_cuda._launch_vehicle_map = sample_cuda.vehicle_map_batched_plain
-    costmap_cuda._launch = costmap_cuda.costmap_layers_plain
-    cost_cuda._launch = cost_plain
-    try:
-        yield
-    finally:
-        (lm_cuda._launch, lm_cuda._launch_iteration, uncertainty_cuda._launch,
-         uncertainty_cuda._launch_fused, sample_cuda._launch, sample_cuda._launch_vehicle_map,
-         riccati_cuda._launch, costmap_cuda._launch, cost_cuda._launch) = saved
-
-
 def require(cond: bool, what: str) -> None:
     if not cond:
         raise AssertionError(what)
@@ -875,7 +818,7 @@ def hold_loop(label: str, run, x0s: torch.Tensor, draws: torch.Tensor, counts) -
     got = run(x0s, draws, torch.float32, True)
     torch.cuda.synchronize()
     launches = read_counts()
-    with plain_versions():
+    with route.plain():
         plain = run(torch.cat([x0s] + perturbed(x0s, FS_NUDGES)),
                     draws.repeat(1, FS_NUDGES + 1, 1), torch.float32, True)
         want64 = run(x0s.double(), draws.double(), torch.float64, False)
@@ -924,7 +867,7 @@ def hold_calls(label: str, calls: list) -> str:
     from cilqr_tpu_torch.models import solver_batched
 
     got, want32, want64, nudged = [], [], [], [[] for _ in range(FS_NUDGES)]
-    with plain_versions():
+    with route.plain():
         for args, kw, res in calls:
             p, plan, n, egos, U_warm, *world = args
             L = egos.shape[0]
@@ -1127,7 +1070,7 @@ def experiment_layer(card: str, counts, dev: torch.device) -> tuple:
         del calls, solves
 
     # the first cycles of (b) and (c) against the same loops on the plain
-    # versions (K1, K2, K3, K4, K5 swapped), with the draws the commands
+    # versions (``route.plain()``), with the draws the commands
     # drew: by hold_loop's rule where the planner goes through a kernel or
     # reads K4's map, bit for bit where it reads neither
     town32 = sweep.synthetic_town_prior(torch.float32, dev)
@@ -1197,7 +1140,7 @@ def experiment_layer(card: str, counts, dev: torch.device) -> tuple:
                 got = loop(algo)(x0s, draws, torch.float32, True)
                 torch.cuda.synchronize()
                 got_launches = read_counts()
-                with plain_versions():
+                with route.plain():
                     want = loop(algo)(x0s, draws, torch.float32, True)
                 require(read_counts() == got_launches, f"{label} {algo}: a plain-version loop "
                         "launched a kernel")
@@ -1229,12 +1172,12 @@ def experiment_layer(card: str, counts, dev: torch.device) -> tuple:
     # and pushed off it, partly and wholly outside the map
     gm, gg = town32
     rng = np.random.default_rng(21)
-    route = scenarios.town02_loop_plan()
-    lp, nl = rp.pad_global_plan(p, route, device=dev)
+    town_route = scenarios.town02_loop_plan()
+    lp, nl = rp.pad_global_plan(p, town_route, device=dev)
     push = rng.choice([0.0, 60.0, 120.0, 250.0], (K5_TOWN_B, 2)) * rng.choice([-1.0, 1.0],
                                                                               (K5_TOWN_B, 2))
-    xy = torch.tensor(route[rng.integers(0, len(route), K5_TOWN_B)] + push, dtype=torch.float32,
-                      device=dev)
+    xy = torch.tensor(town_route[rng.integers(0, len(town_route), K5_TOWN_B)] + push,
+                      dtype=torch.float32, device=dev)
     yaw = torch.tensor(rng.uniform(-math.pi, math.pi, K5_TOWN_B), dtype=torch.float32, device=dev)
     center, _, _ = costmap_mod.corridor_geometry(cp, lp, nl, xy, yaw)
     geoms = costmap_mod.vehicle_geom(cp, center)
@@ -3729,7 +3672,7 @@ def main() -> None:
             f"costmap build launches {build_launches}, expected the layers kernel, K5 and K4 "
             "once each")
     require(len(layer_terms) == 1, f"the build called the layers wrapper {len(layer_terms)} times")
-    with plain_versions():
+    with route.plain():
         cm_plain = fs_build(x0s)
     require(build_launches == build_counts(), "the plain build launched a kernel")
     for f in ("corridor_mask", "bounding_box_map", "vehicle_map"):

@@ -25,9 +25,8 @@ same functions eagerly.  Without obstacles it is the shared-world solve
 (K1).
 
 Spans (``utils.profiling``): each round, ``ccnmpc.round`` with its index.
-Host counters (entered in ``profiling.HOST_COUNTERS``, read by
-``profiling.counters()``): ``ROUNDS``, the rounds run, and ``TIGHTENED``,
-the (lane, obstacle slot, step) tightenings they issued.
+Host counter (entered in ``profiling.HOST_COUNTERS``, read by
+``profiling.counters()``): ``ROUNDS``, the rounds run.
 """
 
 from __future__ import annotations
@@ -46,11 +45,7 @@ from cilqr_tpu_torch.utils.params import NoiseParams, SolverParams
 
 #: SQP rounds run (host counter, ``profiling.counters()``)
 ROUNDS = 0
-#: (lane, obstacle slot, step) tightenings the rounds issued, padding slots
-#: included, as ``tightened_obstacles`` grows every slot (host counter)
-TIGHTENED = 0
-profiling.HOST_COUNTERS.extend([(sys.modules[__name__], "ROUNDS"),
-                                (sys.modules[__name__], "TIGHTENED")])
+profiling.HOST_COUNTERS.append((sys.modules[__name__], "ROUNDS"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -132,9 +127,8 @@ def solve_round(p: SolverParams, cc: CCParams, plan_xy: torch.Tensor, plan_n,
                 Sigma0: torch.Tensor, W: torch.Tensor) -> solver.SolveResult:
     """One SQP round from the controls U (B, N, 2): ``_round_before``, then
     the two-phase LM loop on the tightened obstacles."""
-    global ROUNDS, TIGHTENED
+    global ROUNDS
     ROUNDS += 1
-    TIGHTENED += egos.shape[0] * obstacles.dims.shape[-3] * obstacles.dims.shape[-2]
     (X, U, it, J, lamb), (x_wpts, y_fit) = solver.solve(p, solver.Stage(
         _round_before, (egos, U, plan_xy, plan_n, obstacles, Sigma0, W, cc)))
     return solver.SolveResult(X, U, x_wpts, y_fit, it, J, lamb)

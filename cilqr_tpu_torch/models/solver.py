@@ -35,7 +35,7 @@ from cilqr_tpu_torch.utils.device import resolve
 from cilqr_tpu_torch.models import costs as costs_mod
 from cilqr_tpu_torch.models import dynamics
 from cilqr_tpu_torch.models.reference_path import LocalPlan, get_local_plan
-from cilqr_tpu_torch.ops import riccati_pscan
+from cilqr_tpu_torch.ops import riccati_pscan, route
 from cilqr_tpu_torch.ops.eig2x2 import regularized_inverse
 
 #: run the LM loops and the stages around them (``run``, ``solve``) as CUDA
@@ -229,10 +229,10 @@ def optimize(p: SolverParams, plan: LocalPlan, x0: torch.Tensor, U_init: torch.T
     every lane has stopped, which reads the done mask on the host once per
     iteration.  On the card an ``Iteration`` runs as CUDA graphs
     (``GRAPHS``): the start and the step, captured once per parameters,
-    iteration, launch route and shapes and replayed, the same kernels on the
-    same inputs, so the same bits as the eager loop; the loop over the step
-    runs on the card (``DEVICE_LOOP``).  Returns (X, U, iterations, J,
-    lamb)."""
+    iteration, route (``ops.route``) and shapes and replayed, the same
+    kernels on the same inputs, so the same bits as the eager loop; the
+    loop over the step runs on the card (``DEVICE_LOOP``).  Returns (X, U,
+    iterations, J, lamb)."""
     if iteration is None:
         iteration = Iteration(plain_iteration, (obstacles, unc_map))
     if isinstance(iteration, Iteration):
@@ -269,11 +269,10 @@ def run_step(p: SolverParams, plan_xy: torch.Tensor, plan_n, ego_state: torch.Te
 def _staged(args: list) -> bool:
     """Whether a stage on the tensors ``args`` replays as CUDA graphs: on the
     card with ``GRAPHS``, outside another capture (inside one it runs
-    eagerly, and that capture holds its kernels), on the kernels' own launch
-    functions (``graphs.on_kernels``: the plain versions that
-    ``chip_smoke.plain_versions`` swaps in run eagerly, their LM loops
+    eagerly, and that capture holds its kernels), on the kernels (inside
+    ``route.plain()`` the plain versions run eagerly, their LM loops
     replaying the plain loop's graphs)."""
-    return GRAPHS and graphs.replayable(args[0]) and graphs.on_kernels()
+    return GRAPHS and graphs.replayable(args[0]) and not route.plain_on_card()
 
 
 def run(p: SolverParams, stage: Stage):
@@ -345,28 +344,20 @@ def _run_step_graphed(p: SolverParams, plan_xy, plan_n, ego_state, U_warm, obsta
     return SolveResult(X, U, x_wpts, y_fit, n, J, lamb)
 
 
-def _launch_route() -> tuple:
-    """The launch functions the wrappers of K3, K2 and the two-phase step's
-    derivatives kernel call now: a graph captured on the kernels is never
-    replayed where they are swapped for their plain versions
-    (``chip_smoke.plain_versions``), nor the other way round."""
-    from cilqr_tpu_torch.ops import cost_cuda, lm_cuda, riccati_cuda
-
-    return lm_cuda._launch_iteration, riccati_cuda._launch, cost_cuda._launch
-
-
 def _key(p: SolverParams, leaves: list, spec, args: list) -> tuple:
     """A capture's key: the parameters, the device, the stage's structure,
     its tensors' shapes and dtypes, its constants (its function among them),
-    ``STREAMS``, ``DEVICE_LOOP`` and the launch route.  Every tensor must lie
-    on the device (a tensor elsewhere would be read once, when captured)."""
+    ``STREAMS``, ``DEVICE_LOOP`` and ``route.plain_on_card()`` (a graph
+    captured on the kernels is never replayed on the plain versions, nor
+    the reverse).  Every tensor must lie on the device (a tensor elsewhere
+    would be read once, when captured)."""
     dev = args[0].device
     if any(a.device != dev for a in args):
         raise ValueError(f"a graphed stage takes its tensors on one device, got "
                          f"{sorted({str(a.device) for a in args})}")
     return (p, dev, spec, tuple((a.shape, a.dtype) for a in args),
             tuple(t for t in leaves if not isinstance(t, torch.Tensor)), STREAMS,
-            DEVICE_LOOP, _launch_route())
+            DEVICE_LOOP, route.plain_on_card())
 
 
 def _copied(out):

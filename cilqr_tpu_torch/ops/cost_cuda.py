@@ -36,7 +36,7 @@ from cilqr_tpu_torch.models import costs
 from cilqr_tpu_torch.models.costs import CostDerivs
 from cilqr_tpu_torch.models.obstacles import Obstacles
 from cilqr_tpu_torch.models.reference_path import LocalPlan
-from cilqr_tpu_torch.ops import riccati_cuda
+from cilqr_tpu_torch.ops import riccati_cuda, route
 from cilqr_tpu_torch.utils import graphs
 from cilqr_tpu_torch.utils.params import SolverParams
 
@@ -190,7 +190,10 @@ def _cost_derivs_kernel(params, X, U, fit, table, plans, obstacles, planes):
 
 
 def _launch(p: SolverParams, plans, X, U, obstacles, planes, prepared):
-    """The kernel on CUDA tensors, checked, then through its op."""
+    """The kernel on CUDA tensors, checked, then through its op (inside
+    ``route.plain()`` its plain version)."""
+    if route.plain_on_card():
+        return costs.all_cost_derivs_and_J(p, plans, X, U, obstacles, None, unc_planes=planes)
     N, S = p.horizon, p.n_closest_samples
     B = X.shape[0]
     if B < 1:
@@ -229,6 +232,3 @@ def cost_derivs(p: SolverParams, plans, X: torch.Tensor, U: torch.Tensor, obstac
     fit) of ``lm_cuda.prep_iteration(plans)``.  The derivatives' l_ux is
     None (identically zero; K2 does not read it)."""
     return _launch(p, plans, X, U, obstacles, planes, prepared)
-
-
-graphs.LAUNCHERS.append((sys.modules[__name__], "_launch", _launch))

@@ -29,7 +29,7 @@ import sys
 
 import torch
 
-from cilqr_tpu_torch.ops import gridmap
+from cilqr_tpu_torch.ops import gridmap, route
 from cilqr_tpu_torch.utils import graphs
 
 LAUNCHES = 0  # kernel launches made by this module's wrappers
@@ -111,7 +111,10 @@ def _op(xs, ys, bounds, verts, active):
 
 
 def _launch(xs, ys, bounds, verts, active):
-    """The kernel on CUDA tensors, checked, then through its op."""
+    """The kernel on CUDA tensors, checked, then through its op (inside
+    ``route.plain()`` its plain version)."""
+    if route.plain_on_card():
+        return costmap_layers_plain(xs, ys, bounds, verts, active)
     from cilqr_tpu_torch.ops import riccati_cuda
 
     lead, rows, cols, M = tuple(xs.shape[:-1]), xs.shape[-1], ys.shape[-1], verts.shape[-3]
@@ -139,6 +142,3 @@ def costmap_layers(xs: torch.Tensor, ys: torch.Tensor, bounds: torch.Tensor,
     if xs.device.type == "cpu":
         return _op(xs, ys, bounds, verts, active)
     return _launch(xs, ys, bounds, verts, active)
-
-
-graphs.LAUNCHERS.append((sys.modules[__name__], "_launch", _launch))

@@ -49,7 +49,7 @@ from cilqr_tpu_torch.models import costs, solver
 from cilqr_tpu_torch.models import uncertainty as uncertainty_mod
 from cilqr_tpu_torch.models.obstacles import Obstacles
 from cilqr_tpu_torch.models.reference_path import LocalPlan
-from cilqr_tpu_torch.ops import riccati_cuda
+from cilqr_tpu_torch.ops import riccati_cuda, route
 from cilqr_tpu_torch.ops.gridmap import GridGeom
 from cilqr_tpu_torch.utils.device import resolve
 
@@ -491,7 +491,10 @@ def opt_op(p: SolverParams, plans, x0s, U_init, world: WorldPrep, G: int, blocks
 
 
 def _launch(p: SolverParams, plans, x0s, U_init, obstacles, unc_map, G=None):
-    """K1 on batch-major CUDA tensors, checked, then through its op."""
+    """K1 on batch-major CUDA tensors, checked, then through its op (inside
+    ``route.plain()`` its plain version)."""
+    if route.plain_on_card():
+        return fused_optimize_plain(p, plans, x0s, U_init, obstacles, unc_map)
     N, S = p.horizon, p.n_closest_samples
     B = x0s.shape[0]
     if B < 1:
@@ -572,7 +575,10 @@ def iteration_op(p: SolverParams, world: WorldPrep, plans, X, U, lamb, uext, G: 
 
 
 def _launch_iteration(p: SolverParams, world: WorldPrep, plans, X, U, lamb, uext, G=None):
-    """K3 on batch-major tensors, checked, then through its op."""
+    """K3 on batch-major tensors, checked, then through its op (inside
+    ``route.plain()`` its plain version)."""
+    if route.plain_on_card():
+        return fused_iteration_plain(p, world, plans, X, U, lamb, uext)
     N, S = p.horizon, p.n_closest_samples
     B = X.shape[0]
     if B < 1:
@@ -635,7 +641,3 @@ def fused_optimize(p: SolverParams, plans, x0s, U_init, obstacles=None, unc_map=
         return opt_op(p, plans, x0s, U_init,
                       prep_world(p, obstacles, unc_map, torch.float32, x0s.device), 1, 1)
     return _launch(p, plans, x0s, U_init, obstacles, unc_map)
-
-
-graphs.LAUNCHERS.extend([(sys.modules[__name__], "_launch", _launch),
-                         (sys.modules[__name__], "_launch_iteration", _launch_iteration)])

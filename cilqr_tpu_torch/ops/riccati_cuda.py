@@ -35,6 +35,7 @@ from cilqr_tpu_torch.utils import graphs
 from cilqr_tpu_torch.utils.params import SolverParams
 from cilqr_tpu_torch.models import solver
 from cilqr_tpu_torch.models.costs import CostDerivs
+from cilqr_tpu_torch.ops import route
 
 LAUNCHES = 0  # kernel launches made by this module's wrappers
 graphs.COUNTERS.append((sys.modules[__name__], "LAUNCHES"))
@@ -172,7 +173,10 @@ def _riccati_kernel(params, l_x, l_xx, l_u, l_uu, X, U, lamb, do_forward):
 
 
 def _launch(p: SolverParams, d: CostDerivs, X, U, lamb, do_forward: bool):
-    """K2 on batch-major CUDA tensors, through its op."""
+    """K2 on batch-major CUDA tensors, through its op (inside
+    ``route.plain()`` its plain version)."""
+    if route.plain_on_card():
+        return (backward_forward_plain if do_forward else backward_plain)(p, d, X, U, lamb)
     return torch.ops.cilqr_torch.riccati(params_arg(p), d.l_x, d.l_xx, d.l_u, d.l_uu, X, U,
                                          lamb, do_forward)
 
@@ -190,6 +194,3 @@ def backward_forward_batched(p: SolverParams, d: CostDerivs, X, U, lamb):
     if X.device.type == "cpu":
         return backward_forward_plain(p, d, X, U, lamb)
     return _launch(p, d, X, U, lamb, do_forward=True)
-
-
-graphs.LAUNCHERS.append((sys.modules[__name__], "_launch", _launch))

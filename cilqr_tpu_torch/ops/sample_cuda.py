@@ -28,7 +28,7 @@ import sys
 import torch
 
 from cilqr_tpu_torch.ops import costmap as costmap_mod
-from cilqr_tpu_torch.ops import gridmap, riccati_cuda
+from cilqr_tpu_torch.ops import gridmap, riccati_cuda, route
 from cilqr_tpu_torch.utils import graphs
 
 LAUNCHES = 0  # kernel launches made by this module's wrappers
@@ -150,11 +150,19 @@ def _kernel_call(geoms, rows, cols, global_map, global_geom, ego_xys, ego_yaws, 
 
 
 def _launch(geoms, rows, cols, global_map, global_geom, ego_xys, ego_yaws):
+    """K5's resample (inside ``route.plain()`` its plain version)."""
+    if route.plain_on_card():
+        return sample_prior_batched_plain(geoms, rows, cols, global_map, global_geom, ego_xys,
+                                          ego_yaws)
     return _kernel_call(geoms, rows, cols, global_map, global_geom, ego_xys, ego_yaws, None, None)
 
 
 def _launch_vehicle_map(geoms, rows, cols, global_map, global_geom, ego_xys, ego_yaws, bbox,
                         semantic=None):
+    """K5 with the overrides (inside ``route.plain()`` its plain version)."""
+    if route.plain_on_card():
+        return vehicle_map_batched_plain(geoms, rows, cols, global_map, global_geom, ego_xys,
+                                         ego_yaws, bbox, semantic)
     return _kernel_call(geoms, rows, cols, global_map, global_geom, ego_xys, ego_yaws, bbox,
                         semantic)
 
@@ -187,7 +195,3 @@ def vehicle_map_batched(geoms: gridmap.GridGeom, rows: int, cols: int, global_ma
         return _op(geoms, rows, cols, global_map, global_geom, ego_xys, ego_yaws, bbox, semantic)
     return _launch_vehicle_map(geoms, rows, cols, global_map, global_geom, ego_xys, ego_yaws,
                                bbox, semantic)
-
-
-graphs.LAUNCHERS.extend([(sys.modules[__name__], "_launch", _launch),
-                         (sys.modules[__name__], "_launch_vehicle_map", _launch_vehicle_map)])

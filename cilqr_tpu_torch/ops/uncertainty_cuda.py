@@ -47,7 +47,7 @@ import torch.nn.functional as F
 from cilqr_tpu_torch.utils import graphs
 from cilqr_tpu_torch.utils.params import CostmapParams
 from cilqr_tpu_torch.ops import costmap as costmap_mod
-from cilqr_tpu_torch.ops import gridmap, riccati_cuda
+from cilqr_tpu_torch.ops import gridmap, riccati_cuda, route
 
 LAUNCHES = 0  # propagation-kernel launches made by this module's wrappers
 graphs.COUNTERS.append((sys.modules[__name__], "LAUNCHES"))
@@ -468,11 +468,20 @@ def _op(cp: CostmapParams, prior: torch.Tensor, bands, disc_radii, fields=(), ge
 
 
 def _launch(cp: CostmapParams, prior: torch.Tensor, fields, bands, disc_radii):
+    """K4 on given fields through its op (inside ``route.plain()`` its
+    plain version)."""
+    if route.plain_on_card():
+        return propagate_banded_plain(cp, prior, fields, bands, disc_radii)
     return _op(cp, prior, bands, disc_radii, fields=fields)
 
 
 def _launch_fused(cp: CostmapParams, prior: torch.Tensor, geom: gridmap.GridGeom, ego_yaw,
                   sigmas, faithful_rho: bool, bands, disc_radii):
+    """K4's fused form, checked, then through its op (inside
+    ``route.plain()`` its plain version)."""
+    if route.plain_on_card():
+        return propagate_fused_plain(cp, prior, geom, ego_yaw, sigmas, faithful_rho, bands,
+                                     disc_radii)
     riccati_cuda.check_cuda_f32("geometry center", geom.center, tuple(geom.center.shape))
     return _op(cp, prior, bands, disc_radii, geom=geom, ego_yaw=ego_yaw, sigmas=sigmas,
                faithful_rho=faithful_rho)
@@ -571,7 +580,3 @@ def propagate_uncertainty_banded(cp: CostmapParams, prior: torch.Tensor,
 def _kernel_dtype(prior: torch.Tensor) -> torch.dtype:
     """The kernel computes in float32; the plain version in the prior's dtype."""
     return prior.dtype if prior.device.type == "cpu" else torch.float32
-
-
-graphs.LAUNCHERS.extend([(sys.modules[__name__], "_launch", _launch),
-                         (sys.modules[__name__], "_launch_fused", _launch_fused)])

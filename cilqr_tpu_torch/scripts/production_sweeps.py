@@ -24,10 +24,10 @@ two paths differ (``docs/BASELINES.md``: 160-cycle float32 chaos), or
 within a grid's own measured bar (``spread``).
 
 To tell float32 chaos from a bias, a grid runs in float64 (the kernels
-compute in float32, so K1 and K3 run their plain versions and the costmap
-its oracle: ``--no-kernels``), on a subset of its cells (``--algorithms``,
-``--sigmas``), or on the noise block moved by K units in the last place
-(``--nudge-ulps``).
+compute in float32, so K1 and K3 run their plain versions, ``route.plain()``,
+and the costmap its oracle: ``--no-kernels``), on a subset of its cells
+(``--algorithms``, ``--sigmas``), or on the noise block moved by K units in
+the last place (``--nudge-ulps``).
 
     python -m cilqr_tpu_torch.scripts.production_sweeps [--grids r4_n50,...] [--no-kernels]
         [--dtype float32|float64] [--algorithms cilqr,...] [--sigmas 0.375,...]
@@ -47,7 +47,7 @@ import sys
 import numpy as np
 import torch
 
-from cilqr_tpu_torch.ops import gridmap, lm_cuda
+from cilqr_tpu_torch.ops import gridmap, route
 from cilqr_tpu_torch.scripts import jax_noise
 from cilqr_tpu_torch.sim import scenarios, sweep
 from cilqr_tpu_torch.utils.device import resolve
@@ -87,21 +87,6 @@ def nudged(x: torch.Tensor, ulps: int) -> torch.Tensor:
     return x
 
 
-@contextlib.contextmanager
-def plain_lm():
-    """Inside: K1 and K3 run their plain versions (``lm_cuda``'s launch
-    functions swapped), the route of a float64 grid: the kernels take
-    float32 only."""
-    saved = lm_cuda._launch, lm_cuda._launch_iteration
-    lm_cuda._launch = lambda p, plans, x0s, U_init, obstacles, unc_map, G=None: (
-        lm_cuda.fused_optimize_plain(p, plans, x0s, U_init, obstacles, unc_map))
-    lm_cuda._launch_iteration = lm_cuda.fused_iteration_plain
-    try:
-        yield
-    finally:
-        lm_cuda._launch, lm_cuda._launch_iteration = saved
-
-
 def run_grid(name: str, n_runs: int = N_RUNS, n_cycles: int = N_CYCLES, sigmas=None,
              algorithms=None, use_kernels: bool = True, dtype=torch.float32, device=None,
              town=None, nudge_ulps: int = 0) -> list:
@@ -111,7 +96,7 @@ def run_grid(name: str, n_runs: int = N_RUNS, n_cycles: int = N_CYCLES, sigmas=N
     ``--no-kernels``).  ``town`` is the synthetic town prior (map,
     geometry), made here if not given.  ``nudge_ulps`` moves every draw of
     the noise block by that many units in the last place of ``dtype``.  In
-    float64 K1 and K3 run their plain versions (``plain_lm``), and the
+    float64 K1 and K3 run their plain versions (``route.plain()``), and the
     costmap kernels, which take float32 only, must be left out
     (``use_kernels=False``) on the card."""
     device = resolve(device)
@@ -130,7 +115,7 @@ def run_grid(name: str, n_runs: int = N_RUNS, n_cycles: int = N_CYCLES, sigmas=N
         gg = gridmap.make_geom([115.0, -285.0], 0.5, 512, 512, dtype=dtype, device=device)
     else:
         gm, gg = town if town is not None else sweep.synthetic_town_prior(dtype, device)
-    with plain_lm() if dtype == torch.float64 else contextlib.nullcontext():
+    with route.plain() if dtype == torch.float64 else contextlib.nullcontext():
         return sweep.run_sigma_sweep(
             sigmas if sigmas is not None else g["sigmas"],
             algorithms=algorithms if algorithms is not None else g["algorithms"],

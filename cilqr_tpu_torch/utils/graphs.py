@@ -62,13 +62,9 @@ from cilqr_tpu_torch.utils import profiling
 
 aten = torch.ops.aten
 #: the launch counters (module, attribute) of the kernels a graph may hold:
-#: ``ops/lm_cuda``, ``riccati_cuda``, ``uncertainty_cuda`` and ``sample_cuda``
-#: enter theirs on import
+#: ``ops/lm_cuda``, ``riccati_cuda``, ``uncertainty_cuda``, ``sample_cuda``,
+#: ``costmap_cuda`` and ``cost_cuda`` enter theirs on import
 COUNTERS: list = []
-#: (module, attribute, the function it holds as the module defines it): the
-#: kernels' launch functions, which ``chip_smoke.plain_versions`` swaps for
-#: their plain versions (``on_kernels``); the same modules enter them
-LAUNCHERS: list = []
 _BUILDS = 0  # warm-ups and captures under way (``building``)
 CAPTURES = 0     # ``GraphCache`` misses: captures made
 CAPTURE_S = 0.0  # the seconds they took
@@ -108,12 +104,6 @@ def replayable(t: torch.Tensor) -> bool:
     card and no capture or warm-up is under way (inside one the stage runs
     eagerly, and that capture holds its kernels)."""
     return t.is_cuda and not _BUILDS
-
-
-def on_kernels() -> bool:
-    """Whether every launch function of ``LAUNCHERS`` is its module's own
-    (none swapped for a plain version)."""
-    return all(getattr(module, name) is fn for module, name, fn in LAUNCHERS)
 
 
 def copy_outputs(static, new) -> None:

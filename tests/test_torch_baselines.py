@@ -568,12 +568,13 @@ def test_dbscan_chain_connectivity():
 def test_ccnmpc_on_card_holds_plain_versions(global_plan):
     """CCNMPC on the card, 256 lanes at horizon 40: every two-phase solve
     launches the Riccati kernel K2 once per LM iteration; the batch against
-    the same batch on the plain versions by chip_smoke.check_lanes's rules
+    the same batch on the plain versions (``route.plain()``) by
+    chip_smoke.check_lanes's rules
     (the float32 and float64 plain references, 2-ulp nudges to find the
     chaotic lanes, the second, warm-started solve within the closed loop's
     allowance)."""
     import chip_smoke as cs
-    from cilqr_tpu_torch.ops import riccati_cuda
+    from cilqr_tpu_torch.ops import riccati_cuda, route
 
     dev = torch.device("cuda")
     p = interop.solver_params_from_reference(SolverParams())
@@ -596,7 +597,7 @@ def test_ccnmpc_on_card_holds_plain_versions(global_plan):
     torch.cuda.synchronize()
     assert riccati_cuda.LAUNCHES - before >= tcc.CCParams().n_sqp
     assert all(bool(torch.isfinite(t).all()) for t in got)
-    with cs.plain_versions():
+    with route.plain():
         k2 = riccati_cuda.LAUNCHES
         want32, want64 = run(egos), run(egos.double(), torch.float64)
         nudged = cs.nudged_results(run, egos, cs.NUDGES)

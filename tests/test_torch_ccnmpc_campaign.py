@@ -229,10 +229,9 @@ def test_rounds_span_and_count_under_the_closed_loop(replays):
     """``closed_loop_batched``: the entry span ``entry.closed_loop``; per
     cycle the noise stage's graph, one ``ccnmpc.round`` span per round with
     its index, each holding its start replay and device loop, then the
-    advance's graph; the counters: the rounds run and the (lane, obstacle
-    slot, step) tightenings they issued."""
+    advance's graph; the rounds run, counted."""
     d = small(torch.float32)
-    T, B, S = 3, 3, d["cc"].n_sqp
+    T, S = 3, d["cc"].n_sqp
     with profiling.tracing():
         closed_loop(d, d["x0s"], d["draws"], T)
     found = profiling.spans()
@@ -247,9 +246,7 @@ def test_rounds_span_and_count_under_the_closed_loop(replays):
         names = [s.name for s in found if s.parent == r.id]
         assert names == ["replay.copy_in", "replay.start", "replay.loop", "replay.copy_out",
                          "replay.count"]
-    c = profiling.counters()
-    M, N = d["ob"].dims.shape[:2]
-    assert c["ccnmpc.ROUNDS"] == S * T and c["ccnmpc.TIGHTENED"] == S * T * B * M * N
+    assert profiling.counters()["ccnmpc.ROUNDS"] == S * T
 
 
 # ------------------------------------------------------------- on the card

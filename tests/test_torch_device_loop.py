@@ -12,7 +12,7 @@ captures replaced by eager replays, the plain, hybrid (K3) and two-phase
 (K2) loops give the eager loop's bits and the host-polled replay's, in
 float32 and float64, with steps == the largest iteration count; the launch
 counters advance by the start's launches plus steps times the step's; the
-key holds ``DEVICE_LOOP`` and the launch route; eviction frees the loop
+key holds ``DEVICE_LOOP`` and the route; eviction frees the loop
 graph.  The ``cuda`` tests hold the kernel to its plain version, the device
 loop to the host-polled replay and to eager, and check that the start
 replay and the loop launch read nothing on the host.
@@ -273,10 +273,11 @@ def test_graph_cache_eviction_frees_the_loop_graph(monkeypatch):
 
 
 def test_key_holds_device_loop_and_the_route(captures):
-    """The capture's key holds ``DEVICE_LOOP`` before the launch route (the
-    key's last two entries): the device loop and the host-polled replay
-    capture once each and replay their own on every later call; the entry
-    of the device loop holds a ``Loop``, the other none."""
+    """The capture's key holds ``DEVICE_LOOP`` before the route,
+    ``route.plain_on_card()`` (the key's last two entries): the device loop
+    and the host-polled replay capture once each and replay their own on
+    every later call; the entry of the device loop holds a ``Loop``, the
+    other none."""
     p = dataclasses.replace(SolverParams(), horizon=8, max_iterations=3)
     w = world(p, torch.float32, 3, seed=13)
     call = loop_call("hybrid", p, w, True)
@@ -288,8 +289,7 @@ def test_key_holds_device_loop_and_the_route(captures):
         keys.append([k for k in solver.CAPTURED if k not in before])
     assert [len(k) for k in keys] == [1, 1, 0, 0]
     (loop_key,), (host_key,) = keys[:2]
-    route = solver._launch_route()
-    assert loop_key[-2:] == (True, route) and host_key[-2:] == (False, route)
+    assert loop_key[-2:] == (True, False) and host_key[-2:] == (False, False)
     assert loop_key[:-2] == host_key[:-2]
     assert isinstance(solver.CAPTURED[loop_key].loop, graphs.Loop)
     assert solver.CAPTURED[host_key].loop is None

@@ -9,10 +9,11 @@ the ops run their plain versions: the loops' graph paths with the capture
 replaced by eager replays under a four-stream planner give the eager loop's
 bits; the ops' reads and writes are ordered against the ops around them; a
 replay adds what its capture recorded to the launch counters, and the
-warm-up and the capture add nothing; the graphs' key holds the launch
-route, so ``chip_smoke.plain_versions`` never replays a graph captured on
-the kernels; the kernels are launched only inside their ops.  The ``cuda``
-tests hold the graphed loops to the eager ones on the card.
+warm-up and the capture add nothing; the graphs' key holds the route
+(``route.plain_on_card()``), so a ``route.plain()`` block never replays a
+graph captured on the kernels; the kernels are launched only inside their
+ops.  The ``cuda`` tests hold the graphed loops to the eager ones on the
+card.
 """
 
 from __future__ import annotations
@@ -25,11 +26,10 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from cilqr_tpu_torch.models import solver, solver_batched
 from cilqr_tpu_torch.models.obstacles import Obstacles
 from cilqr_tpu_torch.models.reference_path import get_local_plan
-from cilqr_tpu_torch.ops import cost_cuda, lm_cuda, riccati_cuda
+from cilqr_tpu_torch.ops import lm_cuda, riccati_cuda, route
 from cilqr_tpu_torch.parallel import monte_carlo as mc
 from cilqr_tpu_torch.sim.example_scenario import example_scenario
 from cilqr_tpu_torch.utils import graphs
@@ -336,31 +336,24 @@ def test_launch_counters_advance_by_replays(kind, planned_captures, monkeypatch)
 
 
 def test_graph_key_holds_the_launch_route(planned_captures):
-    """A loop captured on the kernels' launch functions is not replayed
-    under ``chip_smoke.plain_versions`` (its key differs, so it captures
-    anew), nor the one captured there outside; on every later entry the
-    plain route's capture serves again (the swapped functions are the same
-    objects).  The key's route is (K3's, K2's, the two-phase derivatives
-    kernel's) launch function."""
+    """A loop captured on the kernels is not replayed inside
+    ``route.plain()`` (its key differs, so it captures anew), nor the one
+    captured there outside; on every later entry the plain route's capture
+    serves again.  The key's last term is ``route.plain_on_card()``."""
     p = dataclasses.replace(SolverParams(), horizon=8, max_iterations=3)
     plans, egos, U, obstacles, maps = hybrid_world(p, torch.float32, 3, seed=13)
     it = lm_cuda.hybrid_iteration(p, plans, obstacles, lm_cuda.MapSampler(p, maps),
                                   lm_cuda.fused_iteration)
     solve = lambda: solver._optimize_graphed(p, plans, egos, U, iteration=it)
-    kernel_route = (lm_cuda._launch_iteration, riccati_cuda._launch, cost_cuda._launch)
     keys = []
     for plain in (False, True, False, True):
         before = set(solver.CAPTURED)
-        with chip_smoke.plain_versions() if plain else graphs.contextlib.nullcontext():
+        with route.plain() if plain else graphs.contextlib.nullcontext():
             solve()
-            route = solver._launch_route()
-        assert (route == kernel_route) != plain
-        assert (route == (lm_cuda.fused_iteration_plain, chip_smoke.k2_plain,
-                          chip_smoke.cost_plain)) == plain
         keys.append([k for k in solver.CAPTURED if k not in before])
     assert [len(k) for k in keys] == [1, 1, 0, 0]
     (kernel_key,), (plain_key,) = keys[:2]
-    assert kernel_key[-1] == kernel_route and plain_key[-1] != kernel_route
+    assert kernel_key[-1] is False and plain_key[-1] is True
     assert kernel_key[:-1] == plain_key[:-1]
     assert set(solver.CAPTURED) == {kernel_key, plain_key}
 

@@ -25,12 +25,11 @@ import torch
 from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils._pytree import tree_flatten
 
-import chip_smoke
 from cilqr_tpu_torch.models import solver, solver_batched
 from cilqr_tpu_torch.models import uncertainty as unc_mod
 from cilqr_tpu_torch.models.obstacles import make_static_obstacles
 from cilqr_tpu_torch.models.reference_path import get_local_plan, pad_global_plan
-from cilqr_tpu_torch.ops import costmap, gridmap, lm_cuda, sample_cuda, uncertainty_cuda
+from cilqr_tpu_torch.ops import costmap, gridmap, lm_cuda, route, sample_cuda, uncertainty_cuda
 from cilqr_tpu_torch.parallel import monte_carlo as mc
 from cilqr_tpu_torch.sim import perception, plant
 from cilqr_tpu_torch.utils import graphs
@@ -255,29 +254,119 @@ def test_the_paths_reach_the_ops_on_the_cpu():
 
 
 def test_the_launch_functions_and_counters_are_entered():
-    """Every launch function that ``chip_smoke.plain_versions`` swaps is in
-    ``graphs.LAUNCHERS`` (so a swap sends the stages down their eager
-    route), and every kernel's launch counter is in ``graphs.COUNTERS`` (so
-    a replay counts its kernels)."""
-    from cilqr_tpu_torch.ops import riccati_cuda
-
-    entered = {(m.__name__.rsplit(".", 1)[-1], n) for m, n, _ in graphs.LAUNCHERS}
-    assert entered == {("lm_cuda", "_launch"), ("lm_cuda", "_launch_iteration"),
-                       ("riccati_cuda", "_launch"), ("uncertainty_cuda", "_launch"),
-                       ("uncertainty_cuda", "_launch_fused"), ("sample_cuda", "_launch"),
-                       ("sample_cuda", "_launch_vehicle_map"), ("costmap_cuda", "_launch"),
-                       ("cost_cuda", "_launch")}
+    """Every kernel's launch counter is in ``graphs.COUNTERS`` (so a replay
+    counts its kernels), and ``route.plain()`` blocks nest: the launch
+    functions take their plain versions until the outermost block ends."""
     counters = {(m.__name__.rsplit(".", 1)[-1], n) for m, n in graphs.COUNTERS}
     assert counters >= {("lm_cuda", "LAUNCHES"), ("lm_cuda", "ITER_LAUNCHES"),
                         ("riccati_cuda", "LAUNCHES"), ("uncertainty_cuda", "LAUNCHES"),
                         ("sample_cuda", "LAUNCHES"), ("costmap_cuda", "LAUNCHES"),
                         ("cost_cuda", "LAUNCHES")}
-    assert graphs.on_kernels()
-    with chip_smoke.plain_versions():
-        assert not graphs.on_kernels()
-    assert graphs.on_kernels()
-    assert all(getattr(m, n) is fn for m, n, fn in graphs.LAUNCHERS)
-    assert riccati_cuda._launch in [fn for _, _, fn in graphs.LAUNCHERS]
+    assert not route.plain_on_card()
+    with route.plain():
+        with route.plain():
+            assert route.plain_on_card()
+        assert route.plain_on_card()
+    assert not route.plain_on_card()
+    with pytest.raises(RuntimeError), route.plain():
+        raise RuntimeError
+    assert not route.plain_on_card()
+
+
+def route_case(name: str) -> tuple:
+    """One launch function on small float32 CPU inputs: (the function, its
+    calls as [(arguments, the module and name of the plain version it
+    runs inside ``route.plain()``, that version's arguments and keywords)])."""
+    from cilqr_tpu_torch.models import costs, dynamics
+    from cilqr_tpu_torch.ops import cost_cuda, costmap_cuda, riccati_cuda
+    from tests.test_torch_costmap_cuda import planted_terms
+
+    w = world(torch.float32, 3, seed=61)
+    p, ob, B = w["p"], w["obstacles"], 3
+    plans = get_local_plan(p, w["plan"], w["n"], w["egos"])
+    X = dynamics.rollout(p, w["egos"], w["U"])
+    lamb = torch.full((B,), p.lamb_init, device=DEV)
+    planes = t(np.random.default_rng(62).uniform(-1.0, 1.0, (B, p.horizon, 3)), torch.float32)
+    geoms, xys, yaws, bbox, semantic = frames(w, B)
+    if name == "lm_cuda._launch":
+        _, args = lm_opt_args(w)
+        return lm_cuda._launch, [(args, lm_cuda, "fused_optimize_plain", args, {})]
+    if name == "lm_cuda._launch_iteration":
+        args = (p, lm_cuda.prep_world(p, ob, None, torch.float32, DEV), plans, X, w["U"], lamb,
+                planes)
+        return lm_cuda._launch_iteration, [(args, lm_cuda, "fused_iteration_plain", args, {})]
+    if name == "riccati_cuda._launch":
+        d, _ = costs.all_cost_derivs_and_J(p, plans, X, w["U"], ob, None)
+        args = (p, d, X, w["U"], lamb)
+        return riccati_cuda._launch, [(args + (True,), riccati_cuda, "backward_forward_plain",
+                                       args, {}),
+                                      (args + (False,), riccati_cuda, "backward_plain", args, {})]
+    if name in ("uncertainty_cuda._launch", "uncertainty_cuda._launch_fused"):
+        fused = name.endswith("fused")
+        _, args = propagate_args(w, B, fused)
+        plain = "propagate_fused_plain" if fused else "propagate_banded_plain"
+        return getattr(uncertainty_cuda, name.split(".")[1]), [(args, uncertainty_cuda, plain,
+                                                                args, {})]
+    if name == "sample_cuda._launch":
+        args = (geoms, 16, 12, w["gm"], w["gg"], xys, yaws)
+        return sample_cuda._launch, [(args, sample_cuda, "sample_prior_batched_plain", args, {})]
+    if name == "sample_cuda._launch_vehicle_map":
+        args = (geoms, 16, 12, w["gm"], w["gg"], xys, yaws, bbox, semantic)
+        return sample_cuda._launch_vehicle_map, [(args, sample_cuda, "vehicle_map_batched_plain",
+                                                  args, {})]
+    if name == "costmap_cuda._launch":
+        args = planted_terms(B, 16, 12, 3, torch.float32, DEV, seed=63)
+        return costmap_cuda._launch, [(args, costmap_cuda, "costmap_layers_plain", args, {})]
+    assert name == "cost_cuda._launch"
+    prepared = tuple(lm_cuda.prep_iteration(plans))[:2]
+    return cost_cuda._launch, [((p, plans, X, w["U"], ob, planes, prepared), costs,
+                                "all_cost_derivs_and_J", (p, plans, X, w["U"], ob, None),
+                                {"unc_planes": planes})]
+
+
+ROUTE_CASES = ("lm_cuda._launch", "lm_cuda._launch_iteration", "riccati_cuda._launch",
+               "uncertainty_cuda._launch", "uncertainty_cuda._launch_fused",
+               "sample_cuda._launch", "sample_cuda._launch_vehicle_map",
+               "costmap_cuda._launch", "cost_cuda._launch")
+
+
+@pytest.mark.parametrize("name", ROUTE_CASES)
+def test_the_route_sends_each_launch_function_to_its_plain_version(name, monkeypatch):
+    """Inside ``route.plain()`` each of the nine launch functions returns
+    exactly what its plain version returns on the same inputs, calls it
+    once itself and reaches no op of the port; outside, it takes the kernel's
+    route (it refuses CPU tensors, or reaches its op, whose CPU
+    implementation may run the plain version) and never calls the plain
+    version itself."""
+    import sys
+
+    launch, calls = route_case(name)
+    for args, module, plain_name, plain_args, plain_kw in calls:
+        plain = getattr(module, plain_name)
+        want = plain(*plain_args, **plain_kw)
+        callers = []
+
+        def spy(*a, **kw):
+            callers.append(sys._getframe(1).f_code.co_name)
+            return plain(*a, **kw)
+
+        monkeypatch.setattr(module, plain_name, spy)
+        with route.plain(), Recorder() as rec:
+            got = launch(*args)
+        assert same(got, want)
+        assert callers == [launch.__name__]
+        assert not [n for n in rec.names if n.startswith("cilqr_torch::")]
+        callers.clear()
+        refused = False
+        with Recorder() as rec:
+            try:
+                launch(*args)
+            except ValueError as e:
+                assert "expected a CUDA tensor" in str(e)
+                refused = True
+        assert launch.__name__ not in callers
+        assert refused or [n for n in rec.names if n.startswith("cilqr_torch::")]
+        monkeypatch.setattr(module, plain_name, plain)
 
 
 def test_k1_k4_k5_launch_only_inside_their_ops():
@@ -565,13 +654,13 @@ def test_monte_carlo_graph_path_gives_the_eager_bits(dtype, banded, replays, mon
 
 
 def test_plain_versions_run_the_stages_eagerly(replays, monkeypatch):
-    """Under ``chip_smoke.plain_versions`` (K1's plain version is a whole LM
-    loop read on the host) the mega solve captures nothing and gives the
-    plain version's bits."""
+    """Inside ``route.plain()`` (K1's plain version is a whole LM loop read
+    on the host) the mega solve captures nothing and gives the plain
+    version's bits."""
     w = world(torch.float32, 3, seed=60)
     call = lambda: solver_batched.run_steps_batched(w["p"], w["plan"], w["n"], w["egos"], w["U"],
                                                     w["obstacles"], w["unc"])
-    with chip_smoke.plain_versions():
+    with route.plain():
         got = call()
     assert PlannedReplays.captures == 0 and len(solver.CAPTURED) == 0
     assert same(got, call())

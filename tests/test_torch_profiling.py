@@ -196,7 +196,7 @@ def test_counters_give_the_change_over_the_traced_calls(fresh, monkeypatch):
 def test_host_counters_are_read_from_their_registry(fresh, monkeypatch):
     """A host counter that a module enters in ``HOST_COUNTERS`` is read
     like the launch counters, by its change inside the traced calls; CCNMPC
-    enters its rounds and tightenings so, and the tracer imports no model."""
+    enters its rounds so, and the tracer imports no model."""
     import inspect
     import types
 
@@ -211,8 +211,8 @@ def test_host_counters_are_read_from_their_registry(fresh, monkeypatch):
         mod.STEPS += 10  # between the traced calls
     c = profiling.counters()
     assert c["a_planner.STEPS"] == 4
-    assert c["ccnmpc.ROUNDS"] == 0 and c["ccnmpc.TIGHTENED"] == 0
-    assert {(ccnmpc, "ROUNDS"), (ccnmpc, "TIGHTENED")} <= set(profiling.HOST_COUNTERS)
+    assert c["ccnmpc.ROUNDS"] == 0
+    assert (ccnmpc, "ROUNDS") in profiling.HOST_COUNTERS
     assert "cilqr_tpu_torch.models" not in inspect.getsource(profiling)
 
 

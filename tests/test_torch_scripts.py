@@ -376,7 +376,7 @@ def test_production_float64_cell_matches_jax(monkeypatch):
     """The float64 route, 5 runs x 20 cycles of the ``r5_theta02`` grid's
     `cilqr` at sigma 0.1 (a window of radius 12 where the grid's sigmas need
     35): the port's oracle costmap with K1 and K3 on their plain versions
-    (``plain_lm``), fed JAX's float64 draws of seed 0, against the JAX
+    (``route.plain()``), fed JAX's float64 draws of seed 0, against the JAX
     package's ``run_sigma_sweep`` in float64 on its XLA path."""
     for mod in (jsweep, tsweep):
         monkeypatch.setattr(mod, "round", lambda x, ndigits=None: x, raising=False)
@@ -384,19 +384,19 @@ def test_production_float64_cell_matches_jax(monkeypatch):
     draws = draws_runs(0, T, R)
     monkeypatch.setattr(tps, "jax_noise", lambda n_cycles, n_runs, dtype, device: (
         torch.as_tensor(draws[:n_cycles, :n_runs], dtype=dtype, device=device)))
-    swapped = []
-    real_plain_lm = tps.plain_lm
+    opened = []
+    real_plain = tps.route.plain
 
     @tps.contextlib.contextmanager
-    def recording_plain_lm():
-        with real_plain_lm():
-            swapped.append(tps.lm_cuda._launch_iteration is tps.lm_cuda.fused_iteration_plain)
+    def recording_plain():
+        with real_plain():
+            opened.append(tps.route.plain_on_card())
             yield
 
-    monkeypatch.setattr(tps, "plain_lm", recording_plain_lm)
+    monkeypatch.setattr(tps.route, "plain", recording_plain)
     (got,) = tps.run_grid("r5_theta02", R, T, sigmas=(sigma,), algorithms=("cilqr",),
                           use_kernels=False, dtype=torch.float64, device=DEV)
-    assert swapped == [True] and tps.lm_cuda._launch_iteration is not tps.lm_cuda.fused_iteration_plain
+    assert opened == [True] and not tps.route.plain_on_card()
     jp = dataclasses.replace(SolverParams(), horizon=40, w_uncertainty=5.0)
     (want,) = jsweep.run_sigma_sweep(
         [sigma], ["cilqr"], p=jp, global_map=jnp.zeros((512, 512), jnp.float64),
