@@ -15,7 +15,8 @@ went through its kernels:
                phase 22's deployment at (8192, 40), one device kernel per
                call by the profiler, and its time there;
   phases 8-10  the Monte-Carlo path ``monte_carlo(impl="fast")`` at B=8192,
-               N=50 on the full 152x104 costmap (kernels K4 and K3), and
+               N=50 on the full 152x104 costmap (kernels K4 and the hybrid
+               loop's step kernel, held to K3's step bit for bit), and
                where its time goes; K4's own covariance fields must equal
                the PyTorch ones on every cell, and its fused form (fields
                computed in the kernel, what the paths launch) the
@@ -24,7 +25,7 @@ went through its kernels:
                ``closed_loop_full_stack_batched`` at B=8192, N=50, 5 cycles:
                every cycle each scenario resamples a 256x256 global map into
                its own 152x104 vehicle frame with its obstacle overrides
-               (kernel K5), propagates it (K4) and replans (K3); also
+               (kernel K5), propagates it (K4) and replans (the step kernel); also
                ``closed_loop_batched`` (K1 per cycle) and a short run with
                the perception channel;
   phase 14     the op-throughput probe ``utils.opbench`` (kernel K6);
@@ -32,19 +33,19 @@ went through its kernels:
                in process: ``run --full-stack`` (60 cycles: K4 and K1 at
                B=1 per cycle), ``compare --full-stack`` on the CLI's whole
                algorithm axis (seven algorithms, 10 runs x 120 cycles on
-               two scenarios: K5 and K4 every cycle; K3 for `cilqr`, K1 for
+               two scenarios: K5 and K4 every cycle; the step kernel for `cilqr`, K1 for
                `cilqr_base`, K2 for `ccnmpc`) and ``sweep`` on its six
                (sigmas 0 and 0.5, 50 runs x 40 cycles), with the first
                cycles of every algorithm held to the same loops on the plain
                versions and K5 held to its plain version on the 1506x1506
-               synthetic town, and each algorithm's seconds, launches and
-               device idle share;
+               synthetic town, and each algorithm's seconds and launches;
   phase 16     the scale-out layer (``parallel.batch``, ``multihost``,
                ``campaign``, ``dryrun``): a one-rank NCCL process group, the
                sharded solve (K1 per shard) on 1 and 4 shards of the card at
-               B=32768 and the sharded Monte-Carlo (K4, K3) at B=8192, each
-               equal bit for bit to its unsharded call; the sharded full
-               stack (K5, K4, K3) on 4 shards against the per-chunk runs; a
+               B=32768 and the sharded Monte-Carlo (K4, the step kernel)
+               at B=8192, each equal bit for bit to its unsharded call; the
+               sharded full stack (K5, K4, the step kernel) on 4 shards
+               against the per-chunk runs; a
                campaign resumed after 2 of 4 rounds; the dry run; then
                ``backward_impl="pscan"`` against "seq" at B=1;
   phase 17     the benchmark driver, ``python -m cilqr_tpu_torch bench`` in
@@ -61,14 +62,13 @@ went through its kernels:
                host-polled step replays and eager, bit for bit, a call on
                new egos replaying without a capture, the unbatched solve
                free of host reads up to the loop's one read of its steps;
-               ms per solve three ways, the worst case (every iteration)
-               graphed and host-polled, ms and device kernels per replay of
-               the step graph;
+               the worst case (every iteration) graphed and host-polled,
+               device kernels per replay of the step graph;
   phase 19     the JAX package's programs on the port
                (``cilqr_tpu_torch.scripts``), cut small: the wall-vs-car
-               classification (K5, K4, K3), the NRB budget table and one
-               cell of the rotated production grid (K5, K4, K3);
-  phase 20     the hybrid (K3) and two-phase (K2) LM loops as CUDA graphs
+               classification (K5, K4, the step kernel), the NRB budget
+               table and one cell of the rotated production grid;
+  phase 20     the hybrid (step kernel) and two-phase (K2) LM loops as CUDA graphs
                (``solver.GRAPHS``; phases 9-10, 13, 15-17 and 19 run them
                so): the Monte-Carlo path at B=8192, the full stack at
                B=8192 x 5 cycles, the two-phase solve at B=4096 and
@@ -76,13 +76,12 @@ went through its kernels:
                each on the device loop, host-polled and with
                ``solver.GRAPHS = False``: every solve's X, U, J, lambda and
                iterations equal bit for bit, the launch counts equal (a
-               replay counts the K3 / K2 ops its capture recorded), each
-               device loop's steps the largest iteration count; ms per call
-               (seconds per command) three ways, the device's idle share,
-               the benchmark's slope throughputs; per path one solve's step
-               graph on 1 and 4 streams: ms and device kernels per replay,
-               the plan, pool bytes, capture seconds, the loop graph's
-               nodes;
+               replay counts the step / K2 ops its capture recorded), each
+               device loop's steps the largest iteration count (the
+               benchmark's cells time these paths); per path one solve's
+               step graph on 1 and 4 streams: device kernels per replay
+               (the hybrid step's: the list pass and the step kernel), the
+               plan, pool bytes, capture seconds, the loop graph's nodes;
   phase 21     the K1 solve and the closed loops' stages as CUDA graphs
                (``solver.run`` / ``solver.solve``; every phase runs them
                so): the mega solve at B=1 and B=32768 (one graph: the plan
@@ -93,9 +92,8 @@ went through its kernels:
                and the hybrid loop's prologue), each graphed against
                ``solver.GRAPHS = False`` (Monte-Carlo and the full stack
                host-polled too): outputs equal bit for bit, the launch
-               counts equal; ms per call each way, the device's idle
-               share, device kernels per replay and pool bytes of each
-               graph;
+               counts equal; device kernels per replay and pool bytes of
+               each graph;
   phase 22     the CCNMPC campaign on the benchmark's deployment
                (``benchmarks/configs/ccnmpc_success1_n40.json``: N=40, the
                three success1 obstacles, two SQP rounds) at B=8192 x 3
@@ -238,7 +236,13 @@ def graph_nodes(fn, dev: torch.device) -> tuple:
 
     fn()
     torch.cuda.synchronize()
-    graph = graphs.capture(fn, dev)
+    return captured_nodes(graphs.capture(fn, dev))
+
+
+def captured_nodes(graph) -> tuple:
+    """(nodes, kernel nodes) of a captured graph (kept as captured), read
+    with libcuda: the device work a replay enqueues, whether or not the
+    profiler sees it."""
     cu = ctypes.CDLL("libcuda.so.1")
     raw, n = ctypes.c_void_p(graph.raw_cuda_graph()), ctypes.c_size_t(0)
     require(cu.cuGraphGetNodes(raw, None, ctypes.byref(n)) == 0, "cuGraphGetNodes failed")
@@ -590,6 +594,102 @@ def check_lanes(label: str, got, want32, want64, nudged32, chaotic_it_off: int =
     return line, calm, it_share, float((got[1] - want32[1]).abs().amax(dim=(1, 2))[calm].max())
 
 
+STEP_SHARES = (1.0, 0.25)  # shares of the lanes running at which the step kernel is timed
+
+
+def step_kernel_check(p, plans, egos, U, obstacles, sampler, timed_alone: bool) -> tuple:
+    """Phase 9, the hybrid loop's step kernel on one batch: its sampler vs
+    ``MapSampler`` (max |d| and corner cells differing: 0, 0); each step of a
+    solve vs ``lm_step`` around K3 on the same state, bit for bit (at every
+    G unless ``timed_alone``); the list pass vs its plain version; an
+    all-stopped step changes nothing.  ``timed_alone``: the step graphed
+    alone at each share of STEP_SHARES running (CUDA events less the
+    restoring copies; the kernels by the profiler), the step it replaced,
+    the plain version, the bound.  Returns (line, numbers)."""
+    from cilqr_tpu_torch.models import solver
+    from cilqr_tpu_torch.ops import lm_cuda
+    from cilqr_tpu_torch.utils import graphs
+
+    dev, B, N = egos.device, egos.shape[0], p.horizon
+    start = solver.start_state(p, egos, U)
+    planes, cells = lm_cuda.lane_sample(p, sampler.unc_map, start[0])
+    sample_err = float((planes - sampler(start[0][:, :N])).abs().max())
+    cell_off = int((cells.long() != lm_cuda.lane_cells_plain(sampler.unc_map, start[0][:, :N]))
+                   .sum())
+    require(sample_err == 0.0 and cell_off == 0, f"step kernel sampler vs MapSampler: max |d| "
+            f"{sample_err:.3e}, {cell_off} of {B * N} corner cells differ")
+    it = lm_cuda.hybrid_iteration(p, plans, obstacles, sampler, lm_cuda.fused_iteration)
+    own = it.build(p, plans, *it.world)
+    k3 = lm_cuda.hybrid_iteration(p, plans, obstacles, lambda Xb: sampler(Xb),
+                                  lm_cuda.fused_iteration)
+    lamb_inv = solver.damping_inverse(p, torch.float32, dev)
+    # the kernel takes the dense state its loop makes; lm_step's torch.where
+    # gives K3's layout back
+    dense = lambda st: tuple(t.clone(memory_format=torch.contiguous_format) for t in st)
+    step = lambda st, G=None: lm_cuda._launch_step(p, own.world, plans, sampler, own.geo,
+                                                    lamb_inv, *dense(st), G=G)
+    state, steps = start, 0
+    while not bool(state[-1].all()) and steps < p.max_iterations:
+        require(all(torch.equal(a, b) for a, b in zip(lm_cuda.running_lanes(state[-1]),
+                                                      lm_cuda.running_lanes_plain(state[-1]))),
+                f"list pass at step {steps} differs from its plain version")
+        want = solver.lm_step(p, k3, lamb_inv, *state)
+        for G in (None,) if timed_alone else lm_cuda.GROUP_SIZES:
+            require(all(torch.equal(a, b) for a, b in zip(step(state, G), want)),
+                    f"step kernel (G={G}) at step {steps} differs from lm_step around K3")
+        state, steps = want, steps + 1
+    stopped = state[:-1] + (torch.ones_like(state[-1]),)
+    require(all(torch.equal(a, b) for a, b in zip(step(stopped), stopped)),
+            "a step with every lane stopped changed the state")
+    line = (f"B={B}: sampler vs MapSampler max |d| {sample_err:.1e}, corner cells differing "
+            f"{cell_off} of {B * N}; {steps} steps = lm_step around K3 bit for bit at G "
+            f"{'launch_shape' if timed_alone else 'every'}; list pass = plain on every step; "
+            f"all-stopped step changes nothing")
+    if not timed_alone:
+        return line, {}
+    out = {}
+    for share in STEP_SHARES:
+        mask = (torch.rand(B, generator=torch.Generator().manual_seed(23)) >= share).to(dev)
+        st = tuple(t.clone() for t in start[:-1]) + (mask,)
+        saved = tuple(t.clone() for t in st)
+        restore = lambda: [d.copy_(v) for d, v in zip(st, saved)]
+        g_step = graphs.capture(lambda: (restore(), own.lm_step(lamb_inv, *st)), dev)
+        out[share] = dict(ms=cuda_ms(g_step.replay, 20) - cuda_ms(graphs.capture(
+            restore, dev).replay, 20), running=int((~mask).sum()), **{
+            k: kernel_profile(g_step.replay, 5, f"{k}_kernel")[0] for k in ("lm_step", "lm_lanes")})
+    st = tuple(t.clone() for t in start)
+    solver.lm_step(p, k3, lamb_inv, *st)
+    g_old = graphs.capture(lambda: solver._assign(st, solver.lm_step(p, k3, lamb_inv, *st)), dev,
+                           solver.STREAMS)
+    old = (cuda_ms(g_old.replay, 20), device_kernels(g_old.replay)[0])
+    with route.plain():
+        plain_ms = cuda_ms(lambda: own.lm_step(lamb_inv, *(t.clone() for t in start)), 2)
+    # read: the payloads, the state, four corners per (lane, step); written:
+    # the state, the proposal and the gains (scratch, read back once)
+    prep = own.world.iteration
+    bnd = bound(nbytes(prep.fit, prep.table, own.geo, own.world.obs, *start, *start)
+                + 16 * B * N + 2 * 4 * B * (16 * N + 4),
+                B * N * lm_step_ops(p.n_closest_samples, obstacles.mask.shape[0], 20))
+    T, G = lm_cuda.launch_shape(B, p.n_closest_samples)
+    res = lm_cuda.kernel_resources("lm_step", G, p.n_closest_samples)
+    numbers = dict(
+        name="lm_step", route="cuda", source="cilqr_tpu_torch/csrc/lm.cu",
+        replaces="cilqr_tpu/ops/lm_pallas.py:663 with the map sampler and lm_step's update "
+                 "around it: the hybrid loop's step", max_abs_err=0.0,
+        max_abs_err_of="every step of a solve against lm_step around K3 (bit for bit)",
+        ms=out[1.0]["ms"], by_share=out, replaced_step=old, plain_ms=plain_ms, **bnd,
+        library_ms=NO_LIBRARY_CALL, launch_shape=dict(T=T, G=G, **res))
+    line += " | " + ", ".join(
+        f"{100 * sh:.0f}% running ({v['running']} lanes): {v['ms']:.4f} ms by events, "
+        f"lm_step_kernel {v['lm_step']:.4f} ms, lm_lanes_kernel {v['lm_lanes']:.4f} ms"
+        for sh, v in out.items()) + (
+        f" | the step it replaced (lm_step around K3, {solver.STREAMS} streams) {old[0]:.4f} ms "
+        f"per replay, {old[1]} device kernels | plain {plain_ms:.3f} ms | bound "
+        f"{bnd['bound_ms']:.4f} ms by {bnd['bound_by']} | (T, G) = ({T}, {G}), "
+        f"{res['registers']} registers, {res['blocks_per_sm']} blocks/SM")
+    return line, numbers
+
+
 def iteration_spread(iterations: torch.Tensor, per_warp: int) -> tuple:
     """(histogram of LM iteration counts as {count: lanes}, the mean over
     warps of the slowest scenario's count over the warp's mean count, for
@@ -651,7 +751,7 @@ EXP_RUN_HELD_EVERY = 2  # every 2nd of `run`'s K1 calls held to its plain versio
 EXP_PROFILE_CYCLES = 3
 # the kernels each algorithm's planner launches (K4 and K5 come with the
 # full-stack costmap build); the others launch none
-EXP_PLANNER_KERNELS = {"cilqr": {"K3": "lm_iter_kernel"}, "cilqr_base": {"K1": "lm_opt_kernel"},
+EXP_PLANNER_KERNELS = {"cilqr": {"step": "lm_step_kernel"}, "cilqr_base": {"K1": "lm_opt_kernel"},
                        "ccnmpc": {"K2": "riccati_kernel"}}
 EXP_BUILD_KERNELS = {"K4": "propagate_kernel", "K5": "sample_kernel"}
 # planners that read no kernel's output but K4's map, which equals its plain
@@ -739,15 +839,16 @@ def by_algorithm(calls: list, algorithms) -> dict:
     return out
 
 
-def expect_launches(label: str, algo: str, got: dict, cycles_built: int, lm_iter: int,
+def expect_launches(label: str, algo: str, got: dict, cycles_built: int, lm_steps: int,
                     cycles_k1: int, k2: int) -> None:
     """An algorithm's launches in one command: the costmap layers kernel, K5
-    and K4 once per cycle of its full-stack loops, K3 ``lm_iter`` times (`cilqr`), K1 once per cycle
+    and K4 once per cycle of its full-stack loops, the hybrid step kernel
+    ``lm_steps`` times and K3 never (`cilqr`), K1 once per cycle
     of its shared-world solves (`cilqr_base`), K2 and the two-phase step's
     derivatives kernel ``k2`` times each (`ccnmpc`: once per LM iteration of
     each two-phase solve), nothing else."""
     want = {"costmap": cycles_built, "sample": cycles_built, "uncertainty": cycles_built,
-            "lm_iter": lm_iter if algo == "cilqr" else 0,
+            "lm_iter": 0, "lm_step": lm_steps if algo == "cilqr" else 0,
             "lm": cycles_k1 if algo == "cilqr_base" else 0,
             "riccati": k2 if algo == "ccnmpc" else 0, "cost": k2 if algo == "ccnmpc" else 0}
     require(got == want, f"{label} {algo}: launches {got}, expected {want}")
@@ -927,7 +1028,7 @@ def experiment_layer(card: str, counts, dev: torch.device) -> tuple:
             run_s, run_out = cli_call(exp_run_argv(), dev, tmp / "run")
         launches["run"] = read_counts()
         require(launches["run"] == {"costmap": run_cycles + 1, "sample": 0,
-                                    "uncertainty": run_cycles + 1, "lm_iter": 0,
+                                    "uncertainty": run_cycles + 1, "lm_iter": 0, "lm_step": 0,
                                     "lm": run_cycles + 1, "riccati": 0, "cost": 0},
                 f"run --full-stack launches {launches['run']}, expected the costmap layers "
                 f"kernel, K4 and K1 {run_cycles + 1} times")
@@ -1213,15 +1314,13 @@ def experiment_layer(card: str, counts, dev: torch.device) -> tuple:
             p, noise, scenarios.plan_for(name), np.array(scenarios.get_scenario(name).start),
             EXP_PROFILE_CYCLES, scenarios.get_scenario(name), n_runs=EXP_COMPARE_RUNS,
             algorithm=a, **cm_kw) for name in EXP_SCENARIOS],
-            {**EXP_BUILD_KERNELS, **EXP_PLANNER_KERNELS.get(a, {})},
-            "uncertainty_sample_batched" if a == "cilqr" else None))
+            {**EXP_BUILD_KERNELS, **EXP_PLANNER_KERNELS.get(a, {})}, None))
     for a in sweep.SWEEP_ALGORITHMS:
         profiles.append((f"sweep {a}", lambda a=a: sweep.run_sigma_sweep(
             list(EXP_SIGMAS), (a,), p=p_sw, n_runs=EXP_SWEEP_RUNS, n_cycles=EXP_PROFILE_CYCLES,
             global_map=gm, global_geom=gg, device=dev),
             {**(EXP_BUILD_KERNELS if a in sweep.MAP_CONSUMERS else {}),
-             **EXP_PLANNER_KERNELS.get(a, {})},
-            "uncertainty_sample_batched" if a == "cilqr" else None))
+             **EXP_PLANNER_KERNELS.get(a, {})}, None))
     for label, fn, kern, ann in profiles:
         print(f"[15 profile] {label}, {EXP_PROFILE_CYCLES} cycles: "
               + profile_lines(fn, reps=1, kernels=kern, annotation=ann), flush=True)
@@ -1344,7 +1443,8 @@ def scale_out(card: str, counts, dev: torch.device) -> dict:
             lambda: fn(plan, n, egos, U0s), reps=2, kernels={"K1": "lm_opt"}), flush=True)
         del egos, U0s, ref, res
 
-        # (c) the sharded Monte-Carlo: K4 once and K3 per LM iteration per shard
+        # (c) the sharded Monte-Carlo: K4 once and the step kernel per LM
+        # iteration per shard
         cp = CostmapParams()
         center = (cp.x_position, cp.y_position)
         cpw = mc.ensure_window_covers(cp, cp.rows, cp.cols, center, SIGMA_HI)
@@ -1372,18 +1472,19 @@ def scale_out(card: str, counts, dev: torch.device) -> dict:
             (res, m), c = counted(lambda: fn(*world, samples.sigmas, samples.egos))
             b = MC_B // shards
             k3 = sum(int(res.iterations[i * b:(i + 1) * b].max()) for i in range(shards))
-            require(c == {"costmap": 0, "sample": 0, "uncertainty": shards, "lm_iter": k3,
-                          "lm": 0, "riccati": 0, "cost": 0},
-                    f"sharded MC on {shards} shards launched {c}, expected K4 {shards}, K3 {k3}")
+            require(c == {"costmap": 0, "sample": 0, "uncertainty": shards, "lm_iter": 0,
+                          "lm_step": k3, "lm": 0, "riccati": 0, "cost": 0},
+                    f"sharded MC on {shards} shards launched {c}, expected K4 {shards}, the step "
+                    f"kernel {k3}")
             require(same_bits(res, mref), f"sharded MC on {shards} shards differs from the "
                     f"unsharded call: " + ", ".join(f"{f} max |d| {float((a.double() - w.double()).abs().max()):.3e}"
                                                     for f, a, w in zip(res._fields, res, mref)))
             ex = metric_excess(m, mref_m, 1e-6)
             require(ex <= 1.0, f"sharded MC metrics on {shards} shards beyond 1e-6 relative: {ex:.3f}")
             ms = cuda_ms(lambda: fn(*world, samples.sigmas, samples.egos), 3)
-            out["mc"][shards] = {"uncertainty": c["uncertainty"], "lm_iter": c["lm_iter"]}
-            parts.append(f"{shards} shard(s) {ms:.3f} ms/call, launches K4 {c['uncertainty']} K3 "
-                         f"{c['lm_iter']} per call, equal bit for bit, metrics within "
+            out["mc"][shards] = {"uncertainty": c["uncertainty"], "lm_step": c["lm_step"]}
+            parts.append(f"{shards} shard(s) {ms:.3f} ms/call, launches K4 {c['uncertainty']} "
+                         f"step {c['lm_step']} per call, equal bit for bit, metrics within "
                          f"{ex * 1e-6:.1e} relative")
         print(f"[16c sharded MC] B={MC_B} N={HORIZON}, {len(band_plan.bands)} bands: "
               + " | ".join(parts) + f" on {card}", flush=True)
@@ -1412,11 +1513,10 @@ def scale_out(card: str, counts, dev: torch.device) -> dict:
         k3 = sum(int(v) for i in range(SO_FS_SHARDS)
                  for v in rec["iterations"][:, i * b:(i + 1) * b].amax(dim=1))
         require(c == {"costmap": SO_FS_SHARDS * FS_CYCLES, "sample": SO_FS_SHARDS * FS_CYCLES,
-                      "uncertainty": SO_FS_SHARDS * FS_CYCLES, "lm_iter": k3, "lm": 0,
-                      "riccati": 0, "cost": 0},
+                      "uncertainty": SO_FS_SHARDS * FS_CYCLES, "lm_iter": 0, "lm_step": k3,
+                      "lm": 0, "riccati": 0, "cost": 0},
                 f"sharded full stack launched {c}, expected the costmap layers kernel, K5 and "
-                f"K4 {SO_FS_SHARDS * FS_CYCLES}, "
-                f"K3 {k3}")
+                f"K4 {SO_FS_SHARDS * FS_CYCLES}, the step kernel {k3}")
         require(bool(torch.isfinite(xf).all()) and tuple(rec["J"].shape) == (FS_CYCLES, FS_B),
                 "sharded full stack: non-finite states or record shape")
 
@@ -1439,7 +1539,7 @@ def scale_out(card: str, counts, dev: torch.device) -> dict:
         fs_ms = cuda_ms(lambda: fs_fn(gmap, ggeom, plan, n, x0s, SO_SEED), 1)
         chunk_ms = cuda_ms(per_chunk, 1)
         out["full_stack"] = {"sample": c["sample"], "uncertainty": c["uncertainty"],
-                             "lm_iter": c["lm_iter"], "costmap": c["costmap"]}
+                             "lm_step": c["lm_step"], "costmap": c["costmap"]}
         print(f"[16d sharded full stack] B={FS_B} N={HORIZON} {FS_CYCLES} cycles, random map, "
               f"{SO_FS_SHARDS} shards: {fs_ms:.3f} ms/call ({FS_CYCLES * FS_B / fs_ms * 1e3:.0f} "
               f"cycles/s), the 4 per-chunk runs {chunk_ms:.3f} ms | launches {c} per call | final "
@@ -1580,15 +1680,15 @@ def bench_sections(calls: list, B: int) -> dict:
     """{section: (calls, launches by kernel)} of the benchmark's calls, each
     call held to the launches its section implies: a batched solve K1 once
     (the main path at B, the serving path at B=1); the unfused single solve
-    none; a Monte-Carlo call K4 once and K3 once per LM iteration of its
-    slowest lane; a full-stack call the costmap layers kernel, K5 and K4
-    once per cycle and K3 once per
-    LM iteration of each cycle's slowest lane; a closed-loop call K1 once
-    per cycle."""
+    none; a Monte-Carlo call K4 once and the step kernel once per LM
+    iteration of its slowest lane; a full-stack call the costmap layers
+    kernel, K5 and K4 once per cycle and the step kernel once per LM
+    iteration of each cycle's slowest lane; a closed-loop call K1 once per
+    cycle."""
     from cilqr_tpu_torch import benchmark
 
-    zero = {"costmap": 0, "sample": 0, "uncertainty": 0, "lm_iter": 0, "lm": 0, "riccati": 0,
-            "cost": 0}
+    zero = {"costmap": 0, "sample": 0, "uncertainty": 0, "lm_iter": 0, "lm_step": 0, "lm": 0,
+            "riccati": 0, "cost": 0}
     sections = {}
     for name, got, kept in calls:
         if name == "run_steps_batched":
@@ -1597,11 +1697,11 @@ def bench_sections(calls: list, B: int) -> dict:
         elif name == "run_step":
             section, want = "single_solve", dict(zero)
         elif name == "monte_carlo":
-            section, want = "mc", dict(zero, uncertainty=1, lm_iter=int(kept))
+            section, want = "mc", dict(zero, uncertainty=1, lm_step=int(kept))
         elif name == "closed_loop_full_stack_batched":
             section, want = "full_stack", dict(zero, costmap=benchmark.FS_CYCLES,
                                                sample=benchmark.FS_CYCLES,
-                                               uncertainty=benchmark.FS_CYCLES, lm_iter=int(kept))
+                                               uncertainty=benchmark.FS_CYCLES, lm_step=int(kept))
         else:
             section, want = "closed_loop", dict(zero, lm=benchmark.CL_CYCLES)
         require(got == want, f"bench {section}: a call launched {got}, expected {want}")
@@ -1833,7 +1933,6 @@ def condition_kernel(card: str, dev: torch.device) -> dict:
 GRAPH_BATCHES = (1, 64)   # the unbatched solve the benchmark times, and a batch
 GRAPH_CALLS = 6           # graphed calls on new egos after the capture
 GRAPH_EAGER_CALLS = 2     # of them also solved eagerly, bit for bit
-GRAPH_REPLAYS = 50
 
 
 def device_kernels(fn) -> tuple:
@@ -1864,14 +1963,13 @@ def graph_phase(card: str, counts, dev: torch.device) -> dict:
     steps equal to the largest iteration count; a call on new egos replays
     the captured graphs (no capture); no kernel of the port launched; the
     unbatched "seq" solve, up to the loop's one read of its steps, reads
-    nothing on the host (``no_host_sync``).  Prints ms per solve graphed,
-    host-polled and eager, the loop graph's nodes and build seconds; per
-    capture (1 and ``solver.STREAMS`` streams) ms per replay of the step
-    graph (in turns), device kernels per replay, the plan's longest chain
-    and the bytes its pool took; kernels per eager step, LM iterations;
-    then the worst case, B=1 "seq" with every lane running all
-    ``max_iterations``, graphed and host-polled.  Returns the numbers by
-    (impl, B)."""
+    nothing on the host (``no_host_sync``).  Prints the loop graph's nodes
+    and build seconds; per capture (1 and ``solver.STREAMS`` streams) device
+    kernels per replay of the step graph, the plan's longest chain and the
+    bytes its pool took; kernels per eager step, LM iterations (the
+    benchmark times these solves); then the worst case, B=1 "seq" with
+    every lane running all ``max_iterations``, graphed and host-polled.
+    Returns the numbers by (impl, B)."""
     from cilqr_tpu_torch import SolverParams
     from cilqr_tpu_torch.models import solver
     from cilqr_tpu_torch.models.reference_path import get_local_plan
@@ -1891,13 +1989,11 @@ def graph_phase(card: str, counts, dev: torch.device) -> dict:
                          dtype=torch.float32, device=dev)
         return (e[0], U0) if B == 1 else (e, U0.expand(B, HORIZON, 2).contiguous())
 
-    def wall_ms(solve, mode: str, e, u) -> tuple:
+    def solved_as(solve, mode: str, e, u):
         with loop_mode(mode):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
             r = solve(e, u)
             torch.cuda.synchronize()
-        return (time.perf_counter() - t0) * 1e3, r
+        return r
 
     def steps_of(key, r) -> None:
         loop = solver.CAPTURED[key].loop
@@ -1912,36 +2008,33 @@ def graph_phase(card: str, counts, dev: torch.device) -> dict:
                 e, u = inputs(B)
                 known = set(solver.CAPTURED)
                 zero_counts()
-                capture_ms, r_g = wall_ms(solve, "graphed", e, u)
+                r_g = solved_as(solve, "graphed", e, u)
                 launches = read_counts()
                 new_keys = [k for k in solver.CAPTURED if k not in known]
                 require(len(new_keys) == 1, f"{impl} B={B}: {len(new_keys)} captures")
                 require(not any(launches.values()),
                         f"{impl} B={B}: the plain solve launched {launches}")
                 steps_of(new_keys[0], r_g)
-                _, r_e = wall_ms(solve, "eager", e, u)
+                r_e = solved_as(solve, "eager", e, u)
                 require(same_bits(r_g, r_e), f"{impl} B={B}: graphed != eager at the capture")
-                _, r_h = wall_ms(solve, "host-polled", e, u)
+                r_h = solved_as(solve, "host-polled", e, u)
                 require(same_bits(r_h, r_e), f"{impl} B={B}: host-polled != eager at the capture")
                 loop_line = loop_stats_line([solver.CAPTURED[new_keys[0]]])
-                graphed, host, eager, its = [], [], [], []
+                its = []
                 for i in range(GRAPH_CALLS):
                     e, u = inputs(B)
                     held = dict(solver.CAPTURED)
-                    ms, r_g = wall_ms(solve, "graphed", e, u)
+                    r_g = solved_as(solve, "graphed", e, u)
                     steps_of(new_keys[0], r_g)
-                    graphed.append(ms)
-                    ms, r_h = wall_ms(solve, "host-polled", e, u)
+                    r_h = solved_as(solve, "host-polled", e, u)
                     require(same_bits(r_g, r_h), f"{impl} B={B}: graphed != host-polled, call {i}")
-                    host.append(ms)
                     require(held.keys() == solver.CAPTURED.keys() and all(
                         solver.CAPTURED[k] is g for k, g in held.items()),
                         f"{impl} B={B}: a call on new egos captured again")
                     its.append(float(r_g.iterations.float().mean()))
                     if i < GRAPH_EAGER_CALLS:
-                        ms, r_e = wall_ms(solve, "eager", e, u)
+                        r_e = solved_as(solve, "eager", e, u)
                         require(same_bits(r_g, r_e), f"{impl} B={B}: graphed != eager, call {i}")
-                        eager.append(ms)
                 host_free = ""
                 if impl == "seq" and B == 1:
                     e, u = inputs(B)
@@ -1951,33 +2044,29 @@ def graph_phase(card: str, counts, dev: torch.device) -> dict:
                     (loop,) = held_loops
                     require(loop.count() == int(r_g.iterations),
                             "the held-back read differs from the iterations")
-                    _, r_e = wall_ms(solve, "eager", e, u)
+                    r_e = solved_as(solve, "eager", e, u)
                     require(same_bits(r_g, r_e), "the solve under no_host_sync != eager")
                     host_free = (" | the whole solve up to the loop's one read of its steps ran "
                                  "under torch.cuda.set_sync_debug_mode('error'): no host read")
                 # the same solve captured on one stream, then both step graphs in turns
                 solver.STREAMS, known = 1, set(solver.CAPTURED)
-                _, r_1 = wall_ms(solve, "graphed", e, u)
+                r_1 = solved_as(solve, "graphed", e, u)
                 keys_1 = [k for k in solver.CAPTURED if k not in known]
                 require(len(keys_1) == 1, f"{impl} B={B}: {len(keys_1)} captures on one stream")
-                _, r_e = wall_ms(solve, "eager", e, u)
+                r_e = solved_as(solve, "eager", e, u)
                 require(same_bits(r_1, r_e), f"{impl} B={B}: one-stream graph != eager")
                 solver.STREAMS = streams
                 steps = {1: solver.CAPTURED[keys_1[0]].graphs[1],
                          streams: solver.CAPTURED[new_keys[0]].graphs[1]}
-                turns = {1: [], streams: []}
-                for k in (1, streams, streams, 1):
-                    turns[k].append(cuda_ms(steps[k].replay, GRAPH_REPLAYS))
                 per = {}
                 for k, g in steps.items():
                     kernels, busy = device_kernels(g.replay)
                     st = g.stats
-                    per[k] = dict(replay_ms=statistics.mean(turns[k]), replay_kernels=kernels,
-                                  replay_busy_ms=busy, pool_bytes=g.pool_bytes,
-                                  chain=st.plan_chain if st else None,
+                    per[k] = dict(replay_kernels=kernels, replay_busy_ms=busy,
+                                  pool_bytes=g.pool_bytes, chain=st.plan_chain if st else None,
                                   dag_chain=st.dag_chain if st else None,
                                   ops=st.ops if st else None, waits=st.waits if st else 0)
-                replay_ms, replay_kernels = per[streams]["replay_ms"], per[streams]["replay_kernels"]
+                replay_kernels = per[streams]["replay_kernels"]
                 replay_busy = per[streams]["replay_busy_ms"]
                 pl = get_local_plan(p, plan, n, e)
                 state = solver.start_state(p, e, u)
@@ -1985,34 +2074,24 @@ def graph_phase(card: str, counts, dev: torch.device) -> dict:
                 lamb_inv = solver.damping_inverse(p, torch.float32, dev)
                 step_kernels, step_busy = device_kernels(
                     lambda: solver.lm_step(p, step, lamb_inv, *state))
-                row = dict(capture_ms=capture_ms, graphed_ms=statistics.median(graphed),
-                           graphed_max_ms=max(graphed), host_ms=statistics.median(host),
-                           host_max_ms=max(host), eager_ms=statistics.median(eager),
-                           replay_ms=replay_ms, replay_kernels=replay_kernels,
-                           replay_busy_ms=replay_busy, step_kernels=step_kernels,
-                           step_busy_ms=step_busy, iterations=statistics.mean(its),
-                           streams=per)
+                row = dict(replay_kernels=replay_kernels, replay_busy_ms=replay_busy,
+                           step_kernels=step_kernels, step_busy_ms=step_busy,
+                           iterations=statistics.mean(its), streams=per)
                 out[(impl, B)] = row
                 print(f"[18 graph {impl} B={B}] N={HORIZON}, solver.run_step, obstacles + map: "
                       f"graphed (device loop) = host-polled = eager bit for bit on "
                       f"{1 + GRAPH_EAGER_CALLS} ego draws, graphed = host-polled on "
                       f"{1 + GRAPH_CALLS}, the loop's steps = the largest iteration count on "
                       f"every call, {GRAPH_CALLS} calls on new egos replayed (no capture), "
-                      f"launches {launches}{host_free} | per solve (host clock, synchronised): "
-                      f"graphed median {row['graphed_ms']:.3f} ms (max "
-                      f"{row['graphed_max_ms']:.3f}, first call with the capture "
-                      f"{capture_ms:.3f}), host-polled median {row['host_ms']:.3f} ms (max "
-                      f"{row['host_max_ms']:.3f}), eager median {row['eager_ms']:.3f} ms | loop "
-                      f"graph: {loop_line} | step graph: {replay_ms:.4f} ms per replay (CUDA events, "
-                      f"{GRAPH_REPLAYS} replays), {replay_kernels} device kernels per replay "
+                      f"launches {launches}{host_free} | loop graph: {loop_line} | step graph: "
+                      f"{replay_kernels} device kernels per replay "
                       f"({replay_busy:.4f} ms busy); eager lm_step {step_kernels} kernels "
                       f"({step_busy:.4f} ms busy) | mean LM iterations {row['iterations']:.2f} "
                       f"on {card}", flush=True)
                 ops = per[streams]["ops"]
                 for k, v in per.items():
                     chain = v["chain"] if v["chain"] is not None else ops
-                    print(f"[18 streams {impl} B={B}] {k} stream(s): {v['replay_ms']:.4f} ms per "
-                          f"replay (turns {', '.join(f'{x:.4f}' for x in turns[k])}), "
+                    print(f"[18 streams {impl} B={B}] {k} stream(s): "
                           f"{v['replay_kernels']} device kernels per replay "
                           f"({v['replay_busy_ms']:.4f} ms busy), plan's longest chain {chain} of "
                           f"{ops} ops (data's {per[streams]['dag_chain']}), {v['waits']} "
@@ -2109,7 +2188,8 @@ def scripts_phase(card: str, counts, dev: torch.device) -> dict:
         0 <= r["wall_hits"] <= r["collided"] <= R and 0 <= r["car_hits"] <= r["collided"]
         for r in rows), f"classification rows {rows}")
     require(l_cls["costmap"] == l_cls["sample"] == l_cls["uncertainty"] == cells * T
-            and l_cls["lm_iter"] >= cells * T and not l_cls["lm"] and not l_cls["riccati"],
+            and l_cls["lm_step"] >= cells * T and not l_cls["lm_iter"] and not l_cls["lm"]
+            and not l_cls["riccati"],
             f"classification launches {l_cls} for {cells} cells x {T} cycles")
     cls_s = time.perf_counter() - t0
     print(f"[19a classify_failure_modes] {R} runs x {T} cycles, {cls_s:.1f} s, launches {l_cls}: "
@@ -2139,7 +2219,7 @@ def scripts_phase(card: str, counts, dev: torch.device) -> dict:
                                                      "mean_jerk")),
             f"sweep row {row}")
     require(l_ps["costmap"] == l_ps["sample"] == l_ps["uncertainty"] == T
-            and l_ps["lm_iter"] >= T,
+            and l_ps["lm_step"] >= T and not l_ps["lm_iter"],
             f"sweep cell launches {l_ps} for {T} cycles")
     print(f"[19c production_sweeps] r5_rot25, cilqr at sigma 0.5, {R} runs x {T} cycles, "
           f"{time.perf_counter() - t0:.1f} s, launches {l_ps}: {json.dumps(row)}", flush=True)
@@ -2149,11 +2229,8 @@ def scripts_phase(card: str, counts, dev: torch.device) -> dict:
 
 # Phase 20, the hybrid (K3) and two-phase (K2) LM loops as CUDA graphs
 # (models/solver.py: the iteration handed over as a solver.Iteration)
-LOOP_CALLS = 3            # timed calls per path, graphed and eager (host clock, synchronised)
-LOOP_REPLAYS = 20         # step replays timed per capture, in turns on 1, 4, 4, 1 streams
 LOOP_COMPARE_ALGOS = ("cilqr", "ccnmpc")  # compare's planners on these loops (K3, K2)
 LOOP_COMPARE_CYCLES = 40  # of phase 15's 120, for the script's time: three runs of it here
-LOOP_IDLE_CYCLES = 3      # compare's cycles under the profiler, for the idle share
 
 
 def tree_equal(a, b) -> bool:
@@ -2164,29 +2241,6 @@ def tree_equal(a, b) -> bool:
     (la, sa), (lb, sb) = tree_flatten(a), tree_flatten(b)
     return sa == sb and all(torch.equal(x, y) if isinstance(x, torch.Tensor) else x == y
                             for x, y in zip(la, lb))
-
-
-def idle_share(fn) -> tuple:
-    """(the device's idle share of one fn() call, its device kernels and
-    copies, the ms some device event runs, the call's ms) by
-    ``torch.profiler`` after a warm-up call: one less the time at least one
-    device event runs (the events of several streams overlap) over the
-    call's time (CUDA events, under the profiler)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        start.record()
-        fn()
-        end.record()
-        torch.cuda.synchronize()
-    spans = [(e.time_range.start, e.time_range.end) for e in prof.events()
-             if e.device_type == DeviceType.CUDA and not getattr(e, "is_user_annotation", False)]
-    busy_ms, call_ms = covered_us(spans) / 1e3, start.elapsed_time(end)
-    return 1.0 - busy_ms / call_ms, len(spans), busy_ms, call_ms
 
 
 @contextlib.contextmanager
@@ -2241,10 +2295,9 @@ def stream_study(label: str, call, card: str) -> dict:
     ``ccnmpc.solve_round`` or ``solver.solve``, args, keywords), solved
     again alone: eagerly, then
     graphed on one stream and on ``solver.STREAMS``, each equal to the eager
-    solve bit for bit; the two step graphs' replays timed in turns (1, S, S,
-    1), their device kernels per replay and the S-stream start graph's, the
-    plan of the S-stream step, the pools' bytes and the captures'
-    seconds."""
+    solve bit for bit; the two step graphs' device kernels per replay and
+    the S-stream start graph's, the plan of the S-stream step, the pools'
+    bytes and the captures' seconds (the benchmark times the steps)."""
     from cilqr_tpu_torch.models import solver
 
     fn, args, kw = call
@@ -2267,25 +2320,21 @@ def stream_study(label: str, call, card: str) -> dict:
             require(tree_equal(got, want), f"{label}: graphed on {k} stream(s) != eager")
             start, step = solver.CAPTURED[new[0]].graphs
             per[k] = dict(start=start, step=step, pool_bytes=start.pool_bytes + step.pool_bytes,
-                          capture_s=secs[0], turns=[],
-                          loop=loop_stats_line([solver.CAPTURED[new[0]]]))
+                          capture_s=secs[0], loop=loop_stats_line([solver.CAPTURED[new[0]]]))
     finally:
         solver.GRAPHS, solver.STREAMS = True, S
-    for k in (1, S, S, 1):
-        per[k]["turns"].append(cuda_ms(per[k]["step"].replay, LOOP_REPLAYS))
     for k, v in per.items():
-        v["replay_ms"] = statistics.mean(v["turns"])
         v["kernels"], v["busy_ms"] = device_kernels(v["step"].replay)
+        v["nodes"] = captured_nodes(v["step"])
     start_kernels, start_busy = device_kernels(per[S]["start"].replay)
     st = per[S]["step"].stats
     B = want[0].shape[0]
     print(f"[20 streams {label}] B={B}, the start graph: {start_kernels} device kernels per "
           f"replay ({start_busy:.4f} ms busy) on {S} streams; the step graph: {per[S]['kernels']} "
-          f"device kernels per replay ({per[1]['kernels']} on one stream) | ms per replay (CUDA "
-          f"events, "
-          f"{LOOP_REPLAYS} replays, turns 1, {S}, {S}, 1) 1 stream {per[1]['replay_ms']:.4f} "
-          f"({per[1]['busy_ms']:.4f} busy), {S} streams {per[S]['replay_ms']:.4f} "
-          f"({per[S]['busy_ms']:.4f} busy) | plan on {S} streams: chain {st.plan_chain} of "
+          f"device kernels per replay ({per[1]['kernels']} on one stream; (nodes, kernel "
+          f"nodes) {per[S]['nodes']}, {per[1]['nodes']} on one), busy "
+          f"{per[S]['busy_ms']:.4f} ms ({per[1]['busy_ms']:.4f} on one) | plan on {S} streams: "
+          f"chain {st.plan_chain} of "
           f"{st.ops} ops (data's {st.dag_chain}), {st.waits} cross-stream waits | pool bytes "
           f"(start + step) 1 stream {per[1]['pool_bytes']}, {S} streams {per[S]['pool_bytes']} | "
           f"capture s 1 stream {per[1]['capture_s']:.3f}, {S} streams {per[S]['capture_s']:.3f} "
@@ -2293,14 +2342,14 @@ def stream_study(label: str, call, card: str) -> dict:
           f"streams: {per[S]['loop']} | graphed = eager bit for bit on both on {card}",
           flush=True)
     return dict(B=B, kernels_per_replay=per[S]["kernels"], kernels_per_replay_1=per[1]["kernels"],
-                start_kernels_per_replay=start_kernels,
-                replay_ms={k: v["replay_ms"] for k, v in per.items()}, ops=st.ops,
+                step_nodes={k: v["nodes"] for k, v in per.items()},
+                start_kernels_per_replay=start_kernels, ops=st.ops,
                 chain=st.plan_chain, dag_chain=st.dag_chain,
                 pool_bytes={k: v["pool_bytes"] for k, v in per.items()},
                 capture_s={k: v["capture_s"] for k, v in per.items()})
 
 
-def loop_path(label: str, run, counts, card: str, kind: str, slope=None) -> dict:
+def loop_path(label: str, run, counts, card: str, kind: str) -> dict:
     """A path whose LM loop is ``kind`` ("hybrid" or "two_phase"), run()
     once as a user calls it in each mode of LOOP_MODES (graphed on the
     device loop, host-polled, eager): its outputs and every LM solve's
@@ -2308,20 +2357,15 @@ def loop_path(label: str, run, counts, card: str, kind: str, slope=None) -> dict
     launch counts equal (a replay counts its kernels), the graphed run's
     loops captured as ``kind``, each device loop's steps equal to its
     solve's largest iteration count and the condition run steps + 1 times
-    per solve; ms per call each way (the median of LOOP_CALLS calls after
-    the first), the device's idle share each way (for the device loop also
-    from the host-polled run's busy time: the same kernels, which the
-    profiler sees whole), with ``slope`` = (call, make_input, items, g2)
-    the benchmark's slope throughput graphed and eager; the graphed loops'
-    start replays and launches under ``no_host_sync``; then
-    ``stream_study`` on the first solve.  Returns the numbers."""
-    from cilqr_tpu_torch import benchmark
+    per solve; the graphed loops' start replays and launches under
+    ``no_host_sync``; then ``stream_study`` on the first solve (the
+    benchmark's cells time these paths).  Returns the numbers."""
     from cilqr_tpu_torch.models import solver
     from cilqr_tpu_torch.ops import loop_cuda
     from cilqr_tpu_torch.utils import graphs
 
     zero_counts, read_counts = counts
-    out, firsts, launches, ms, idle, rate = {}, {}, {}, {}, {}, {}
+    out, firsts, launches = {}, {}, {}
     calls, cond_runs, loop_line, host_free = [], 0, "", 0
     for mode in LOOP_MODES:
         with loop_mode(mode):
@@ -2354,17 +2398,6 @@ def loop_path(label: str, run, counts, card: str, kind: str, slope=None) -> dict
                 require(not steps, f"{label}: {mode} ran a device loop")
                 if mode == "eager":
                     require(not solver.CAPTURED, f"{label}: the eager run captured a graph")
-            times = []
-            for _ in range(LOOP_CALLS):
-                torch.cuda.synchronize()
-                t0 = time.perf_counter()
-                run()
-                torch.cuda.synchronize()
-                times.append((time.perf_counter() - t0) * 1e3)
-            ms[mode] = statistics.median(times)
-            idle[mode] = idle_share(run)
-            if slope is not None and mode != "host-polled":
-                rate[mode] = benchmark.slope_throughput(*slope[:3], g2=slope[3])[0]
             if mode == "graphed":
                 host_free = loops_host_free(label)
     for mode in ("graphed", "host-polled"):
@@ -2372,48 +2405,40 @@ def loop_path(label: str, run, counts, card: str, kind: str, slope=None) -> dict
                 f"{label}: the {mode} path's results differ from the eager path's")
         require(launches[mode] == launches["eager"],
                 f"{label}: launches {mode} {launches[mode]}, eager {launches['eager']}")
-    # the device loop's busy time from the host-polled run's (the same kernels)
-    idle_from_host = 1.0 - idle["host-polled"][2] / idle["graphed"][3]
     its = torch.cat([r[2].reshape(-1).float() for r in out["graphed"][1]])
     print(f"[20 loops {label}] {len(out['graphed'][1])} {kind} solves, graphed (device loop) = "
           f"host-polled = eager bit for bit (X, U, iterations, J, lambda of every lane, and the "
           f"path's outputs) | launches {launches['graphed']} all three ways; the condition ran "
           f"{cond_runs} times (steps + 1 per solve, steps = the largest iteration count) | "
           f"{host_free} loops' start replay + loop launch under set_sync_debug_mode('error'): no "
-          f"host read | loop graphs: {loop_line} | ms per call (host clock, synchronised, median "
-          f"of {LOOP_CALLS}): graphed {ms['graphed']:.3f} (first call, with the captures, "
-          f"{firsts['graphed']:.3f}), host-polled {ms['host-polled']:.3f} (first "
-          f"{firsts['host-polled']:.3f}), eager {ms['eager']:.3f} | device idle share (profiler) "
-          + ", ".join(f"{m} {100 * v[0]:.1f}% ({v[1]} device events, {v[2]:.3f} of {v[3]:.3f} ms "
-                      f"busy)" for m, v in idle.items())
-          + f"; graphed from the host-polled busy time {100 * idle_from_host:.1f}%"
-          + (f" | slope throughput (the benchmark's method) graphed {rate['graphed']:.1f}, eager "
-             f"{rate['eager']:.1f} per s" if slope else "")
-          + f" | mean LM iterations {float(its.mean()):.2f} on {card}", flush=True)
+          f"host read | loop graphs: {loop_line} | first call ms (host clock, the captures "
+          f"included) graphed {firsts['graphed']:.3f}, host-polled {firsts['host-polled']:.3f}, "
+          f"eager {firsts['eager']:.3f} | mean LM iterations {float(its.mean()):.2f} on {card}",
+          flush=True)
     study = stream_study(label, calls[0], card)
-    return dict(graphed_ms=ms["graphed"], first_ms=firsts["graphed"], host_ms=ms["host-polled"],
-                eager_ms=ms["eager"], idle={m: v[0] for m, v in idle.items()},
-                idle_from_host=idle_from_host, rate=rate, launches=launches["graphed"],
+    if kind == "hybrid":
+        require(set(study["step_nodes"].values()) == {(2, 2)},
+                f"{label}: the step graph holds {study['step_nodes']} (nodes, kernel nodes), "
+                "expected the list pass and the step kernel")
+    return dict(first_ms=firsts["graphed"], launches=launches["graphed"],
                 condition_runs=cond_runs, mean_iterations=float(its.mean()), streams=study)
 
 
 def compare_loops(card: str, counts, dev: torch.device) -> dict:
     """`compare --full-stack` on its two scenarios at phase 15's runs and
     LOOP_COMPARE_CYCLES cycles, on the algorithms whose planners run these
-    loops (`cilqr`: the hybrid loop, K3; `ccnmpc`: two SQP rounds per cycle,
-    each a start graph (rollout, covariance, tightening, plan fit) and the
-    two-phase loop, K2), in each mode of LOOP_MODES: every planner step's (X, U,
-    iterations, J, lamb) equal bit for bit, the launches equal, the
-    command's and each algorithm's seconds each way; the idle share over
-    LOOP_IDLE_CYCLES cycles each way; ``stream_study`` on each algorithm's
-    first solve."""
+    loops (`cilqr`: the hybrid loop, the step kernel; `ccnmpc`: two SQP
+    rounds per cycle, each a start graph (rollout, covariance, tightening,
+    plan fit) and the two-phase loop, K2), in each mode of LOOP_MODES: every
+    planner step's (X, U, iterations, J, lamb) equal bit for bit, the
+    launches equal; ``stream_study`` on each algorithm's first solve."""
     from cilqr_tpu_torch.models import ccnmpc, solver, solver_batched
     from cilqr_tpu_torch.sim import runner
 
     zero_counts, read_counts = counts
     argv = ["compare", "--full-stack", "--scenarios", ",".join(EXP_SCENARIOS), "--runs",
             str(EXP_COMPARE_RUNS), "--algorithms", ",".join(LOOP_COMPARE_ALGOS)]
-    steps, secs, launches, per_algo, idle, first = {}, {}, {}, {}, {}, {}
+    steps, launches, first = {}, {}, {}
     # the solves recorded with the function that ran them (`cilqr`'s
     # run_steps_batched calls, `ccnmpc`'s SQP rounds)
     by = lambda fn: (lambda res, a, k: (fn, a, k))
@@ -2422,27 +2447,20 @@ def compare_loops(card: str, counts, dev: torch.device) -> dict:
         for mode in LOOP_MODES:
             with loop_mode(mode):
                 solver.CAPTURED.clear()
-                rec, calls, solves = [], [], []
+                rec, solves = [], []
                 zero_counts()
-                with steps_recorded(runner, rec), per_call(
-                        runner, "run_experiment_batch", read_counts, calls,
-                        lambda args, kw: (kw["algorithm"],)), recording(
+                with steps_recorded(runner, rec), recording(
                         solver_batched, "run_steps_batched", solves, keep=by(mega)), \
                         recording(ccnmpc, "solve_round", solves, keep=by(rounds)):
-                    secs[mode], _ = cli_call(argv + ["--cycles", str(LOOP_COMPARE_CYCLES)], dev,
-                                             pathlib.Path(tmp) / mode)
+                    cli_call(argv + ["--cycles", str(LOOP_COMPARE_CYCLES)], dev,
+                             pathlib.Path(tmp) / mode)
                 launches[mode] = read_counts()
                 steps[mode] = rec
-                per_algo[mode] = {a: s for a, (s, _) in by_algorithm(
-                    calls, LOOP_COMPARE_ALGOS).items()}
                 if mode == "graphed":
                     require(loop_kinds() == {"hybrid", "two_phase"},
                             f"compare: graphed loops {loop_kinds()}")
                     first = {"ccnmpc": next(c for c in solves if c[0] is rounds),
                              "cilqr": next(c for c in solves if c[1][6] is not None)}
-                idle[mode] = idle_share(lambda: cli_call(
-                    argv + ["--cycles", str(LOOP_IDLE_CYCLES)], dev,
-                    pathlib.Path(tmp) / f"idle_{mode}"))
     for mode in ("graphed", "host-polled"):
         require(len(steps[mode]) == len(steps["eager"]) and tree_equal(steps[mode], steps["eager"]),
                 f"compare: a {mode} planner step differs from the eager one")
@@ -2451,38 +2469,29 @@ def compare_loops(card: str, counts, dev: torch.device) -> dict:
     print(f"[20 loops compare] `{' '.join(argv)} --cycles {LOOP_COMPARE_CYCLES}`: "
           f"{len(steps['graphed'])} planner steps, graphed (device loop) = host-polled = eager "
           f"bit for bit (X, U, iterations, J, lambda of every lane) | launches "
-          f"{launches['graphed']} all three ways | command s graphed {secs['graphed']:.3f}, "
-          f"host-polled {secs['host-polled']:.3f}, eager {secs['eager']:.3f} | "
-          + ", ".join(f"{a} s graphed {per_algo['graphed'][a]:.3f}, host-polled "
-                      f"{per_algo['host-polled'][a]:.3f}, eager {per_algo['eager'][a]:.3f}"
-                      for a in LOOP_COMPARE_ALGOS)
-          + f" | device idle share ({LOOP_IDLE_CYCLES} cycles, profiler) "
-          + ", ".join(f"{m} {100 * v[0]:.1f}%" for m, v in idle.items()) + f" on {card}",
-          flush=True)
+          f"{launches['graphed']} all three ways on {card}", flush=True)
     studies = {a: stream_study(f"compare {a}", first[a], card) for a in LOOP_COMPARE_ALGOS}
-    return dict(seconds=secs, per_algo=per_algo, idle={k: v[0] for k, v in idle.items()},
-                launches=launches["graphed"], streams=studies)
+    return dict(launches=launches["graphed"], streams=studies)
 
 
 # Phase 21, the K1 solve and the closed loops' stages as CUDA graphs
 # (models/solver.py: solver.run, solver.solve)
-STAGE_CALLS = 5           # timed calls per path, graphed and eager (host clock, synchronised)
 
 
 def graph_path(label: str, run, counts, card: str, loops: bool = False) -> dict:
     """A path run as a user calls it, graphed (``solver.GRAPHS``) against
     eager, and with ``loops`` (its LM loops replayed) host-polled too
     (LOOP_MODES): its outputs equal bit for bit and the launch counts equal
-    (a replay counts its kernels); ms per call each way (the median of
-    STAGE_CALLS calls after the first; the first graphed call's with the
-    captures), the device's idle share each way; the graphs the graphed
+    (a replay counts its kernels); the first call's ms each way (the
+    graphed one with the captures; the benchmark's cells time these
+    paths); the graphs the graphed
     call captured (``solver.CAPTURED``), each replayed alone: device kernels
     per replay, and their pools' bytes; the loop graphs' nodes and build
     seconds.  Returns the numbers."""
     from cilqr_tpu_torch.models import solver
 
     zero_counts, read_counts = counts
-    out, first, launches, ms, idle = {}, {}, {}, {}, {}
+    out, first, launches = {}, {}, {}
     per_graph, pool, loop_line = [], 0, ""
     modes = [m for m in LOOP_MODES if loops or m != "host-polled"]
     try:
@@ -2496,15 +2505,6 @@ def graph_path(label: str, run, counts, card: str, loops: bool = False) -> dict:
                 torch.cuda.synchronize()
                 first[mode] = (time.perf_counter() - t0) * 1e3
                 launches[mode] = read_counts()
-                times = []
-                for _ in range(STAGE_CALLS):
-                    torch.cuda.synchronize()
-                    t0 = time.perf_counter()
-                    run()
-                    torch.cuda.synchronize()
-                    times.append((time.perf_counter() - t0) * 1e3)
-                ms[mode] = statistics.median(times)
-                idle[mode] = idle_share(run)
                 if mode == "graphed":
                     # each graph replayed alone while its capture is held
                     held = [g for c in solver.CAPTURED.values() for g in c.graphs]
@@ -2524,19 +2524,13 @@ def graph_path(label: str, run, counts, card: str, loops: bool = False) -> dict:
         require(launches[mode] == launches["eager"],
                 f"{label}: launches {mode} {launches[mode]}, eager {launches['eager']}")
     print(f"[21 graphs {label}] {' = '.join(modes)} bit for bit (every output) | launches "
-          f"{launches['graphed']} {len(modes)} ways | ms per call (host clock, synchronised, "
-          f"median of {STAGE_CALLS}): "
-          + ", ".join(f"{m} {ms[m]:.3f}" for m in modes)
-          + f" (first graphed call, with the captures, {first['graphed']:.3f}) | device idle "
-          f"share (profiler) "
-          + ", ".join(f"{m} {100 * idle[m][0]:.1f}% ({idle[m][1]} device events)" for m in modes)
-          + (f"; graphed from the host-polled busy time "
-             f"{100 * (1.0 - idle['host-polled'][2] / idle['graphed'][3]):.1f}%" if loops else "")
+          f"{launches['graphed']} {len(modes)} ways | first call ms (host clock, synchronised; "
+          f"the graphed one with the captures) "
+          + ", ".join(f"{m} {first[m]:.3f}" for m in modes)
           + f" | {len(per_graph)} graphs, device kernels per replay {per_graph}, pool bytes "
           f"{pool}; loop graphs: {loop_line} on {card}", flush=True)
-    return dict(graphed_ms=ms["graphed"], first_ms=first["graphed"], eager_ms=ms["eager"],
-                host_ms=ms.get("host-polled"), idle={m: v[0] for m, v in idle.items()},
-                launches=launches["graphed"], kernels_per_replay=per_graph, pool_bytes=pool)
+    return dict(first_ms=first["graphed"], launches=launches["graphed"],
+                kernels_per_replay=per_graph, pool_bytes=pool)
 
 
 def ccnmpc_campaign(card: str, counts, dev: torch.device) -> dict:
@@ -2876,13 +2870,13 @@ def main() -> None:
     build.load_library()
     build_s = time.perf_counter() - t0
     ptxas = ptxas_lines((build.BUILD_DIR / "build.log").read_text())
-    for kernel in ("lm_opt_kernel", "lm_iter_kernel"):
+    for kernel in ("lm_opt_kernel", "lm_iter_kernel", "lm_step_kernel"):
         for G in lm_cuda.GROUP_SIZES:
             require(any(ln.startswith(f"{kernel}<{G}>:") and "0/0 spill" in ln for ln in ptxas),
                     f"{kernel}<{G}> spills or is missing from the ptxas report: {ptxas}")
     for kernel in ("riccati_kernel", "propagate_kernel", "fields_kernel", "sample_kernel",
                    "costmap_layers_kernel", "lm_continue_kernel", "lm_reset_kernel",
-                   "cost_derivs_kernel"):
+                   "cost_derivs_kernel", "lm_lanes_kernel", "lm_sampler_kernel"):
         found = [ln for ln in ptxas if ln.startswith(kernel)]
         require(found and all("0/0 spill" in ln for ln in found),
                 f"{kernel} spills or is missing from the ptxas report: {ptxas}")
@@ -2893,15 +2887,15 @@ def main() -> None:
 
     p = dataclasses.replace(SolverParams(), horizon=HORIZON)
     S = p.n_closest_samples
-    # each instantiation of K1 and K3 (a block is one warp of T = 32 / G
-    # scenarios): registers and local-memory bytes per thread, shared memory
-    # per block, resident blocks per SM
+    # each instantiation of K1, K3 and the step kernel (a block is one warp
+    # of T = 32 / G scenarios): registers and local-memory bytes per thread,
+    # shared memory per block, resident blocks per SM
     # (cudaOccupancyMaxActiveBlocksPerMultiprocessor)
-    for label, whole_loop in (("K1 lm_opt_kernel", True), ("K3 lm_iter_kernel", False)):
-        print(f"[2 resources] {label}, S={S}: " + " | ".join(
+    for label, kernel in (("K1", "lm_opt"), ("K3", "lm_iter"), ("step", "lm_step")):
+        print(f"[2 resources] {label} {kernel}_kernel, S={S}: " + " | ".join(
             "G={G} T={T}: {registers} registers, {local_bytes} B local, {shared_bytes} B shared, "
             "{blocks_per_sm} blocks/SM".format(G=G, T=32 // G, **lm_cuda.kernel_resources(
-                whole_loop, G, S)) for G in lm_cuda.GROUP_SIZES), flush=True)
+                kernel, G, S)) for G in lm_cuda.GROUP_SIZES), flush=True)
     plan, n, ego, U0, obstacles, unc = example_scenario(p)  # on the card by default
     require(all(t.device == dev for t in (plan, n, ego, U0, obstacles.pos, unc.values)),
             "example_scenario left a tensor off the card")
@@ -3043,7 +3037,7 @@ def main() -> None:
         ms=k1_ms, plain_ms=k1_plain_ms, **k1_bound, library_ms=NO_LIBRARY_CALL)
     k1_shape = lm_cuda.launch_shape(MAIN_B, S)
     kernels["lm"]["launch_shape"] = dict(T=k1_shape[0], G=k1_shape[1],
-                                         **lm_cuda.kernel_resources(True, k1_shape[1], S))
+                                         **lm_cuda.kernel_resources("lm_opt", k1_shape[1], S))
     print(f"[4 K1 lm] B={MAIN_B}: kernel {k1_ms:.3f} ms at (T, G) = {k1_shape}, plain "
           f"{k1_plain_ms:.3f} ms, bound {k1_bound['bound_ms']:.3f} ms by {k1_bound['bound_by']} "
           f"({k1_ops:.3e} operations, {k1_bytes / 1e6:.1f} MB)", flush=True)
@@ -3052,13 +3046,15 @@ def main() -> None:
     # 5. the main path: run_steps_batched(impl="mega") at B=32768, N=50.  It
     # launches K1 once; K2's backward step and rollout run inside K1 as
     # device functions, so the mega path launches K2 on its own no time.
-    lm_cuda.LAUNCHES = lm_cuda.ITER_LAUNCHES = 0
+    lm_cuda.LAUNCHES = lm_cuda.ITER_LAUNCHES = lm_cuda.STEP_LAUNCHES = 0
     riccati_cuda.LAUNCHES = uncertainty_cuda.LAUNCHES = 0
     res = solver_batched.run_steps_batched(p, plan, n, egos_m, U0_m, obstacles, unc, impl="mega")
     torch.cuda.synchronize()
     main_launches = {"lm": lm_cuda.LAUNCHES, "riccati": riccati_cuda.LAUNCHES,
-                     "lm_iter": lm_cuda.ITER_LAUNCHES, "uncertainty": uncertainty_cuda.LAUNCHES}
-    require(main_launches == {"lm": 1, "riccati": 0, "lm_iter": 0, "uncertainty": 0},
+                     "lm_iter": lm_cuda.ITER_LAUNCHES, "lm_step": lm_cuda.STEP_LAUNCHES,
+                     "uncertainty": uncertainty_cuda.LAUNCHES}
+    require(main_launches == {"lm": 1, "riccati": 0, "lm_iter": 0, "lm_step": 0,
+                              "uncertainty": 0},
             f"main path launches {main_launches}, expected K1 once and no other kernel on its own")
     require(bool(torch.isfinite(res.X).all() and torch.isfinite(res.U).all()),
             "non-finite X/U on the main path")
@@ -3351,12 +3347,13 @@ def main() -> None:
     for G in lm_cuda.GROUP_SIZES:
         got_tie = lm_cuda._launch_iteration(p, world, plans_tie, X3, U3, lamb3, uext3, G)
         tie_err = max(tie_err, k3_compare(X3, U3, got_tie, want_tie)[0])
-    before = lm_cuda.ITER_LAUNCHES
+    before = lm_cuda.STEP_LAUNCHES, lm_cuda.ITER_LAUNCHES
     got = lm_cuda.fused_optimize(p, plans3, egos3, U3, obstacles, None, unc_sampler=sampler3)
     torch.cuda.synchronize()
-    hybrid_launches = lm_cuda.ITER_LAUNCHES - before
-    require(hybrid_launches == int(got[2].max()),
-            f"hybrid loop: {hybrid_launches} K3 launches for {int(got[2].max())} iterations")
+    hybrid_launches = lm_cuda.STEP_LAUNCHES - before[0]
+    require(hybrid_launches == int(got[2].max()) and lm_cuda.ITER_LAUNCHES == before[1],
+            f"hybrid loop: {hybrid_launches} step-kernel launches for {int(got[2].max())} "
+            "iterations, or a K3 launch")
     want = lm_cuda.fused_optimize_plain(p, plans3, egos3, U3, obstacles, None,
                                         unc_sampler=sampler3)
     umaps64, egos64_3, plans64_3 = hybrid_inputs(K3_CHECK_B, torch.float64)
@@ -3367,7 +3364,8 @@ def main() -> None:
               for e in perturbed(egos3, NUDGES)]
     require(1 <= int(got[2].min()) and int(got[2].max()) <= p.max_iterations,
             "hybrid loop: iterations outside [1, 20]")
-    # A chaotic lane of the hybrid loop can end on another local solution
+    # The hybrid loop runs the step kernel (lm_lanes_kernel + lm_step_kernel):
+    # held here per lane to the plain version.  A chaotic lane of the hybrid loop can end on another local solution
     # after another number of iterations (2 apart on one of 1024 lanes, in
     # one run): the calm lanes are held to equal counts, the chaotic ones to
     # within their nudged spread + 2.
@@ -3405,13 +3403,13 @@ def main() -> None:
         library_ms=NO_LIBRARY_CALL)
     k3_shape = lm_cuda.launch_shape(MC_B, S)
     kernels["lm_iter"]["launch_shape"] = dict(T=k3_shape[0], G=k3_shape[1],
-                                              **lm_cuda.kernel_resources(False, k3_shape[1], S))
+                                              **lm_cuda.kernel_resources("lm_iter", k3_shape[1], S))
     print(f"[9 K3 lm_iter] B={K3_CHECK_B} one iteration: max|kernel-plain| k/K {k3_err:.3e} "
           f"(bar 1e-4 rel + 1e-5 abs) | per step " + ", ".join(f"{nm} {e:.3e}" for nm, e in roll3)
           + f" | J rel {j_rel:.3e} | every G of {lm_cuda.GROUP_SIZES} gives the same bits | "
           f"planted ties (table halves equal), every G: max|kernel-plain| k/K {tie_err:.3e} at "
           f"the same bars "
-          f"| hybrid loop ({hybrid_launches} K3 launches): {k3_line} "
+          f"| hybrid loop ({hybrid_launches} step-kernel launches): {k3_line} "
           f"(max full-horizon |dU| on calm lanes {k3_loop_err:.3e}) | B={MC_B} one iteration: "
           f"max|kernel-plain| k/K {k3_err_m:.3e}, per step "
           + ", ".join(f"{nm} {e:.3e}" for nm, e in roll_m)
@@ -3419,26 +3417,31 @@ def main() -> None:
           f"({k3_alone_ms:.3f} ms called on its own) at (T, G) = {k3_shape}, plain "
           f"{k3_plain_ms:.3f} ms, bound "
           f"{k3_bound['bound_ms']:.3f} ms by {k3_bound['bound_by']}", flush=True)
+    step_line3, _ = step_kernel_check(p, plans3, egos3, U3, obstacles, sampler3, False)
+    step_lineM, kernels["lm_step"] = step_kernel_check(p, plansM, egosM, UM, obstacles,
+                                                       solver_batched.map_sampler(p, umapsM), True)
+    print(f"[9 step kernel] {step_line3} || {step_lineM} on {card}", flush=True)
     del umapsM, egosM, plansM, XM, uextM, gotM, wantM, aloneM, worldM
 
     # 10. the Monte-Carlo path: monte_carlo(impl="fast") at B=8192, N=50.  It
-    # launches K4 once and K3 once per LM iteration, and never K1 or K2.
+    # launches K4 once and the step kernel once per LM iteration, and never
+    # K1, K2 or K3.
     def mc_fast(s):
         return mc.monte_carlo(p, cp, prior, geom, origin_xy, origin_yaw, plan, n, s, obstacles,
                               sigma_hi=SIGMA_HI, impl="fast", band_plan=band_plan)
 
-    lm_cuda.LAUNCHES = lm_cuda.ITER_LAUNCHES = 0
+    lm_cuda.LAUNCHES = lm_cuda.ITER_LAUNCHES = lm_cuda.STEP_LAUNCHES = 0
     riccati_cuda.LAUNCHES = uncertainty_cuda.LAUNCHES = costmap_cuda.LAUNCHES = 0
     res = mc_fast(samples)
     torch.cuda.synchronize()
     mc_launches = {"uncertainty": uncertainty_cuda.LAUNCHES, "lm_iter": lm_cuda.ITER_LAUNCHES,
-                   "lm": lm_cuda.LAUNCHES, "riccati": riccati_cuda.LAUNCHES,
-                   "costmap": costmap_cuda.LAUNCHES}
+                   "lm_step": lm_cuda.STEP_LAUNCHES, "lm": lm_cuda.LAUNCHES,
+                   "riccati": riccati_cuda.LAUNCHES, "costmap": costmap_cuda.LAUNCHES}
     it_min, it_max = int(res.iterations.min()), int(res.iterations.max())
-    require(mc_launches == {"uncertainty": 1, "lm_iter": it_max, "lm": 0, "riccati": 0,
-                            "costmap": 0},
-            f"MC path launches {mc_launches}, expected K4 once, K3 {it_max} times, K1, K2 and "
-            "the costmap layers kernel never")
+    require(mc_launches == {"uncertainty": 1, "lm_iter": 0, "lm_step": it_max, "lm": 0,
+                            "riccati": 0, "costmap": 0},
+            f"MC path launches {mc_launches}, expected K4 once, the step kernel {it_max} times, "
+            "K1, K2, K3 and the costmap layers kernel never")
     require("hybrid" in loop_kinds(MC_B), f"MC path: the graphed loops are {loop_kinds()}")
     require(bool(torch.isfinite(res.X).all() and torch.isfinite(res.U).all()),
             "non-finite X/U on the MC path")
@@ -3474,8 +3477,8 @@ def main() -> None:
           f"monte_carlo(impl='reference'): {mc_line} | {mc_ms:.3f} ms/call = "
           f"{MC_B / mc_ms * 1e3:.0f} scenarios/s on {card}", flush=True)
     print(f"[10 profile] B={MC_B}: " + profile_lines(
-        lambda: mc_fast(samples), reps=2, kernels={"K4": "propagate_kernel", "K3": "lm_iter_kernel"},
-        annotation="uncertainty_sample_batched"), flush=True)
+        lambda: mc_fast(samples), reps=2,
+        kernels={"K4": "propagate_kernel", "step": "lm_step_kernel"}), flush=True)
 
     del res, samples, prior, prior64
 
@@ -3793,7 +3796,8 @@ def main() -> None:
 
     # 13. the full-stack path: closed_loop_full_stack_batched at B=8192,
     # 5 cycles.  Per cycle it launches the layers kernel once, K5 once, K4
-    # once and K3 once per LM iteration of the slowest lane; never K1 or K2.
+    # once and the step kernel once per LM iteration of the slowest lane;
+    # never K1, K2 or K3.
     fs_draws = torch.randn((FS_CYCLES, FS_B, 3), dtype=torch.float32, device=dev,
                            generator=torch.Generator(device=dev).manual_seed(12))
 
@@ -3812,14 +3816,16 @@ def main() -> None:
 
     def zero_counts():
         lm_cuda.LAUNCHES = lm_cuda.ITER_LAUNCHES = costmap_cuda.LAUNCHES = 0
+        lm_cuda.STEP_LAUNCHES = lm_cuda.LANE_LAUNCHES = 0
         riccati_cuda.LAUNCHES = uncertainty_cuda.LAUNCHES = sample_cuda.LAUNCHES = 0
         cost_cuda.LAUNCHES = 0
 
     def read_counts():
         return {"costmap": costmap_cuda.LAUNCHES, "sample": sample_cuda.LAUNCHES,
                 "uncertainty": uncertainty_cuda.LAUNCHES,
-                "lm_iter": lm_cuda.ITER_LAUNCHES, "lm": lm_cuda.LAUNCHES,
-                "riccati": riccati_cuda.LAUNCHES, "cost": cost_cuda.LAUNCHES}
+                "lm_iter": lm_cuda.ITER_LAUNCHES, "lm_step": lm_cuda.STEP_LAUNCHES,
+                "lm": lm_cuda.LAUNCHES, "riccati": riccati_cuda.LAUNCHES,
+                "cost": cost_cuda.LAUNCHES}
 
     fs_lines = []
     for label, gm in (("all-zero map", gmap_zero), ("random map", gmap)):
@@ -3831,10 +3837,11 @@ def main() -> None:
         fs_peak = torch.cuda.max_memory_allocated() / 1e9
         it_max = [int(v) for v in rec["iterations"].amax(dim=1)]
         require(fs_launches == {"costmap": FS_CYCLES, "sample": FS_CYCLES,
-                                "uncertainty": FS_CYCLES, "lm_iter": sum(it_max), "lm": 0,
-                                "riccati": 0, "cost": 0},
+                                "uncertainty": FS_CYCLES, "lm_iter": 0, "lm_step": sum(it_max),
+                                "lm": 0, "riccati": 0, "cost": 0},
                 f"full-stack launches {fs_launches} on the {label}, expected the layers kernel, "
-                f"K5 and K4 once per cycle, K3 {it_max} per cycle, K1 and K2 never")
+                f"K5 and K4 once per cycle, the step kernel {it_max} per cycle, K1, K2 and K3 "
+                f"never")
         require("hybrid" in loop_kinds(FS_B), f"full stack: the graphed loops are {loop_kinds()}")
         require(all(bool(torch.isfinite(v.float()).all()) for v in rec.values())
                 and bool(torch.isfinite(xf).all()), f"non-finite record on the {label}")
@@ -3851,7 +3858,7 @@ def main() -> None:
         fs_ms = cuda_ms(lambda: full_stack(gm, x0s, fs_draws), 2)
         mean_it = [round(float(v), 2) for v in rec["iterations"].float().mean(dim=1)]
         fs_lines.append(
-            f"{label}: launches {fs_launches} (K3 per cycle {it_max}) | mean iterations per cycle "
+            f"{label}: launches {fs_launches} (steps per cycle {it_max}) | mean iterations per cycle "
             f"{mean_it} | uncertainty_max up to {float(rec['uncertainty_max'].max()):.1f} | "
             f"collisions {int(rec['collided'].sum())} | mean advance {progress:.2f} m | "
             f"{fs_ms:.3f} ms/call = {FS_CYCLES * FS_B / fs_ms * 1e3:.0f} cycles/s | peak memory "
@@ -3890,16 +3897,16 @@ def main() -> None:
         sub_launches, got_c, line = hold_loop(f"full-stack, {label}", captured(gm), x0s[:L],
                                               fs_draws[:cycles, :L], (zero_counts, read_counts))
         require(sub_launches == {"costmap": cycles, "sample": cycles, "uncertainty": cycles,
-                                 "lm": 0, "riccati": 0, "cost": 0,
-                                 "lm_iter": sum(int(g[2].max()) for g in got_c)},
+                                 "lm": 0, "riccati": 0, "cost": 0, "lm_iter": 0,
+                                 "lm_step": sum(int(g[2].max()) for g in got_c)},
                 f"the {L}-lane run launched {sub_launches}")
         print(f"[13 lanes] {label}, first {L} lanes vs the loop on the plain versions: {line}",
               flush=True)
     del got_c
     print(f"[13 profile] B={FS_B}: " + profile_lines(
         lambda: full_stack(gmap, x0s, fs_draws), reps=1,
-        kernels={"K5": "sample_kernel", "K4": "propagate_kernel", "K3": "lm_iter_kernel"},
-        annotation="uncertainty_sample_batched"), flush=True)
+        kernels={"K5": "sample_kernel", "K4": "propagate_kernel", "step": "lm_step_kernel"}),
+        flush=True)
 
     # closed_loop_batched: one shared map, K1 once per cycle, the JAX
     # benchmark's 10 cycles at B=32768
@@ -3916,7 +3923,7 @@ def main() -> None:
     torch.cuda.synchronize()
     cl_launches = read_counts()
     require(cl_launches == {"costmap": 0, "sample": 0, "uncertainty": 0, "lm_iter": 0,
-                            "lm": CL_CYCLES, "riccati": 0, "cost": 0},
+                            "lm_step": 0, "lm": CL_CYCLES, "riccati": 0, "cost": 0},
             f"closed_loop_batched launches {cl_launches}")
     require(bool(torch.isfinite(xf_cl).all()) and bool(torch.isfinite(rec_cl["J"]).all())
             and 1 <= int(rec_cl["iterations"].min())
@@ -4003,7 +4010,7 @@ def main() -> None:
 
     # 15. the experiment layer: the CLI's run, compare and sweep
     exp_launches, exp_algos = experiment_layer(card, (zero_counts, read_counts), dev)
-    for name in ("lm", "riccati", "lm_iter", "uncertainty", "sample", "costmap"):
+    for name in ("lm", "riccati", "lm_step", "uncertainty", "sample", "costmap"):
         kernels[name]["experiment_launches"] = {cmd: c[name] for cmd, c in exp_launches.items()}
         kernels[name]["experiment_launches_by_algorithm"] = {
             cmd: {a: v["launches"][name] for a, v in by.items() if v["launches"][name]}
@@ -4013,14 +4020,14 @@ def main() -> None:
     # campaign, dry run) and the pscan option at B=1
     so = scale_out(card, (zero_counts, read_counts), dev)
     kernels["lm"]["sharded_solve_launches_by_shards"] = so["solve"]
-    for name in ("uncertainty", "lm_iter"):
+    for name in ("uncertainty", "lm_step"):
         kernels[name]["sharded_mc_launches_by_shards"] = {k: v[name] for k, v in so["mc"].items()}
-    for name in ("sample", "uncertainty", "lm_iter", "costmap"):
+    for name in ("sample", "uncertainty", "lm_step", "costmap"):
         kernels[name]["sharded_full_stack_launches"] = so["full_stack"][name]
 
     # 17. the benchmark driver at its defaults, and its trace
-    bench, bench_line = benchmark_phase(card, (zero_counts, read_counts), dev, main_mean_it)
-    for name in ("lm", "riccati", "lm_iter", "uncertainty", "sample", "costmap"):
+    bench, _ = benchmark_phase(card, (zero_counts, read_counts), dev, main_mean_it)
+    for name in ("lm", "riccati", "lm_step", "uncertainty", "sample", "costmap"):
         kernels[name]["benchmark_launches"] = {
             section: launches[name] for section, launches in bench.items() if launches[name]}
 
@@ -4029,7 +4036,7 @@ def main() -> None:
 
     # 19. the JAX package's programs on the port, cut small
     script_launches = scripts_phase(card, (zero_counts, read_counts), dev)
-    for name in ("lm_iter", "uncertainty", "sample", "costmap"):
+    for name in ("lm_step", "uncertainty", "sample", "costmap"):
         kernels[name]["scripts_launches"] = {k: v[name] for k, v in script_launches.items()}
 
     # 20. the hybrid (K3) and two-phase (K2) LM loops as CUDA graphs against
@@ -4040,38 +4047,26 @@ def main() -> None:
                                   sigma_hi=SIGMA_HI, device=dev)
     counts = (zero_counts, read_counts)
     loops = {
-        "mc": loop_path(f"monte_carlo B={MC_B}", lambda: mc_fast(samples), counts, card, "hybrid",
-                        slope=(lambda a: mc_fast(mc.MCSample(*a)), lambda i: (
-                            samples.sigmas * (1.0 + 1e-7 * (i + 1)), samples.egos), MC_B, 4)),
-        "full_stack": loop_path(
-            f"full stack B={FS_B} x {FS_CYCLES} cycles", lambda: full_stack(gmap, x0s, fs_draws),
-            counts, card, "hybrid", slope=(lambda x: full_stack(gmap_zero, x, fs_draws),
-                                           lambda i: x0s + 1e-5 * (i + 1), FS_CYCLES * FS_B, 3)),
+        "mc": loop_path(f"monte_carlo B={MC_B}", lambda: mc_fast(samples), counts, card, "hybrid"),
+        "full_stack": loop_path(f"full stack B={FS_B} x {FS_CYCLES} cycles",
+                                lambda: full_stack(gmap, x0s, fs_draws), counts, card, "hybrid"),
         "two_phase": loop_path(f"two_phase B={K2_CHECK_B}", lambda: solver_batched.run_steps_batched(
             p, plan, n, e4, u4, obstacles, unc, impl="two_phase"), counts, card, "two_phase"),
     }
     loops["compare"] = compare_loops(card, counts, dev)
-    bench_rates = {k: bench_line[k] for k in ("mc_scenarios_per_sec", "full_stack_cycles_per_sec")}
-    print(f"[20 bench] phase 17's bench (graphed loops): {json.dumps(bench_rates)} | this phase's "
-          f"slope (the benchmark's method, same call) graphed / eager: mc_scenarios_per_sec "
-          f"{loops['mc']['rate']['graphed']:.1f} / {loops['mc']['rate']['eager']:.1f}, "
-          f"full_stack_cycles_per_sec {loops['full_stack']['rate']['graphed']:.1f} / "
-          f"{loops['full_stack']['rate']['eager']:.1f} on {card}", flush=True)
     # the condition's runs on this slice's path: the hybrid loop of the
     # Monte-Carlo path on the device loop (counts zeroed just before it)
     condition["launches"] = loops["mc"]["condition_runs"]
     condition["path"] = "monte_carlo(impl='fast') on the device loop, phase 20"
     condition["device_loop_runs"] = {k: v["condition_runs"] for k, v in loops.items()
                                      if "condition_runs" in v}
-    for name, paths in (("lm_iter", {"mc": loops["mc"]["streams"],
+    for name, paths in (("lm_step", {"mc": loops["mc"]["streams"],
                                      "full_stack": loops["full_stack"]["streams"],
                                      "compare_cilqr": loops["compare"]["streams"]["cilqr"]}),
                         ("riccati", {"two_phase": loops["two_phase"]["streams"],
                                      "compare_ccnmpc": loops["compare"]["streams"]["ccnmpc"]})):
-        kernels[name]["graphed_loops"] = {k: dict(
-            B=v["B"], kernels_per_replay=v["kernels_per_replay"],
-            ms_per_replay=v["replay_ms"][solver.STREAMS], ms_per_replay_one_stream=v["replay_ms"][1])
-            for k, v in paths.items()}
+        kernels[name]["graphed_loops"] = {k: dict(B=v["B"], kernels_per_replay=v["kernels_per_replay"])
+                                          for k, v in paths.items()}
     print(f"[20 done] phase 20 took {time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
 
     # 21. the K1 solve and the closed loops' stages as CUDA graphs against
@@ -4102,14 +4097,10 @@ def main() -> None:
     for k, want in want21.items():
         got = {name: stages[k]["launches"][name] for name in want}
         require(got == want, f"phase 21 {k}: launches {stages[k]['launches']}, expected {want}")
-    kernels["lm"]["graphed_solve"] = {k: dict(
-        graphed_ms=stages[k]["graphed_ms"], eager_ms=stages[k]["eager_ms"],
-        kernels_per_replay=stages[k]["kernels_per_replay"]) for k in ("mega_b1", "mega",
-                                                                      "closed_loop")}
+    kernels["lm"]["graphed_solve"] = {k: stages[k]["kernels_per_replay"]
+                                      for k in ("mega_b1", "mega", "closed_loop")}
     for name, k in (("uncertainty", "mc"), ("sample", "full_stack"), ("costmap", "full_stack")):
-        kernels[name]["graphed_stages"] = dict(
-            graphed_ms=stages[k]["graphed_ms"], eager_ms=stages[k]["eager_ms"],
-            kernels_per_replay=stages[k]["kernels_per_replay"])
+        kernels[name]["graphed_stages"] = stages[k]["kernels_per_replay"]
     del egos_m, U0_m, egos_cl, cl_draws
     print(f"[21 done] phase 21 took {time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
 
@@ -4129,11 +4120,13 @@ def main() -> None:
         "inside lm_opt: its device functions riccati_backward_step and rollout_step run "
         "in K1, so impl='mega' does not launch it on its own")
     kernels["riccati"]["two_phase_launches"] = two_phase_launches
+    kernels["lm_step"]["launches"] = mc_launches["lm_step"]
     kernels["lm_iter"]["launches"] = mc_launches["lm_iter"]
     kernels["uncertainty"]["launches"] = mc_launches["uncertainty"]
-    for name in ("lm_iter", "uncertainty"):
+    for name in ("lm_step", "uncertainty"):
         kernels[name]["path"] = "monte_carlo(impl='fast'), phase 10"
         kernels[name]["full_stack_launches"] = fs_launches[name]
+    kernels["lm_iter"]["path"] = "phase 9's comparisons and the bare-sampler route"
     kernels["lm"]["path"] = "run_steps_batched(impl='mega'), phase 5"
     kernels["lm"]["closed_loop_batched_launches"] = cl_launches["lm"]
     kernels["sample"]["launches"] = fs_launches["sample"]
@@ -4146,7 +4139,8 @@ def main() -> None:
             "jax or the JAX package was imported")
     print(f"[done] {time.perf_counter() - t_script:.1f} s, the build included", flush=True)
     kernels["lm_continue"] = condition
-    print(json.dumps({"kernels": [kernels[k] for k in ("lm", "riccati", "lm_iter", "uncertainty",
+    print(json.dumps({"kernels": [kernels[k] for k in ("lm", "riccati", "lm_iter", "lm_step",
+                                                       "uncertainty",
                                                        "sample", "costmap", "opchain",
                                                        "lm_continue", "cost_derivs")]}))
     print(card_line())

@@ -1,5 +1,6 @@
 // The whole Levenberg-Marquardt CILQR loop per scenario, in one kernel (K1),
-// and one LM iteration per scenario (K3).
+// one LM iteration per scenario (K3), and the hybrid loop's whole LM step
+// over the lanes still running (lm_lanes_kernel, then lm_step_kernel).
 //
 // K1 replaces the TPU kernel cilqr_tpu/ops/lm_pallas.py `_opt_kernel`
 // (:682), launched by `_fused_optimize_call` (:860) from `fused_optimize`
@@ -74,6 +75,16 @@
 //    is computed.  Accepting a proposal swaps two pointers.  A row of the
 //    obstacle payload whose mask is 0 is passed over.
 //
+//  * The hybrid loop's step (one uncertainty map per scenario: MC and the
+//    full stack).  K3 left the map sample (~40-80 PyTorch kernels), the
+//    layout copies and lm_step's masks (~12 kernels) around it, all over
+//    every lane, done or not.  The step kernel samples each lane's own map
+//    in place of the external planes, runs K3's run_iteration and applies
+//    lm_step's update to the loop's state in place (K1's lm_update).  Its
+//    blocks take lanes from a list of the lanes still running, which a
+//    one-block pass over `done` writes first, in lane order: a step's work
+//    follows the lanes still running, and a block past the count leaves.
+//
 // Numerics: the sample table and the tournament distance are built with
 // explicitly rounded operations (no FMA contraction), so they reproduce the
 // plain version's sequence of roundings and pick the same winners.  The rest
@@ -112,10 +123,16 @@ struct Ctx {
   unsigned mask;      // the group's lanes
   const float* tab;   // shared: [kTableComps][S][32 / G], at this scenario's slot
   const float* obs;   // [M*6][N]
-  const float* map;   // [H][W]
-  const float* scl;   // [16]
+  const float* map;   // [H][W]: K1's shared map; the step kernel's: this lane's own
+  const float* scl;   // [16]: K1's map-frame scalars; the step kernel's: this lane's geometry row
   const float* uext;  // [N][3][B] external (e, gx, gy) planes (K3; null in K1)
 };
+
+// Where step_derivs takes the uncertainty sample from: K1's shared map
+// (when cfg.has_unc), K3's external planes, or the lane's own map (the step
+// kernel), sampled with explicitly rounded operations.
+constexpr int kUncShared = 0, kUncExt = 1, kUncLane = 2;
+constexpr int kGeoRow = 16;  // floats of a lane's geometry row (lm_cuda.prep_lane_maps)
 
 // The group's lanes and this lane's place in it.
 template <int G>
@@ -138,9 +155,57 @@ __device__ __forceinline__ void group_sync(const Ctx& cx) {
 
 // Bilinear costmap sample + global-frame gradient of c = val/100
 // (models/uncertainty.py semantics): (e, gx, gy), e = 0 outside the map.
-__device__ void unc_sample(const Ctx& cx, float x0, float x1, float& e, float& gx, float& gy) {
+// kRounded (the step kernel, one map per lane): every operation explicitly
+// rounded, in the order of the plain version as PyTorch runs it on the card
+// (uncertainty_sample_batched: _to_map_frame, sample_bilinear_with_grad_batched,
+// _barrier_sample), from the lane's geometry row [origin_x, origin_y, cos
+// yaw, sin yaw, first_x, first_y, res, lo_x, hi_x, lo_y, hi_y, -1/res]
+// computed by PyTorch as the plain version computes them: the cell index
+// divides by the resolution as the plain version does, and the two divisions
+// by 100 are products with float(1 / 100), which is what PyTorch's CUDA
+// division by a Python scalar computes.  So the frame, the `inside` test and
+// the cell come out as in the plain version, ties at cell edges included.
+// `cell` (when given) receives i0 * W + j0.  Else (K1) the arithmetic of the
+// shared-map sampler, from K1's scalars (s[6] = 1/res), may contract.
+template <bool kRounded>
+__device__ void unc_sample(const Ctx& cx, float x0, float x1, float& e, float& gx, float& gy,
+                           int* cell = nullptr) {
   const LMConfig& c = cx.c;
   const float* s = cx.scl;
+  if constexpr (kRounded) {
+    const float ox = s[0], oy = s[1], cy = s[2], sy = s[3];
+    const float fx0 = s[4], fy0 = s[5], res = s[6], inv = s[11];
+    const float d0 = sub(x0, ox);
+    const float d1 = sub(x1, oy);
+    const float lx = add(mul(cy, d0), mul(sy, d1));
+    const float ly = add(mul(-sy, d0), mul(cy, d1));
+    const bool inside = (lx >= s[7]) && (lx <= s[8]) && (ly >= s[9]) && (ly <= s[10]);
+    const float fi = clampf(__fdiv_rn(sub(fx0, lx), res), 0.0f, (float)(c.H - 1));
+    const float fj = clampf(__fdiv_rn(sub(fy0, ly), res), 0.0f, (float)(c.W - 1));
+    const float i0 = clampf(floorf(fi), 0.0f, (float)(c.H - 2));
+    const float j0 = clampf(floorf(fj), 0.0f, (float)(c.W - 2));
+    const float ti = sub(fi, i0);
+    const float tj = sub(fj, j0);
+    const int base = (int)i0 * c.W + (int)j0;
+    if (cell) *cell = base;
+    const float v00 = cx.map[base];
+    const float v01 = cx.map[base + 1];
+    const float v10 = cx.map[base + c.W];
+    const float v11 = cx.map[base + c.W + 1];
+    const float ri = sub(1.0f, ti), rj = sub(1.0f, tj);
+    const float v0 = add(mul(v00, rj), mul(v01, tj));
+    const float v1 = add(mul(v10, rj), mul(v11, tj));
+    const float val = add(mul(v0, ri), mul(v1, ti));
+    const float dv_di = sub(v1, v0);
+    const float dv_dj = add(mul(sub(v01, v00), ri), mul(sub(v11, v10), ti));
+    const float hundredth = 1.0f / 100.0f;
+    const float gci = mul(mul(dv_di, inv), hundredth);
+    const float gcj = mul(mul(dv_dj, inv), hundredth);
+    gx = sub(mul(cy, gci), mul(sy, gcj));
+    gy = add(mul(sy, gci), mul(cy, gcj));
+    e = inside ? mul(c.q1u, expf(mul(c.q2u, mul(val, hundredth)))) : 0.0f;
+    return;
+  }
   const float ox = s[0], oy = s[1], cyw = s[2], syw = s[3];
   const float fx0 = s[4], fy0 = s[5], ir = s[6];
   const float lox = s[7], hix = s[8], loy = s[9], hiy = s[10];
@@ -182,9 +247,10 @@ struct StepDerivs {
 };
 
 // Cost derivatives and the J term at step j of trajectory (X, U)
-// (costs.all_cost_derivs_and_J for one step).  kExt: the uncertainty sample
-// comes from the external planes; K1 compiles that branch out.
-template <int G, bool kExt>
+// (costs.all_cost_derivs_and_J for one step).  kUnc: where the uncertainty
+// sample comes from (kUncShared, kUncExt, kUncLane); each kernel compiles the
+// other branches out.
+template <int G, int kUnc>
 __device__ StepDerivs step_derivs(const Ctx& cx, const float x[4], const float u[2], int j) {
   const LMConfig& c = cx.c;
   const int B = cx.stride, b = cx.col, N = c.N;
@@ -235,14 +301,14 @@ __device__ StepDerivs step_derivs(const Ctx& cx, const float x[4], const float u
       }
     }
   }
-  if (kExt || c.has_unc) {
+  if (kUnc != kUncShared || c.has_unc) {
     float e, gx, gy;
-    if (kExt) {
+    if constexpr (kUnc == kUncExt) {
       e = cx.uext[at(j, 0, 3, B, b)];
       gx = cx.uext[at(j, 1, 3, B, b)];
       gy = cx.uext[at(j, 2, 3, B, b)];
     } else {
-      unc_sample(cx, x0, x1, e, gx, gy);
+      unc_sample<kUnc == kUncLane>(cx, x0, x1, e, gx, gy);
     }
     uncertainty_terms(c, e, gx, gy, o.lx, s00, s01, s11);
   }
@@ -263,7 +329,7 @@ __device__ StepDerivs step_derivs(const Ctx& cx, const float x[4], const float u
 // loops load the next step's values while they compute the current one:
 // a scenario's steps are one dependent chain, and a load from device
 // memory in it would be waited for in full.
-template <int G, bool kExt>
+template <int G, int kUnc>
 __device__ float run_iteration(const Ctx& cx, const float* X, const float* U, float lamb,
                                float* Xp, float* Up, float* k, float* K) {
   const LMConfig& c = cx.c;
@@ -283,7 +349,7 @@ __device__ float run_iteration(const Ctx& cx, const float* X, const float* U, fl
 
   // V seeded from the running cost at step N-1, with a zero yaw row and
   // column; that step re-enters the recursion at j = N-1 (iLQR.cpp:108-113)
-  StepDerivs d = step_derivs<G, kExt>(cx, xj, uj, N - 1);
+  StepDerivs d = step_derivs<G, kUnc>(cx, xj, uj, N - 1);
   float Vx[4] = {d.lx[0], d.lx[1], d.lx[2], 0.0f};
   float Vxx[16] = {d.lxx[0], d.lxx[1], 0.0f, 0.0f,
                    d.lxx[1], d.lxx[2], 0.0f, 0.0f,
@@ -322,7 +388,7 @@ __device__ float run_iteration(const Ctx& cx, const float* X, const float* U, fl
     for (int i = 0; i < 4; ++i) xj[i] = xn[i];
     uj[0] = un[0];
     uj[1] = un[1];
-    d = step_derivs<G, kExt>(cx, xj, uj, j - 1);
+    d = step_derivs<G, kUnc>(cx, xj, uj, j - 1);
   }
   group_sync<G>(cx);
 
@@ -367,6 +433,24 @@ __device__ float run_iteration(const Ctx& cx, const float* X, const float* U, fl
   }
   group_sync<G>(cx);
   return Jacc;
+}
+
+// The LM update after an iteration of J_new (iLQR.cpp:211-239, solver.lm_step
+// for a lane still running): accept on J_new < J_old; lambda times the
+// rounded 1 / lamb_factor on accept (the JAX package's step: XLA turns
+// lamb / lamb_factor into a product with the rounded reciprocal, and the
+// abort test sits on that bit), times lamb_factor on reject; J_old, lambda
+// and the count advance.  Returns the stop (on accept |J_new - J_old| < tol,
+// on reject lambda > lamb_max), the cap of iterations left to the caller.
+__device__ __forceinline__ bool lm_update(const LMConfig& cfg, float J_new, float& J_old,
+                                          float& lamb, int& it, bool& accept) {
+  accept = J_new < J_old;
+  const float lamb_n = accept ? mul(lamb, cfg.lamb_inv) : mul(lamb, cfg.lamb_factor);
+  const bool stop = accept ? (fabsf(J_new - J_old) < cfg.tol) : (lamb_n > cfg.lamb_max);
+  J_old = J_new;
+  lamb = lamb_n;
+  ++it;
+  return stop;
 }
 
 // The block's (one warp's) tables [kTableComps][S][32 / G] in dynamic shared
@@ -471,19 +555,13 @@ __global__ void lm_opt_kernel(LMConfig cfg,
     // one LM iteration, in the order accept -> trajectory merge -> lambda ->
     // stop; none at all with max_iterations = 0 (the same in every lane)
     if (it < cfg.max_iterations) {
-      const float J_new = run_iteration<G, false>(cx, Xc, Uc, lamb, Xn, Un, k, K);
-      const bool accept = J_new < J_old;
+      const float J_new = run_iteration<G, kUncShared>(cx, Xc, Uc, lamb, Xn, Un, k, K);
+      bool accept;
+      bool done = lm_update(cfg, J_new, J_old, lamb, it, accept);
       if (accept) {
         float* t = Xc; Xc = Xn; Xn = t;
         t = Uc; Uc = Un; Un = t;
       }
-      // the JAX package's step: XLA turns lamb / lamb_factor into a product
-      // with the rounded reciprocal, and the abort test sits on that bit
-      const float lamb_n = accept ? mul(lamb, cfg.lamb_inv) : mul(lamb, cfg.lamb_factor);
-      bool done = accept ? (fabsf(J_new - J_old) < cfg.tol) : (lamb_n > cfg.lamb_max);
-      J_old = J_new;
-      lamb = lamb_n;
-      ++it;
       done = done || it >= cfg.max_iterations;
       if constexpr (G > 1) done = __shfl_sync(ln.mask, (int)done, ln.lead) != 0;
       if (!done) continue;
@@ -555,8 +633,152 @@ __global__ void lm_iter_kernel(LMConfig cfg,
   if (b >= B) return;
 
   const Ctx cx{cfg, f, B, b, ln.g, ln.lead, ln.mask, wtab + ln.slot, obs, nullptr, nullptr, uext};
-  const float Jb = run_iteration<G, true>(cx, X, U, lamb[b], Xn, Un, k, K);
+  const float Jb = run_iteration<G, kUncExt>(cx, X, U, lamb[b], Xn, Un, k, K);
   if (ln.g == 0) J[b] = Jb;
+}
+
+// The lanes still running: lanes[0 .. n) = the b with !done[b], in lane
+// order, *count = n, and *total += n when total is given (the lanes the
+// step runs, summed on the card).  One block of kListThreads: thread t
+// takes a run of neighbouring lanes, a block-wide scan of the runs' counts
+// gives each its place.  What bounds it: the launch (B bytes in, 4n out).
+constexpr int kListThreads = 1024;
+
+__global__ void lm_lanes_kernel(const bool* __restrict__ done, int B, int* __restrict__ lanes,
+                                int* __restrict__ count, long long* __restrict__ total) {
+  __shared__ int warp_sum[kListThreads / 32];
+  const int t = threadIdx.x, lane = t & 31, w = t >> 5;
+  const int run = (B + kListThreads - 1) / kListThreads;
+  const int lo = min(t * run, B), hi = min(lo + run, B);
+  int mine = 0;
+  for (int b = lo; b < hi; ++b) mine += !done[b];
+  int incl = mine;  // inclusive scan over the warp, then over the warps' sums
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int v = __shfl_up_sync(0xffffffffu, incl, o);
+    if (lane >= o) incl += v;
+  }
+  if (lane == 31) warp_sum[w] = incl;
+  __syncthreads();
+  if (w == 0) {
+    int v = warp_sum[lane];
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int u = __shfl_up_sync(0xffffffffu, v, o);
+      if (lane >= o) v += u;
+    }
+    warp_sum[lane] = v;
+  }
+  __syncthreads();
+  int pos = (w > 0 ? warp_sum[w - 1] : 0) + incl - mine;
+  for (int b = lo; b < hi; ++b)
+    if (!done[b]) lanes[pos++] = b;
+  if (t == kListThreads - 1) {
+    const int n = warp_sum[kListThreads / 32 - 1];
+    *count = n;
+    if (total) *total += n;
+  }
+}
+
+// One LM step of the hybrid loop per lane still running (the step kernel):
+// the lane's own map sampled at its states (kUncLane), the iteration (K3's
+// run_iteration), then solver.lm_step's update in place: X and U take the
+// proposal on accept; J_old, lambda, the count and done advance.  Slot q of
+// the lane list (lm_lanes_kernel) is lane lanes[q]; a block takes slots
+// blockIdx.x * T .. + T - 1, and a block past the count returns at once.
+// A lane's result depends on neither its slot nor G.  The loop's state is
+// batch-major ([B][N+1][4], [B][N][2]) and stays so: each lane reads and
+// writes its own rows (stride 1); the proposal and the gains go to scratch
+// rows of the slot.  No k or K leaves the kernel.
+template <int G>
+__global__ void lm_step_kernel(LMConfig cfg,
+                               const float* __restrict__ fit,    // [ncoef+10][B]
+                               const float* __restrict__ sxy,    // [S][2][B]
+                               const float* __restrict__ maps,   // [B][H][W]
+                               const float* __restrict__ geo,    // [B][kGeoRow]
+                               const float* __restrict__ obs,    // [M*6][N]
+                               const int* __restrict__ lanes,    // [B], the first *count valid
+                               const int* __restrict__ count,    // [1]
+                               float* __restrict__ X,            // [B][N+1][4]
+                               float* __restrict__ U,            // [B][N][2]
+                               float* __restrict__ lamb,         // [B]
+                               float* __restrict__ J_old,        // [B]
+                               int* __restrict__ it,             // [B]
+                               bool* __restrict__ done,          // [B]
+                               float* __restrict__ Xp,           // [B][N+1][4] scratch by slot
+                               float* __restrict__ Up,           // [B][N][2]
+                               float* __restrict__ k,            // [B][N][2]
+                               float* __restrict__ K) {          // [B][N][8]
+  constexpr int T = 32 / G;
+  const Lanes<G> ln;
+  const int B = cfg.B, N = cfg.N, S = cfg.S;
+  const int n = *count;
+  const int q0 = blockIdx.x * T;
+  if (q0 >= n) return;
+  const int q = q0 + ln.slot;
+  const bool live = q < n;
+
+  // Stage rows (s, c) of the warp's T lanes into [c][s][T]: thread i copies
+  // column i % T (32 is a multiple of T), 4 bytes at a time (the lanes of a
+  // warp need not be neighbours).
+  float* wtab = warp_table();
+  const int col = ln.lane % T;
+  const int bc = q0 + col < n ? lanes[q0 + col] : -1;
+  for (int i = ln.lane; i < kTableComps * S * T; i += 32) {
+    const int row = i / T;
+    const int c = row / S, s = row - c * S;
+    if (bc >= 0) cp_async(wtab + i, sxy + ((size_t)s * kTableComps + c) * B + bc, false);
+  }
+  asm volatile("cp.async.commit_group;" ::: "memory");
+  const int b = live ? lanes[q] : 0;
+  Fit f;
+  if (live) f = read_fit(cfg, fit, b);
+  asm volatile("cp.async.wait_group 0;" ::: "memory");
+  __syncwarp();
+  if (!live) return;
+
+  const Ctx cx{cfg, f, 1, 0, ln.g, ln.lead, ln.mask, wtab + ln.slot, obs,
+               maps + (size_t)b * cfg.H * cfg.W, geo + (size_t)b * kGeoRow, nullptr};
+  const int nx = (N + 1) * 4, nu = N * 2;
+  float* Xb = X + (size_t)b * nx;
+  float* Ub = U + (size_t)b * nu;
+  float* Xq = Xp + (size_t)q * nx;
+  float* Uq = Up + (size_t)q * nu;
+  float lb = lamb[b], Jb = J_old[b];
+  int itb = it[b];
+  const float J_new = run_iteration<G, kUncLane>(cx, Xb, Ub, lb, Xq, Uq, k + (size_t)q * nu,
+                                                 K + (size_t)q * N * 8);
+  bool accept;
+  const bool stop = lm_update(cfg, J_new, Jb, lb, itb, accept);
+  if constexpr (G > 1) accept = __shfl_sync(ln.mask, (int)accept, ln.lead) != 0;
+  if (accept) {  // run_iteration ended on a group sync: lane 0's proposal is visible
+    for (int e = ln.g; e < nx; e += G) Xb[e] = Xq[e];
+    for (int e = ln.g; e < nu; e += G) Ub[e] = Uq[e];
+  }
+  if (ln.g == 0) {
+    J_old[b] = Jb;
+    lamb[b] = lb;
+    it[b] = itb;
+    done[b] = stop;
+  }
+}
+
+// The step kernel's sampler alone (the check against the plain sampler):
+// per lane b and step j < N, [e, gx, gy] of lane b's map at X[b][j] into
+// planes [B][N][3] and the corner cell i0 * W + j0 into cells [B][N].
+__global__ void lm_sampler_kernel(LMConfig cfg, const float* __restrict__ maps,
+                                 const float* __restrict__ geo, const float* __restrict__ X,
+                                 float* __restrict__ planes, int* __restrict__ cells) {
+  const int B = cfg.B, N = cfg.N;
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= B * N) return;
+  const int b = i / N, j = i - b * N;
+  Fit f;
+  const Ctx cx{cfg, f, 1, 0, 0, 0, 1u, nullptr, nullptr, maps + (size_t)b * cfg.H * cfg.W,
+               geo + (size_t)b * kGeoRow, nullptr};
+  const float* x = X + ((size_t)b * (N + 1) + j) * 4;
+  float* out = planes + (size_t)i * 3;
+  unc_sample<true>(cx, x[0], x[1], out[0], out[1], out[2], cells + i);
 }
 
 // Runs f(std::integral_constant<int, G>) for a supported group size.
@@ -626,17 +848,57 @@ extern "C" int cilqr_lm_iter(const LMConfig* cfg, const float* fit, const float*
   });
 }
 
+// The lanes still running (lm_lanes_kernel), one block; total may be null.
+extern "C" int cilqr_lm_lanes(const bool* done, int B, int* lanes, int* count, long long* total,
+                              void* stream) {
+  if (B < 1) return (int)cudaErrorInvalidValue;
+  lm_lanes_kernel<<<1, kListThreads, 0, (cudaStream_t)stream>>>(done, B, lanes, count, total);
+  return (int)cudaGetLastError();
+}
+
+// The step kernel over the lanes of `lanes` / `count` (cilqr_lm_lanes):
+// ceil(B / T) blocks of 32 / G slots, G lanes per slot.
+extern "C" int cilqr_lm_step(const LMConfig* cfg, const float* fit, const float* sxy,
+                             const float* maps, const float* geo, const float* obs,
+                             const int* lanes, const int* count, float* X, float* U, float* lamb,
+                             float* J_old, int* it, bool* done, float* Xp, float* Up, float* k,
+                             float* K, int G, void* stream) {
+  const int smem = table_bytes(G, cfg->S);
+  if (cfg->ncoef > kMaxCoef || !cfg->has_unc || cfg->H < 2 || cfg->W < 2 || smem < 0)
+    return (int)cudaErrorInvalidValue;
+  return with_group(G, [&](auto group) {
+    constexpr int kG = decltype(group)::value;
+    const int rc = opt_in(lm_step_kernel<kG>, smem);
+    if (rc != 0) return rc;
+    constexpr int kT = 32 / kG;
+    lm_step_kernel<kG><<<(cfg->B + kT - 1) / kT, 32, smem, (cudaStream_t)stream>>>(
+        *cfg, fit, sxy, maps, geo, obs, lanes, count, X, U, lamb, J_old, it, done, Xp, Up, k, K);
+    return (int)cudaGetLastError();
+  });
+}
+
+// The step kernel's sampler at every (lane, step < N) of X (lm_sampler_kernel).
+extern "C" int cilqr_lm_sample(const LMConfig* cfg, const float* maps, const float* geo,
+                               const float* X, float* planes, int* cells, void* stream) {
+  if (cfg->H < 2 || cfg->W < 2 || cfg->B < 1) return (int)cudaErrorInvalidValue;
+  const int n = cfg->B * cfg->N;
+  lm_sampler_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(*cfg, maps, geo, X, planes,
+                                                                      cells);
+  return (int)cudaGetLastError();
+}
+
 // What the compiler and the card give one instantiation:
 // out = [registers per thread, local-memory bytes per thread, shared-memory
 // bytes per block, resident blocks per SM, SMs of the current device].
-// whole_loop: K1, else K3.
-extern "C" int cilqr_lm_resources(int whole_loop, int G, int S, int* out) {
+// kernel: 0 K3 (lm_iter_kernel), 1 K1 (lm_opt_kernel), 2 the step kernel.
+extern "C" int cilqr_lm_resources(int kernel_id, int G, int S, int* out) {
   const int smem = table_bytes(G, S);
-  if (smem < 0) return (int)cudaErrorInvalidValue;
+  if (smem < 0 || kernel_id < 0 || kernel_id > 2) return (int)cudaErrorInvalidValue;
   return with_group(G, [&](auto group) {
     constexpr int kG = decltype(group)::value;
-    const void* kernel = whole_loop ? (const void*)lm_opt_kernel<kG>
-                                    : (const void*)lm_iter_kernel<kG>;
+    const void* kernel = kernel_id == 1   ? (const void*)lm_opt_kernel<kG>
+                         : kernel_id == 2 ? (const void*)lm_step_kernel<kG>
+                                          : (const void*)lm_iter_kernel<kG>;
     cudaFuncAttributes attr;
     int rc = (int)cudaFuncGetAttributes(&attr, kernel);
     if (rc != 0) return rc;

@@ -55,8 +55,9 @@ CAPTURED = graphs.GraphCache(kept=8)
 
 class Iteration(NamedTuple):
     """An LM iteration as ``optimize`` can replay it: ``build(p, plan,
-    *world)`` -> the iteration (X, U, lamb) -> (X_new, U_new, J), which
-    reads nothing but ``plan`` and ``world``.  ``world``'s leaves (through
+    *world)`` -> the iteration (X, U, lamb) -> (X_new, U_new, J), or an
+    object with an LM step of its own (``step``), which reads nothing but
+    ``plan`` and ``world``.  ``world``'s leaves (through
     tuples, NamedTuples, lists) are tensors, which a capture copies, and
     hashable constants, which key it."""
 
@@ -174,11 +175,14 @@ def plain_iteration(p: SolverParams, plan: LocalPlan, obstacles=None, unc_map=No
 
 def start_state(p: SolverParams, x0: torch.Tensor, U_init: torch.Tensor) -> tuple:
     """The LM loop's state before its first iteration: (X, U, lamb, J_old,
-    it, done), X the rollout of U_init from x0."""
-    X = dynamics.rollout(p, x0, U_init)
+    it, done), X the rollout of U_init from x0.  Every tensor is dense and
+    its own (U a copy of U_init): a step may update the state in place (the
+    hybrid loop's step kernel, ``ops.lm_cuda.fused_step``)."""
+    X = dynamics.rollout(p, x0, U_init).contiguous()
     batch = U_init.shape[:-2]
     kw = dict(dtype=X.dtype, device=X.device)
-    return (X, U_init, torch.full(batch, p.lamb_init, **kw),
+    return (X, U_init.clone(memory_format=torch.contiguous_format),
+            torch.full(batch, p.lamb_init, **kw),
             torch.full(batch, torch.finfo(X.dtype).max, **kw),
             torch.zeros(batch, dtype=torch.int32, device=X.device),
             torch.zeros(batch, dtype=torch.bool, device=X.device))
@@ -215,6 +219,18 @@ def lm_step(p: SolverParams, iteration, lamb_inv: torch.Tensor, X, U, lamb, J_ol
     return X, U, lamb, J_old, it, done | stop
 
 
+def step(p: SolverParams, iteration, lamb_inv: torch.Tensor, X, U, lamb, J_old, it,
+         done) -> tuple:
+    """One pass of the LM loop: the iteration's own step where it brings one
+    (an ``lm_step(lamb_inv, X, U, lamb, J_old, it, done)`` attribute with
+    ``lm_step``'s result: the hybrid iteration on a map sampler,
+    ``ops.lm_cuda.HybridStep``, one kernel on the card), else ``lm_step``."""
+    own = getattr(iteration, "lm_step", None)
+    if own is None:
+        return lm_step(p, iteration, lamb_inv, X, U, lamb, J_old, it, done)
+    return own(lamb_inv, X, U, lamb, J_old, it, done)
+
+
 def optimize(p: SolverParams, plan: LocalPlan, x0: torch.Tensor, U_init: torch.Tensor,
              obstacles=None, unc_map=None, iteration=None):
     """Levenberg-Marquardt solve (iLQR.cpp:201-245) from x0 (..., 4) and
@@ -223,9 +239,10 @@ def optimize(p: SolverParams, plan: LocalPlan, x0: torch.Tensor, U_init: torch.T
 
     ``iteration`` is one LM iteration: by default ``plain_iteration`` on
     (obstacles, unc_map); the batched paths pass theirs as an ``Iteration``
-    (the hybrid one with K3, the two-phase one with K2), which replaces
+    (the hybrid one with its own step, the two-phase one with K2), which replaces
     obstacles and unc_map; a bare callable (X, U, lamb) -> (X_new, U_new, J)
-    runs eagerly.  Each pass of the loop is ``lm_step``.  The loop ends when
+    runs eagerly.  Each pass of the loop is ``step`` (``lm_step``, or the
+    iteration's own).  The loop ends when
     every lane has stopped, which reads the done mask on the host once per
     iteration.  On the card an ``Iteration`` runs as CUDA graphs
     (``GRAPHS``): the start and the step, captured once per parameters,
@@ -244,7 +261,8 @@ def optimize(p: SolverParams, plan: LocalPlan, x0: torch.Tensor, U_init: torch.T
     for _ in range(p.max_iterations):
         if bool(state[-1].all()):
             break
-        state = lm_step(p, iteration, lamb_inv, *state)
+        state = step(p, iteration, lamb_inv, *state)
+    profiling.device_counters()
     X, U, lamb, J, it, _ = state
     return X, U, it, J, lamb
 
@@ -383,7 +401,7 @@ def _replay(p: SolverParams, leaves: list, spec, args: list) -> tuple:
     with profiling.span("replay.copy_in"):
         g = CAPTURED.load(_key(p, leaves, spec, args), args,
                           lambda inputs: _capture(p, leaves, spec, inputs))
-    start, step = g.graphs
+    start, step_graph = g.graphs
     state, carry = g.out
     with profiling.span("replay.start", device=dev):
         start.replay()
@@ -394,17 +412,22 @@ def _replay(p: SolverParams, leaves: list, spec, args: list) -> tuple:
             out = tuple(t.clone() for t in state), _copied(carry)
         with profiling.span("replay.count", wait=True):
             loop.attach(g.loop.count())
+            profiling.device_counters()
         return out
     for _ in range(p.max_iterations):
         if bool(state[-1].all()):
             break
-        step.replay()
+        step_graph.replay()
+    profiling.device_counters()
     return tuple(t.clone() for t in state), _copied(carry)
 
 
 def _assign(dst: tuple, src: tuple) -> None:
+    """dst's tensors take src's values (a step that updated the state in
+    place returns the same tensors: nothing to copy)."""
     for d, s in zip(dst, src):
-        d.copy_(s)
+        if d is not s:
+            d.copy_(s)
 
 
 def _unflatten(leaves: list, spec, inputs: list):
@@ -446,7 +469,7 @@ def _capture(p: SolverParams, leaves: list, spec, inputs: list) -> tuple:
         dtype = state[0].dtype
         held = (damping_inverse(p, dtype, dev), costs_mod.consts(p, dtype, dev),
                 costs_mod.consts(p, U_init.dtype, dev))
-        lm_step(p, described.build(p, plan, *described.world), held[0], *state)
+        step(p, described.build(p, plan, *described.world), held[0], *state)
 
     def begin():
         x0, U_init, plan, described, carry = before.fn(p, *before.args)
@@ -456,7 +479,7 @@ def _capture(p: SolverParams, leaves: list, spec, inputs: list) -> tuple:
     start = graphs.capture(begin, dev, STREAMS)
     plan, described, carry = start.out
     iteration = described.build(p, plan, *described.world)
-    step = graphs.capture(lambda: _assign(state, lm_step(p, iteration, held[0], *state)), dev,
-                          STREAMS)
-    loop = graphs.Loop(step, state[-1], p.max_iterations) if DEVICE_LOOP else None
-    return (start, step), (state, carry), held, loop
+    step_graph = graphs.capture(lambda: _assign(state, step(p, iteration, held[0], *state)), dev,
+                                STREAMS)
+    loop = graphs.Loop(step_graph, state[-1], p.max_iterations) if DEVICE_LOOP else None
+    return (start, step_graph), (state, carry), held, loop

@@ -5,9 +5,10 @@ same algorithm, each matching ``solver.run_step`` per lane:
 
   impl="mega"       a shared world: the whole LM loop in one kernel
                     (``ops.lm_cuda``, K1); one uncertainty map per scenario
-                    (``world_batched``): the hybrid loop, the map sampled in
-                    PyTorch at each iteration's trajectory and one
-                    LM-iteration kernel (K3) per iteration
+                    (``world_batched``): the hybrid loop, one step kernel
+                    per LM iteration over the lanes still running (each
+                    lane's map sampled in it, then K3's iteration and the
+                    update; ``lm_cuda.fused_step``)
   impl="two_phase"  LM loop here: batched cost derivatives and J (on the
                     card one kernel, ``ops.cost_cuda``; elsewhere plain
                     PyTorch), then the backward + rollout kernel

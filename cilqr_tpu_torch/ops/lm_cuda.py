@@ -1,5 +1,6 @@
-"""The LM solve per scenario in CUDA: kernels K1 (whole loop) and K3 (one
-iteration).
+"""The LM solve per scenario in CUDA: kernels K1 (whole loop), K3 (one
+iteration) and the hybrid loop's step kernel (one LM step over the lanes
+still running).
 
 Port of ``cilqr_tpu/ops/lm_pallas.py``.  K1 (``_opt_kernel`` via
 ``fused_optimize``, the in-kernel-loop form with a shared world)
@@ -31,6 +32,19 @@ by the op ``cilqr_torch::lm_opt`` (``_lm_opt``), K3 only by
 CPU implementations the plain versions, so a stream planner and a CUDA
 graph see each launch as one op.  ``fused_optimize`` reaches K1's op
 through ``_launch`` on the card and directly on the CPU.
+
+The hybrid loop on a ``MapSampler`` brings its own LM step
+(``HybridStep.lm_step``, which ``solver.step`` runs in place of
+``solver.lm_step``): ``fused_step``, on the card one launch of the op
+``cilqr_torch::lm_step``, which runs a one-block pass that lists the lanes
+still running (``lm_lanes_kernel``) and the step kernel over them
+(``lm_step_kernel``: each lane's own map sampled in the kernel, K3's
+iteration, and ``lm_step``'s accept / damping / stop update on the loop's
+state in place).  Its plain version, ``fused_step_plain``, is ``lm_step`` on
+the hybrid iteration of ``fused_iteration_plain`` and the sampler.  The list
+pass sums its counts on the card; the host reads that sum only while
+tracing (``LANES_RUN``, through ``profiling.device_counters``).  A bare
+sampler keeps ``lm_step`` around K3.
 """
 
 from __future__ import annotations
@@ -43,20 +57,32 @@ from typing import NamedTuple
 
 import torch
 
-from cilqr_tpu_torch.utils import graphs
+from cilqr_tpu_torch.utils import build, graphs, profiling
 from cilqr_tpu_torch.utils.params import SolverParams
 from cilqr_tpu_torch.models import costs, solver
 from cilqr_tpu_torch.models import uncertainty as uncertainty_mod
 from cilqr_tpu_torch.models.obstacles import Obstacles
 from cilqr_tpu_torch.models.reference_path import LocalPlan
 from cilqr_tpu_torch.ops import riccati_cuda, route
+from cilqr_tpu_torch.ops import gridmap as gridmap_mod
 from cilqr_tpu_torch.ops.gridmap import GridGeom
 from cilqr_tpu_torch.utils.device import resolve
 
 LAUNCHES = 0  # K1 launches made by fused_optimize
 ITER_LAUNCHES = 0  # K3 launches made by fused_iteration
-graphs.COUNTERS.extend([(sys.modules[__name__], "LAUNCHES"),
-                        (sys.modules[__name__], "ITER_LAUNCHES")])
+LANE_LAUNCHES = 0  # lane-list passes (lm_lanes_kernel), one before each step kernel
+STEP_LAUNCHES = 0  # step-kernel launches (lm_step_kernel) made by fused_step
+graphs.COUNTERS.extend([(sys.modules[__name__], n) for n in (
+    "LAUNCHES", "ITER_LAUNCHES", "LANE_LAUNCHES", "STEP_LAUNCHES")])
+#: lane-steps the step kernel ran in the traced calls (a lane still running
+#: counts once per step): the list passes sum their counts on each card
+#: (``_TOTALS``), zeroed in stream order as each traced entry call begins; the
+#: host adds what a card counted since its last read while tracing
+#: (``profiling.device_counters``), after the host has waited for the card
+LANES_RUN = 0
+profiling.HOST_COUNTERS.append((sys.modules[__name__], "LANES_RUN"))
+_TOTALS: dict = {}  # device -> int64 (1,): the lanes its list passes counted
+_READ: dict = {}    # device -> that sum at its last read
 
 GROUP_SIZES = (1, 8, 32)           # lanes per scenario the kernels are built for
 MAX_SHARED_BYTES = 232448           # what one block may opt in to on an H100
@@ -276,13 +302,37 @@ class MapSampler(NamedTuple):
                 uncertainty_mod.uncertainty_sample_batched(self.p, self.unc_map, Xb), dim=-1)
 
 
+def prep_lane_maps(m) -> torch.Tensor:
+    """(B, 16) geometry rows of one map per scenario, as the step kernel's
+    sampler reads them: [origin_x, origin_y, cos yaw, sin yaw, first_x,
+    first_y, res, lo_x, hi_x, lo_y, hi_y, -1/res, 0, 0, 0, 0], each by the
+    PyTorch expression of ``uncertainty.uncertainty_sample_batched`` and
+    ``gridmap.sample_bilinear_with_grad_batched``, so the kernel starts from
+    the plain sampler's bits."""
+    g = m.geom
+    B = m.values.shape[0]
+    res = g.resolution.reshape(B, 1)
+    first = g.center + 0.5 * g.length - 0.5 * res
+    lo = g.center - 0.5 * g.length
+    hi = g.center + 0.5 * g.length
+    cy, sy = torch.cos(m.origin_yaw).reshape(B), torch.sin(m.origin_yaw).reshape(B)
+    z = torch.zeros_like(cy)
+    return torch.stack([m.origin_xy[:, 0], m.origin_xy[:, 1], cy, sy, first[:, 0], first[:, 1],
+                        res[:, 0], lo[:, 0], hi[:, 0], lo[:, 1], hi[:, 1], (-1.0 / res)[:, 0],
+                        z, z, z, z], dim=1).contiguous()
+
+
 def _hybrid(p: SolverParams, plans, step, world: WorldPrep, prepared, unc_sampler):
     """The hybrid iteration (X, U, lamb) -> (X_new, U_new, J): step(...) on
     the planes unc_sampler(X[:, :N]) (B, N, 3).  ``prepared``: (table, fit)
-    of ``prep_iteration(plans)``, or None.  The ``build`` of
-    ``hybrid_iteration``'s ``solver.Iteration``."""
+    of ``prep_iteration(plans)`` and, for the step kernel, the map's
+    ``prep_lane_maps`` rows; or None.  With ``step`` = ``fused_iteration``
+    and a ``MapSampler``, a ``HybridStep``, which brings its own LM step.
+    The ``build`` of ``hybrid_iteration``'s ``solver.Iteration``."""
     if prepared is not None:
-        world = world._replace(iteration=IterationInputs(*prepared, plans))
+        world = world._replace(iteration=IterationInputs(*prepared[:2], plans))
+    if step is fused_iteration and isinstance(unc_sampler, MapSampler):
+        return HybridStep(p, world, plans, unc_sampler, prepared and prepared[2])
 
     def iteration(X, U, lamb):
         return step(p, world, plans, X, U, lamb, unc_sampler(X[:, :p.horizon]))[:3]
@@ -294,16 +344,113 @@ def hybrid_iteration(p: SolverParams, plans, obstacles, unc_sampler, step) -> so
     """The hybrid LM iteration of ``fused_optimize`` (``step`` =
     ``fused_iteration``) or of its plain version (``fused_iteration_plain``)
     as ``solver.optimize`` takes it: replayed as CUDA graphs on the card
-    when ``unc_sampler`` is a ``MapSampler``; any other sampler gives the
-    bare iteration, which runs eagerly.  K3's inputs that stay the same over
-    the solve are prepared here once (on the card)."""
+    when ``unc_sampler`` is a ``MapSampler`` (with ``fused_iteration``, its
+    step is the step kernel's, ``HybridStep``); any other sampler gives the
+    bare iteration, which runs eagerly, ``solver.lm_step`` around K3.  The
+    kernels' inputs that stay the same over the solve are prepared here once
+    (on the card)."""
     world = prep_world(p, obstacles, None, torch.float32, plans.coeffs.device)
     prepared = None
     if plans.coeffs.is_cuda:
         prep = prep_iteration(plans)
         prepared = (prep.table, prep.fit)
+        if step is fused_iteration and isinstance(unc_sampler, MapSampler):
+            prepared += (prep_lane_maps(unc_sampler.unc_map),)
     it = solver.Iteration(_hybrid, (step, world, prepared, unc_sampler))
     return it if isinstance(unc_sampler, MapSampler) else it.build(p, plans, *it.world)
+
+
+class HybridStep(NamedTuple):
+    """The hybrid iteration of ``fused_iteration`` on a ``MapSampler`` as its
+    own LM step: ``lm_step(lamb_inv, *state)`` is ``fused_step``, which
+    ``solver.step`` runs in place of ``solver.lm_step``.  ``geo``: the map's
+    ``prep_lane_maps`` rows (None off the card)."""
+
+    p: SolverParams
+    world: WorldPrep
+    plans: object
+    sampler: MapSampler
+    geo: object
+
+    def lm_step(self, lamb_inv, X, U, lamb, J_old, it, done) -> tuple:
+        return fused_step(self.p, self.world, self.plans, self.sampler, self.geo, lamb_inv, X, U,
+                          lamb, J_old, it, done)
+
+
+def fused_step_plain(p: SolverParams, world: WorldPrep, plans, sampler, lamb_inv, X, U, lamb,
+                     J_old, it, done) -> tuple:
+    """Plain version of the step kernel: ``solver.lm_step`` on the hybrid
+    iteration of ``fused_iteration_plain`` fed by ``sampler``.  Returns the
+    new state (X, U, lamb, J_old, it, done)."""
+    iteration = _hybrid(p, plans, fused_iteration_plain, world, None, sampler)
+    return solver.lm_step(p, iteration, lamb_inv, X, U, lamb, J_old, it, done)
+
+
+def running_lanes_plain(done: torch.Tensor) -> tuple:
+    """Plain version of the list pass: (lanes (B,) int32 whose first count
+    entries are the lanes b with ~done[b] in lane order, -1 after them;
+    count (1,) int32)."""
+    run = torch.nonzero(~done).reshape(-1).to(torch.int32)
+    lanes = torch.full(done.shape, -1, dtype=torch.int32, device=done.device)
+    lanes[:run.numel()] = run
+    return lanes, torch.tensor([run.numel()], dtype=torch.int32, device=done.device)
+
+
+def running_lanes(done: torch.Tensor) -> tuple:
+    """The list pass alone, as the step op runs it before the step kernel:
+    on the card one launch of ``lm_lanes_kernel`` (entries past the count
+    left as they were, here -1), for CPU tensors ``running_lanes_plain``.
+    It adds nothing to the lane total."""
+    global LANE_LAUNCHES
+    if not done.is_cuda or route.plain_on_card():
+        return running_lanes_plain(done)
+    _check_mask("done", done, (done.numel(),), torch.bool, done.device)
+    lanes = torch.full(done.shape, -1, dtype=torch.int32, device=done.device)
+    count = torch.empty(1, dtype=torch.int32, device=done.device)
+    lib = _load(build)
+    with torch.cuda.device(done.device):
+        rc = lib.cilqr_lm_lanes(done.data_ptr(), done.numel(), lanes.data_ptr(), count.data_ptr(),
+                                None, torch.cuda.current_stream(done.device).cuda_stream)
+    build.check(lib, rc, "lane list launch")
+    LANE_LAUNCHES += 1
+    return lanes, count
+
+
+def lane_cells_plain(m, X: torch.Tensor) -> torch.Tensor:
+    """The corner cell i0 * W + j0 that ``uncertainty_sample_batched``
+    interpolates from at each state of X (B, N, >=2) on one map per
+    scenario: (B, N) int64."""
+    B, H, W = m.values.shape
+    cy = torch.cos(m.origin_yaw).reshape(B, 1)
+    sy = torch.sin(m.origin_yaw).reshape(B, 1)
+    local = uncertainty_mod._to_map_frame(m, X, cy, sy)
+    res = m.geom.resolution.reshape(B, 1)
+    first = m.geom.center + 0.5 * m.geom.length - 0.5 * res
+    ci = (first[:, None, :] - local) / res[:, :, None]
+    i0, j0, _, _ = gridmap_mod._corner_index(ci[..., 0], ci[..., 1], H, W)
+    return i0 * W + j0
+
+
+def lane_sample(p: SolverParams, m, X: torch.Tensor) -> tuple:
+    """The step kernel's sampler alone on the card, at each lane's states
+    X[:, :N] (X (B, N+1, 4) float32) on its own map of ``m`` (one per
+    scenario): (planes (B, N, 3) [e, gx, gy], cells (B, N) int32 i0 * W +
+    j0), for the checks against ``MapSampler`` and ``lane_cells_plain``."""
+    B, H, W = m.values.shape
+    N = p.horizon
+    riccati_cuda.check_cuda_f32("X", X, (B, N + 1, 4))
+    riccati_cuda.check_cuda_f32("uncertainty maps", m.values, (B, H, W))
+    geo = prep_lane_maps(m)
+    planes = torch.empty((B, N, 3), dtype=torch.float32, device=X.device)
+    cells = torch.empty((B, N), dtype=torch.int32, device=X.device)
+    cfg = _config(p, B, 1, H, W, False, True)
+    lib = _load(build)
+    with torch.cuda.device(X.device):
+        rc = lib.cilqr_lm_sample(ctypes.byref(cfg), m.values.contiguous().data_ptr(),
+                                 geo.data_ptr(), X.contiguous().data_ptr(), planes.data_ptr(),
+                                 cells.data_ptr(), torch.cuda.current_stream(X.device).cuda_stream)
+    build.check(lib, rc, "lane sampler launch")
+    return planes, cells
 
 
 def _check_sampler(unc_sampler, unc_map) -> None:
@@ -389,21 +536,23 @@ def _load(build):
     return lib
 
 
-def kernel_resources(whole_loop: bool, G: int, S: int) -> dict:
-    """What the compiler and the current card give K1 (``whole_loop``) or K3
-    at G lanes per scenario: registers and local-memory bytes per thread,
-    shared memory per block, resident blocks per SM, and the card's SMs."""
+KERNELS = ("lm_iter", "lm_opt", "lm_step")  # K3, K1, the step kernel: cilqr_lm_resources' ids
+
+
+def kernel_resources(kernel: str, G: int, S: int) -> dict:
+    """What the compiler and the current card give ``kernel`` (of
+    ``KERNELS``) at G lanes per scenario: registers and local-memory bytes
+    per thread, shared memory per block, resident blocks per SM, and the
+    card's SMs."""
     _check_group(G, S)
-    return _resources(bool(whole_loop), G, S, torch.cuda.current_device())
+    return _resources(KERNELS.index(kernel), G, S, torch.cuda.current_device())
 
 
 @functools.lru_cache(maxsize=None)
-def _resources(whole_loop: bool, G: int, S: int, device_index: int) -> dict:
-    from cilqr_tpu_torch.utils import build
-
+def _resources(kernel_id: int, G: int, S: int, device_index: int) -> dict:
     lib = _load(build)
     out = (ctypes.c_int * 5)()
-    build.check(lib, lib.cilqr_lm_resources(int(whole_loop), G, S, out), "LM kernel resources")
+    build.check(lib, lib.cilqr_lm_resources(kernel_id, G, S, out), "LM kernel resources")
     return dict(registers=out[0], local_bytes=out[1], shared_bytes=out[2], blocks_per_sm=out[3],
                 sms=out[4])
 
@@ -451,8 +600,6 @@ def _lm_opt_kernel(params, fit, x0s, U_init, obs, values, scl, has_obs, has_unc,
     that the op zeroes before the launch (in a CUDA graph: on every
     replay)."""
     global LAUNCHES
-    from cilqr_tpu_torch.utils import build
-
     p = riccati_cuda.params_of(params)
     N = p.horizon
     B = x0s.shape[0]
@@ -512,7 +659,7 @@ def _launch(p: SolverParams, plans, x0s, U_init, obstacles, unc_map, G=None):
     # as many blocks as the card holds at once: each group of lanes takes
     # scenarios from a counter until none is left
     with torch.cuda.device(dev):
-        res = kernel_resources(True, G, S)
+        res = kernel_resources("lm_opt", G, S)
     blocks = min(-(-B // T), res["sms"] * res["blocks_per_sm"])
     return opt_op(p, plans, x0s, U_init, world, G, blocks)
 
@@ -539,8 +686,6 @@ def _lm_iter_kernel(params, fit, table, X, U, lamb, uext, obs, has_obs, G, plans
     """The op on the card: one launch of ``lm_iter_kernel<G>`` on the
     current stream."""
     global ITER_LAUNCHES
-    from cilqr_tpu_torch.utils import build
-
     p = riccati_cuda.params_of(params)
     N = p.horizon
     B = X.shape[0]
@@ -617,6 +762,179 @@ def fused_iteration(p: SolverParams, world: WorldPrep, plans, X, U, lamb, uext):
     return _launch_iteration(p, world, plans, X, U, lamb, uext)
 
 
+def _lanes_total(device: torch.device) -> torch.Tensor:
+    """``device``'s int64 sum of the lanes its list passes counted, made at
+    its first use, outside any capture (a graph holds its address)."""
+    total = _TOTALS.get(device)
+    if total is None:
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("the lane total is made before a capture (in its warm-up)")
+        total = _TOTALS[device] = torch.zeros(1, dtype=torch.int64, device=device)
+    return total
+
+
+def _forget_lanes() -> None:
+    """Zeroes each card's lane total in stream order (no host read), so
+    that a traced call counts its own lanes alone."""
+    for device, total in _TOTALS.items():
+        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+            continue
+        total.zero_()
+        _READ[device] = 0
+
+
+def _read_lanes() -> None:
+    """Adds what each card's list passes counted since the last read to
+    ``LANES_RUN`` (a host read per card)."""
+    global LANES_RUN
+    for device, total in _TOTALS.items():
+        n = int(total)
+        LANES_RUN += n - _READ.get(device, 0)
+        _READ[device] = n
+
+
+profiling.DEVICE_COUNTERS.append((_forget_lanes, _read_lanes))
+
+
+@torch.library.custom_op(
+    "cilqr_torch::lm_step", mutates_args=("X", "U", "lamb", "J_old", "it", "done", "total"),
+    device_types="cpu",
+    schema="(str params, Tensor fit, Tensor table, Tensor maps, Tensor geo, Tensor obs, "
+           "bool has_obs, int G, Tensor[] plans, Tensor[] obstacles, Tensor[] unc_map, "
+           "Tensor(a!) X, Tensor(b!) U, Tensor(c!) lamb, Tensor(d!) J_old, Tensor(e!) it, "
+           "Tensor(f!) done, Tensor(g!) total) -> ()")
+def _lm_step(params, fit, table, maps, geo, obs, has_obs, G, plans, obstacles, unc_map, X, U,
+             lamb, J_old, it, done, total):
+    """The step kernel as an op: one hybrid LM step on the loop's state (X,
+    U, lamb, J_old, it, done) in place, the lanes it runs added to
+    ``total``.  On the CPU the plain version, which reads the plans,
+    obstacles and the sampler's map (their fields in order; no obstacles:
+    empty) where the kernel reads their payloads (``fit``, ``table``,
+    ``obs``, ``maps``, ``geo``); on the card the list pass and the kernel
+    (``_lm_step_kernel``)."""
+    p = riccati_cuda.params_of(params)
+    world = WorldPrep(obs, None, None, has_obs, False, Obstacles(*obstacles) if obstacles else None,
+                      None)
+    total.add_((~done).sum())
+    new = fused_step_plain(p, world, LocalPlan(*plans), MapSampler(p, _unc_map_of(unc_map)),
+                           solver.damping_inverse(p, X.dtype, X.device), X, U, lamb, J_old, it,
+                           done)
+    for dst, src in zip((X, U, lamb, J_old, it, done), new):
+        dst.copy_(src)
+
+
+@_lm_step.register_fake
+def _lm_step_fake(params, fit, table, maps, geo, obs, has_obs, G, plans, obstacles, unc_map, X, U,
+                  lamb, J_old, it, done, total):
+    return None
+
+
+@_lm_step.register_kernel("cuda")
+def _lm_step_kernel(params, fit, table, maps, geo, obs, has_obs, G, plans, obstacles, unc_map, X,
+                    U, lamb, J_old, it, done, total):
+    """The op on the card, on the current stream: ``lm_lanes_kernel`` (one
+    block) lists the lanes still running, then ``lm_step_kernel<G>`` runs
+    one step over them.  The proposal and the gains go to per-slot scratch
+    of the op's own.  In a warm-up (``graphs.warming_up``), whose work is
+    thrown away, the list pass adds nothing to ``total``."""
+    global LANE_LAUNCHES, STEP_LAUNCHES
+    p = riccati_cuda.params_of(params)
+    N = p.horizon
+    B, H, W = maps.shape
+    dev = X.device
+    lib = _load(build)
+    lanes = torch.empty((B,), dtype=torch.int32, device=dev)
+    count = torch.empty((1,), dtype=torch.int32, device=dev)
+    f32 = dict(dtype=torch.float32, device=dev)
+    scratch = [torch.empty(shape_, **f32) for shape_ in ((B, N + 1, 4), (B, N, 2), (B, N, 2),
+                                                          (B, N, 8))]
+    cfg = _config(p, B, obs.shape[0] // 6, H, W, has_obs, True)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    with torch.cuda.device(dev):  # the card of the tensors, whichever is current
+        rc = lib.cilqr_lm_lanes(done.data_ptr(), B, lanes.data_ptr(), count.data_ptr(),
+                                None if graphs.warming_up() else total.data_ptr(), stream)
+        build.check(lib, rc, "lane list launch")
+        LANE_LAUNCHES += 1
+        rc = lib.cilqr_lm_step(
+            ctypes.byref(cfg), *(t.data_ptr() for t in (fit, table, maps, geo, obs, lanes, count,
+                                                          X, U, lamb, J_old, it, done, *scratch)),
+            G, stream)
+    build.check(lib, rc, "LM step kernel launch")
+    STEP_LAUNCHES += 1
+
+
+def _check_mask(name: str, t: torch.Tensor, shape: tuple, dtype, device) -> None:
+    """Raise unless t is a contiguous tensor of ``dtype`` and ``shape`` on
+    ``device`` (the step kernel reads it, or writes it in place, as one
+    dense block)."""
+    if t.device != device:
+        raise ValueError(f"{name}: expected a tensor on {device}, got {t.device}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: the step kernel takes {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape) or not t.is_contiguous():
+        raise ValueError(f"{name}: expected a contiguous tensor of shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}{'' if t.is_contiguous() else ' (not contiguous)'}")
+
+
+def _launch_step(p: SolverParams, world: WorldPrep, plans, sampler, geo, lamb_inv, X, U, lamb,
+                 J_old, it, done, G=None) -> tuple:
+    """The step kernel on the loop's state, checked, then through its op
+    (inside ``route.plain()`` its plain version).  ``world.iteration`` must
+    be ``prep_iteration(plans)``, ``geo`` the sampler's map's
+    ``prep_lane_maps``.  Returns the state, updated in place."""
+    if route.plain_on_card():
+        return fused_step_plain(p, world, plans, sampler, lamb_inv, X, U, lamb, J_old, it, done)
+    N, S = p.horizon, p.n_closest_samples
+    B = X.shape[0]
+    if B < 1:
+        raise ValueError("empty batch")
+    if G is None:
+        G = launch_shape(B, S)[1]
+    else:  # another group size than launch_shape's (the card's comparisons)
+        _check_group(G, S)
+    prep = world.iteration
+    if prep is None or prep.plans is not plans:
+        raise ValueError("the step kernel reads prep_iteration of these plans (world.iteration)")
+    if world.has_unc:
+        raise ValueError("the step kernel samples the sampler's maps; the world must hold no map")
+    if not X.is_cuda:
+        raise ValueError(f"X: expected a CUDA tensor, got device {X.device}")
+    m = sampler.unc_map
+    maps = m.values.contiguous()
+    if maps.ndim != 3 or maps.shape[0] != B or min(maps.shape[1:]) < 2:
+        raise ValueError(f"uncertainty maps: one map of at least 2 x 2 per lane, got "
+                         f"{tuple(maps.shape)} for {B} lanes")
+    dev = X.device
+    f32, i32, b8 = torch.float32, torch.int32, torch.bool
+    for name, t, shape_, dtype in (
+        ("X", X, (B, N + 1, 4), f32), ("U", U, (B, N, 2), f32), ("lamb", lamb, (B,), f32),
+        ("J_old", J_old, (B,), f32), ("it", it, (B,), i32), ("done", done, (B,), b8),
+        ("uncertainty maps", maps, maps.shape, f32), ("geometry rows", geo, (B, 16), f32),
+        ("fit payload", prep.fit, (p.poly_order + 11, B), f32),
+        ("sample table", prep.table, (S, 2, B), f32),
+    ):
+        _check_mask(name, t, shape_, dtype, dev)
+    _check_world(world, N)
+    obstacles = [] if world.obstacles is None else list(world.obstacles)
+    torch.ops.cilqr_torch.lm_step(riccati_cuda.params_arg(p), prep.fit, prep.table, maps, geo,
+                                  world.obs, world.has_obs, G, list(plans), obstacles,
+                                  _unc_map_args(m), X, U, lamb, J_old, it, done,
+                                  _lanes_total(dev))
+    return X, U, lamb, J_old, it, done
+
+
+def fused_step(p: SolverParams, world: WorldPrep, plans, sampler, geo, lamb_inv, X, U, lamb,
+               J_old, it, done) -> tuple:
+    """One LM step of the hybrid loop (``solver.lm_step`` on the hybrid
+    iteration of the sampler's planes): on the card the step kernel over
+    the lanes still running, on the state in place; for CPU tensors
+    ``fused_step_plain``.  Returns the new state (X, U, lamb, J_old, it,
+    done)."""
+    if X.device.type == "cpu":
+        return fused_step_plain(p, world, plans, sampler, lamb_inv, X, U, lamb, J_old, it, done)
+    return _launch_step(p, world, plans, sampler, geo, lamb_inv, X, U, lamb, J_old, it, done)
+
+
 def fused_optimize(p: SolverParams, plans, x0s, U_init, obstacles=None, unc_map=None,
                    unc_sampler=None):
     """The LM loop (iLQR.cpp:211-239, per-lane masks) over a (B, ...) batch.
@@ -625,12 +943,12 @@ def fused_optimize(p: SolverParams, plans, x0s, U_init, obstacles=None, unc_map=
 
     Without ``unc_sampler``: the world is shared and K1 runs the whole loop.
     With it (per-scenario uncertainty maps): a callable (B, N, >=2) states ->
-    (B, N, 3) planes [e, gx, gy], ``MapSampler`` on the paths; each LM
-    iteration of ``solver.optimize`` calls it on the trajectory and launches
-    K3 on its planes (``hybrid_iteration``).  On the card, with a
-    ``MapSampler``, the loop replays that iteration as a CUDA graph, one
-    replay per iteration (``solver.GRAPHS``).  ``unc_sampler`` and
-    ``unc_map`` are mutually exclusive."""
+    (B, N, 3) planes [e, gx, gy], ``MapSampler`` on the paths
+    (``hybrid_iteration``).  With a ``MapSampler`` each LM step on the card
+    is the step kernel over the lanes still running, which samples each
+    lane's map itself, replayed as a CUDA graph (``solver.GRAPHS``); a bare
+    sampler's planes feed K3 in ``solver.lm_step``, eagerly.
+    ``unc_sampler`` and ``unc_map`` are mutually exclusive."""
     _check_sampler(unc_sampler, unc_map)
     if unc_sampler is not None:
         return solver.optimize(p, plans, x0s, U_init, iteration=hybrid_iteration(

@@ -5,8 +5,8 @@ scenario draws its own localization sigma (sigma_x, sigma_y, sigma_theta)
 and ego-pose noise, propagates its own uncertainty costmap, and solves.
 
 The fast path runs the propagation kernel K4 (``ops.uncertainty_cuda``)
-once for all scenarios, then the hybrid solve: the LM-iteration kernel K3
-(``ops.lm_cuda``) per iteration, fed each scenario's map sample.  The
+once for all scenarios, then the hybrid solve: one step kernel per LM
+iteration (``ops.lm_cuda.fused_step``), which samples each scenario's map.  The
 reference path is ``mc_solve_one`` on the batch: the plain propagation
 oracle and the faithful per-lane solve.  ``make_sharded_monte_carlo``
 (config 5) runs either per shard of a mesh (``parallel.batch``).

@@ -386,9 +386,9 @@ def closed_loop_full_stack_batched(p: SolverParams, cp: CostmapParams, noise: No
     costmap from the shared global map (``costmap.build_local_costmap_batched``:
     the resample kernel K5, then the propagation kernel K4 with per-scenario
     priors, frames and yaws) and replans through the hybrid solve
-    (``run_steps_batched(impl="mega", world_batched=True)``: each
-    scenario's map sampled in PyTorch, the LM-iteration kernel K3 once per
-    iteration).  Per scenario the information flow is that of
+    (``run_steps_batched(impl="mega", world_batched=True)``: one step
+    kernel per LM iteration, which samples each scenario's map).  Per
+    scenario the information flow is that of
     ``closed_loop_full_stack``: costmap at the true pose, solver at the
     noisy pose.  Any B works.  On the card the cycle is CUDA graphs (see
     the module docstring).

@@ -105,6 +105,12 @@ def load_library() -> ctypes.CDLL:
     lib.cilqr_lm_opt.restype = i
     lib.cilqr_lm_iter.argtypes = [p] * 13 + [i] + [p]
     lib.cilqr_lm_iter.restype = i
+    lib.cilqr_lm_lanes.argtypes = [p, i, p, p, p, p]
+    lib.cilqr_lm_lanes.restype = i
+    lib.cilqr_lm_step.argtypes = [p] * 18 + [i] + [p]
+    lib.cilqr_lm_step.restype = i
+    lib.cilqr_lm_sample.argtypes = [p] * 7
+    lib.cilqr_lm_sample.restype = i
     lib.cilqr_lm_resources.argtypes = [i, i, i, p]
     lib.cilqr_lm_resources.restype = i
     f, d = ctypes.c_float, ctypes.c_double

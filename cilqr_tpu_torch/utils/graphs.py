@@ -3,7 +3,7 @@
 A loop of small kernels costs the host ~15-25 us per PyTorch op; replayed
 as a CUDA graph the same kernels run on the same inputs (the same bits)
 with one launch from the host.  ``models.solver`` (its LM loops: the plain
-iteration, the hybrid one with the map sampler and K3, the two-phase one
+iteration, the hybrid one with its own step (the step kernel), the two-phase one
 with K2; and the stages around them, ``solver.run`` / ``solver.solve``: the
 mega solve with K1, the closed loops' cycles with K4 and K5) and
 ``models.nrb_rrt`` (the planner) capture their work this way,
@@ -104,6 +104,13 @@ def replayable(t: torch.Tensor) -> bool:
     card and no capture or warm-up is under way (inside one the stage runs
     eagerly, and that capture holds its kernels)."""
     return t.is_cuda and not _BUILDS
+
+
+def warming_up() -> bool:
+    """Whether a warm-up is under way (``building``, outside a capture): its
+    work is thrown away, so a counter kept on the card counts none of it."""
+    return bool(_BUILDS) and not (torch.cuda.is_available()
+                                  and torch.cuda.is_current_stream_capturing())
 
 
 def copy_outputs(static, new) -> None:

@@ -24,8 +24,10 @@ the tracer waits for the card, then stamps an event between two host
 reads (the narrowest of a few tries), and takes the middle.  ``spans()``
 gives the spans out, in memory; ``counters()`` the change of the launch
 counters (``graphs.COUNTERS``, ``loop_cuda.LAUNCHES``), of the host counters
-the program's modules enter in ``HOST_COUNTERS`` and of the captures
-(``graphs.CAPTURES``, ``CAPTURE_S``, ``EVICTIONS``) over the traced calls.
+the program's modules enter in ``HOST_COUNTERS`` (those summed on a card
+are read into them by ``device_counters()``, while tracing) and of the
+captures (``graphs.CAPTURES``, ``CAPTURE_S``, ``EVICTIONS``) over the
+traced calls.
 """
 
 from __future__ import annotations
@@ -48,6 +50,12 @@ _HOST_TID, _DEVICE_TID = 0x5A4E0, 0x5A4E1  # the spans' rows in a Chrome trace
 #: host counters (module, attribute) that ``counters()`` reads besides the
 #: launch counters: the modules that keep them enter them on import
 HOST_COUNTERS: list = []
+#: counters kept on a card, as (start, read) pairs of functions: ``start()``
+#: runs as each traced entry call begins and drops, without a host read, what
+#: the card counted before (untraced work); ``read()`` adds what it counted
+#: since to a host counter of ``HOST_COUNTERS`` (a host read: run by
+#: ``device_counters()``, only while tracing)
+DEVICE_COUNTERS: list = []
 
 
 def _tensors(tree):
@@ -253,6 +261,15 @@ def tracing():
         _TRACING -= 1
 
 
+def device_counters() -> None:
+    """While tracing, runs each reader of ``DEVICE_COUNTERS`` (each reads
+    its card: call it where the host has waited for the card, as after an
+    LM loop's step count).  Off, nothing: no read, no synchronisation."""
+    if _profiler._is_profiler_enabled or _TRACING:
+        for _, read in DEVICE_COUNTERS:
+            read()
+
+
 def reset() -> None:
     """Drops what the tracer has recorded; the next span starts anew."""
     global _SESSION
@@ -361,6 +378,8 @@ class _Live:
         self.parent, self.call = (None, self.id) if up is None else (up.id, up.call)
         if up is None:
             self.before = _counts()
+            for start, _ in DEVICE_COUNTERS:
+                start()
         s.stack.append(self)
         self.t0 = _clock()
         if card is not None:

@@ -433,8 +433,9 @@ def graphed_against_eager(dev: torch.device, current: int) -> None:
     (``fused_optimize`` with a ``MapSampler``) and the two-phase loop
     (``batched_optimize``, shared and per lane obstacles) graphed on
     ``solver.STREAMS`` streams and on one, each equal to ``GRAPHS = False``
-    bit for bit on every lane, a second call on new egos replaying, K3 and
-    K2 counted once per step replay as the eager loop counts them."""
+    bit for bit on every lane, a second call on new egos replaying, the
+    hybrid loop's step kernel and K2 counted once per step replay as the
+    eager loop counts them."""
     p = dataclasses.replace(SolverParams(), horizon=50)
     unc = example_scenario(p, device=dev)[-1]
     with torch.cuda.device(current):
@@ -454,10 +455,10 @@ def graphed_against_eager(dev: torch.device, current: int) -> None:
                     out, counts = {}, {}
                     for graphed in (True, False):
                         solver.GRAPHS, solver.STREAMS = graphed, streams
-                        lm_cuda.ITER_LAUNCHES = riccati_cuda.LAUNCHES = 0
+                        lm_cuda.STEP_LAUNCHES = riccati_cuda.LAUNCHES = 0
                         out[graphed] = run()
                         torch.cuda.synchronize(dev)
-                        counts[graphed] = (lm_cuda.ITER_LAUNCHES, riccati_cuda.LAUNCHES)
+                        counts[graphed] = (lm_cuda.STEP_LAUNCHES, riccati_cuda.LAUNCHES)
                     assert same(out[True], out[False]), (name, streams, seed)
                     assert counts[True] == counts[False], (name, counts)
                     assert sum(counts[True]) == int(out[True][2].max())

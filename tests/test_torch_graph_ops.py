@@ -317,6 +317,17 @@ def route_case(name: str) -> tuple:
     if name == "costmap_cuda._launch":
         args = planted_terms(B, 16, 12, 3, torch.float32, DEV, seed=63)
         return costmap_cuda._launch, [(args, costmap_cuda, "costmap_layers_plain", args, {})]
+    if name == "lm_cuda._launch_step":
+        sampler = lm_cuda.MapSampler(p, mc.per_scenario_map(
+            t(np.random.default_rng(64).uniform(0.0, 100.0, (B, 16, 12)), torch.float32),
+            w["unc"].geom, w["unc"].origin_xy, w["unc"].origin_yaw))
+        world_ = lm_cuda.prep_world(p, ob, None, torch.float32, DEV)
+        world_ = world_._replace(iteration=lm_cuda.prep_iteration(plans))
+        state = solver.start_state(p, w["egos"], w["U"])
+        lamb_inv = solver.damping_inverse(p, torch.float32, DEV)
+        plain_args = (p, world_, plans, sampler, lamb_inv, *state)
+        args = plain_args[:4] + (lm_cuda.prep_lane_maps(sampler.unc_map),) + plain_args[4:]
+        return lm_cuda._launch_step, [(args, lm_cuda, "fused_step_plain", plain_args, {})]
     assert name == "cost_cuda._launch"
     prepared = tuple(lm_cuda.prep_iteration(plans))[:2]
     return cost_cuda._launch, [((p, plans, X, w["U"], ob, planes, prepared), costs,
@@ -327,12 +338,12 @@ def route_case(name: str) -> tuple:
 ROUTE_CASES = ("lm_cuda._launch", "lm_cuda._launch_iteration", "riccati_cuda._launch",
                "uncertainty_cuda._launch", "uncertainty_cuda._launch_fused",
                "sample_cuda._launch", "sample_cuda._launch_vehicle_map",
-               "costmap_cuda._launch", "cost_cuda._launch")
+               "costmap_cuda._launch", "cost_cuda._launch", "lm_cuda._launch_step")
 
 
 @pytest.mark.parametrize("name", ROUTE_CASES)
 def test_the_route_sends_each_launch_function_to_its_plain_version(name, monkeypatch):
-    """Inside ``route.plain()`` each of the nine launch functions returns
+    """Inside ``route.plain()`` each of the ten launch functions returns
     exactly what its plain version returns on the same inputs, calls it
     once itself and reaches no op of the port; outside, it takes the kernel's
     route (it refuses CPU tensors, or reaches its op, whose CPU
@@ -680,17 +691,17 @@ def card_world(dev, B: int, seed: int):
 
 
 def eager_and_counts(call):
-    """call() with ``solver.GRAPHS`` on and off: (results, K1/K3/K4/K5
-    launches) of each."""
+    """call() with ``solver.GRAPHS`` on and off: (results, K1/K3/hybrid
+    step/K4/K5 launches) of each."""
     out, counts = {}, {}
     mods = (lm_cuda, uncertainty_cuda, sample_cuda)
     for graphed in (True, False):
         solver.GRAPHS = graphed
-        lm_cuda.LAUNCHES = lm_cuda.ITER_LAUNCHES = 0
+        lm_cuda.LAUNCHES = lm_cuda.ITER_LAUNCHES = lm_cuda.STEP_LAUNCHES = 0
         uncertainty_cuda.LAUNCHES = sample_cuda.LAUNCHES = 0
         out[graphed] = call()
         torch.cuda.synchronize()
-        counts[graphed] = (lm_cuda.LAUNCHES, lm_cuda.ITER_LAUNCHES) + tuple(
+        counts[graphed] = (lm_cuda.LAUNCHES, lm_cuda.ITER_LAUNCHES, lm_cuda.STEP_LAUNCHES) + tuple(
             m.LAUNCHES for m in mods[1:])
     return out, counts
 
@@ -716,7 +727,7 @@ def test_graphed_mega_solve_equals_eager_on_the_card(B, card_graphs):
         out, counts = eager_and_counts(lambda: solver_batched.run_steps_batched(
             p, plan, n, e, U, obstacles, unc))
         assert same(out[True], out[False]), k
-        assert counts[True] == counts[False] == (1, 0, 0, 0)
+        assert counts[True] == counts[False] == (1, 0, 0, 0, 0)
         assert int(out[True].iterations.min()) >= 1
     assert len(solver.CAPTURED) == 1
 
@@ -747,10 +758,10 @@ def test_graphed_closed_loops_equal_eager_on_the_card(card_graphs):
             p, cp, noise, gm, gg, plan, n, egos, None, 2, obstacles, *obs, percept=pc,
             noise_draws=draws, camera_draws=cam))
         assert same(out[True], out[False]), pc
-        assert counts[True] == counts[False] and counts[True][2:] == (2, 2)
+        assert counts[True] == counts[False] and counts[True][3:] == (2, 2)
     out, counts = eager_and_counts(lambda: plant.closed_loop_batched(
         p, noise, plan, n, egos, None, 2, obstacles, unc, *obs, noise_draws=draws))
-    assert same(out[True], out[False]) and counts[True] == counts[False] == (2, 0, 0, 0)
+    assert same(out[True], out[False]) and counts[True] == counts[False] == (2, 0, 0, 0, 0)
     cpm = dataclasses.replace(cp, window_radius=1)
     gen = torch.Generator(device=dev).manual_seed(84)
     s = mc.sample_scenarios(gen, 64, egos[0], sigma_hi=(0.16, 0.16, 0.017), device=dev)
@@ -761,4 +772,5 @@ def test_graphed_closed_loops_equal_eager_on_the_card(card_graphs):
         p, cpm, umap.values, umap.geom, umap.origin_xy, umap.origin_yaw, plan, n, s, obstacles,
         sigma_hi=(0.16, 0.16, 0.017), impl="fast", band_plan=band))
     assert same(out[True], out[False]) and counts[True] == counts[False]
-    assert counts[True][2] == 1 and counts[True][1] == int(out[True].iterations.max())
+    assert counts[True][3] == 1 and counts[True][2] == int(out[True].iterations.max())
+    assert counts[True][1] == 0

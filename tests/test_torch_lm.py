@@ -422,26 +422,27 @@ def test_iteration_inputs_prepared_once_equal_the_per_call_layout(params, global
 
 
 def test_hybrid_loop_carries_the_prepared_inputs_only_on_the_card(params, global_plan):
-    """On the CPU the hybrid loop runs the plain iteration and prepares
-    nothing; a world without prepared inputs stays valid for
-    ``fused_iteration`` (it prepares them itself on the card)."""
+    """On the CPU the hybrid loop runs the plain step (``fused_step_plain``:
+    ``lm_step`` on the plain iteration) and prepares nothing; a world
+    without prepared inputs stays valid for ``fused_iteration`` (it prepares
+    them itself on the card)."""
     p = _p(params)
     _, (plans, X, U, lamb, to, tmaps, planes) = _iteration_inputs(
         p, global_plan, 4, 5, jnp.float64, torch.float64)
     world = lm_cuda.prep_world(p, to, None, torch.float64, device=DEV)
     assert world.iteration is None
     seen = []
+    saved = lm_cuda.fused_iteration_plain
 
     def spy(p_, world_, *rest):
         seen.append(world_.iteration)
-        return lm_cuda.fused_iteration_plain(p_, world_, *rest)
+        return saved(p_, world_, *rest)
 
-    saved = lm_cuda.fused_iteration
-    lm_cuda.fused_iteration = spy
+    lm_cuda.fused_iteration_plain = spy
     try:
         lm_cuda.fused_optimize(p, plans, X[:, 0], U, to, unc_sampler=tsb.map_sampler(p, tmaps))
     finally:
-        lm_cuda.fused_iteration = saved
+        lm_cuda.fused_iteration_plain = saved
     assert seen and all(s is None for s in seen)
 
 

@@ -197,7 +197,7 @@ def test_interop_carries_mc_inputs(setup):
 @pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA device")
 def test_fast_path_on_card_goes_through_the_kernels(setup):
     """On the card the fast path launches the propagation kernel once and the
-    LM-iteration kernel once per iteration, and no other kernel of the port
+    hybrid loop's step kernel once per iteration, and no other kernel of the port
     (chip_smoke.py phase 10 holds it to the reference at full size)."""
     from cilqr_tpu_torch.ops import lm_cuda, riccati_cuda, uncertainty_cuda
 
@@ -207,10 +207,10 @@ def test_fast_path_on_card_goes_through_the_kernels(setup):
     args = (p, cp, f32(prior), type(geom)(*map(f32, geom)), f32(oxy), f32(oyaw), f32(plan),
             torch.as_tensor(n).to(dev), tmc.MCSample(*map(f32, samples)))
     lm_cuda.LAUNCHES = lm_cuda.ITER_LAUNCHES = riccati_cuda.LAUNCHES = 0
-    uncertainty_cuda.LAUNCHES = 0
+    uncertainty_cuda.LAUNCHES = lm_cuda.STEP_LAUNCHES = 0
     res = tmc.monte_carlo(*args, sigma_hi=SIGMA_HI, impl="fast", band_plan=_band_plan(cp))
     torch.cuda.synchronize()
     assert uncertainty_cuda.LAUNCHES == 1
-    assert lm_cuda.ITER_LAUNCHES == int(res.iterations.max())
-    assert lm_cuda.LAUNCHES == riccati_cuda.LAUNCHES == 0
+    assert lm_cuda.STEP_LAUNCHES == int(res.iterations.max())
+    assert lm_cuda.LAUNCHES == lm_cuda.ITER_LAUNCHES == riccati_cuda.LAUNCHES == 0
     assert bool(torch.isfinite(res.U).all())

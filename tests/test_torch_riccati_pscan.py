@@ -232,9 +232,11 @@ def test_kernels_ignore_the_knob_on_card(full_solve):
     for impl, world in (("mega", None), ("two_phase", None), ("mega", maps)):
         runs = []
         for q in (p_ref, p_ps):
-            before = (lm_cuda.LAUNCHES, lm_cuda.ITER_LAUNCHES, riccati_cuda.LAUNCHES)
+            before = (lm_cuda.LAUNCHES, lm_cuda.ITER_LAUNCHES, lm_cuda.STEP_LAUNCHES,
+                      riccati_cuda.LAUNCHES)
             runs.append(tsb.run_steps_batched(q, plan, n, egos, U, obs, world, impl=impl,
                                               world_batched=world is not None))
             torch.cuda.synchronize()
-            assert (lm_cuda.LAUNCHES, lm_cuda.ITER_LAUNCHES, riccati_cuda.LAUNCHES) != before
+            assert (lm_cuda.LAUNCHES, lm_cuda.ITER_LAUNCHES, lm_cuda.STEP_LAUNCHES,
+                    riccati_cuda.LAUNCHES) != before
         assert all(torch.equal(a, b) for a, b in zip(runs[0], runs[1])), impl
