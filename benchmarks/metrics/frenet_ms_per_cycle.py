@@ -1,0 +1,19 @@
+"""frenet_ms_per_cycle: the Frenet lattice's time on the card per traced
+cycle: the device intervals of the ``run.replay`` spans whose parent is a
+``frenet.plan`` span (one replay of the lattice's graph a cycle), over the
+traced cycles.  A program without such spans gives None."""
+
+from benchmarks import program_spans
+
+
+def read(run):
+    found = program_spans.recorded()
+    n = program_spans.cycles(run)
+    if not found or not n:
+        return None
+    plans = {s.id for s in found if s.name == "frenet.plan"}
+    replays = [s for s in found if s.name == "run.replay" and s.parent in plans
+               and s.device_start_ns is not None]
+    if not replays:
+        return None
+    return 1e3 * sum(program_spans.device_s(s) for s in replays) / n

@@ -111,7 +111,18 @@ went through its kernels:
                phase 3's bars; the two-phase solve with one uncertainty map
                per scenario (B=1024) graphed = eager, one launch of each
                kernel per step, its derivatives from the sampled planes
-               against the plain version with the maps.
+               against the plain version with the maps;
+  phase 23     the Frenet lattice campaign on the benchmark's deployment
+               (``benchmarks/configs/frenet_propagation_town02_n40.json``:
+               N=40, 180 candidates per vehicle in propagation mode, the
+               full stack's costmaps) at B=8192 x 3 cycles:
+               ``closed_loop_full_stack_batched`` with the Frenet plan step,
+               graphed against ``solver.GRAPHS = False`` bit for bit over
+               every record and plan; three captures (the world, the
+               lattice, the advance), then a second graphed call of replays
+               alone: no host read (sync debug mode "error"), the lattice's
+               Python never run; ``frenet.FEASIBLE`` equal both ways; the
+               peak memory and the graphs' pools.  No timings.
 
 Every phase prints a line (the profiles one per batch size); any failure
 raises, so the exit code is nonzero.  The last line is one JSON object:
@@ -172,6 +183,9 @@ CC_B = 8192         # the CCNMPC campaign (phase 22): the benchmark cell's batch
 CC_CYCLES = 3
 CC_CONFIG = pathlib.Path(__file__).resolve().parent / "benchmarks" / "configs" / \
     "ccnmpc_success1_n40.json"
+FR_B = 8192         # the Frenet campaign (phase 23): the benchmark cell's batch and deployment
+FR_CYCLES = 3
+FR_CONFIG = CC_CONFIG.parent / "frenet_propagation_town02_n40.json"
 K6_CHECK_ROUNDS = 8
 PEAK_TFLOPS = FP32_OPS_PER_S / 1e12
 NO_LIBRARY_CALL = None  # where no single PyTorch call computes a kernel's function
@@ -2629,6 +2643,116 @@ def ccnmpc_campaign(card: str, counts, dev: torch.device) -> dict:
                 two_phase_with_maps=mapped)
 
 
+def frenet_campaign(card: str, dev: torch.device) -> dict:
+    """Phase 23: ``closed_loop_full_stack_batched`` with the Frenet plan step
+    in propagation mode on the benchmark's deployment (FR_CONFIG: N=40, the
+    lattice of 180 candidates, the compare world's obstacle and Town02-class
+    prior) at FR_B starts over 60 m of the lane (N(0, sigma) on y and yaw)
+    for FR_CYCLES cycles.  Graphed and traced (``profiling.tracing``: the
+    feasible pairs are read after the cycles), its captures counted (the
+    world, the lattice, the advance); graphed again on the same inputs,
+    replays alone under ``no_host_sync``, the lattice's Python counted (it
+    may not run); then with ``solver.GRAPHS = False``, traced.  Every record
+    and every plan equal bit for bit three ways, ``frenet.FEASIBLE`` equal.
+    Prints the peak memory of the first call and the graphs' pools.
+    Returns the numbers."""
+    from cilqr_tpu_torch import CostmapParams, NoiseParams, SolverParams
+    from cilqr_tpu_torch.models import frenet, solver
+    from cilqr_tpu_torch.models import obstacles as obs_mod, reference_path as rp
+    from cilqr_tpu_torch.ops import costmap as costmap_mod, uncertainty_cuda
+    from cilqr_tpu_torch.sim import plant, runner, sweep
+    from cilqr_tpu_torch.utils import graphs, profiling
+
+    t_phase = time.perf_counter()
+    cfg = json.loads(FR_CONFIG.read_text())
+    w = cfg["world"]
+    p = dataclasses.replace(SolverParams(), **cfg["solver"])
+    cp = dataclasses.replace(CostmapParams(), **cfg["costmap"])
+    noise = NoiseParams(**cfg["noise"])
+    f32 = dict(dtype=torch.float32, device=dev)
+    # the benchmark's world: the synthetic Town02-class prior (the same road
+    # loop at 0.2 m), the straight route, the obstacle
+    gmap, ggeom = sweep.synthetic_town_prior(torch.float32, dev)
+    pl = w["plan"]
+    k = np.arange(int(pl["length"] / pl["spacing"]) + 1)
+    route = np.stack([pl["x0"] + pl["spacing"] * k, np.full(len(k), pl["y"])], axis=1)
+    obs = np.array(w["obstacles"], dtype=np.float64)
+    size = np.tile(np.asarray(w["obstacle_size"], np.float64), (len(obs), 1))
+    plan_xy, plan_n = rp.pad_global_plan(p, route, torch.float32, dev)
+    ob = obs_mod.make_static_obstacles(p, obs[:, :2], size, obs[:, 2], dtype=torch.float32,
+                                       device=dev)
+    sat = (torch.tensor(obs, **f32), torch.tensor(size, **f32), torch.ones(len(obs), **f32))
+    xr, yr = costmap_mod.corridor_center_bounds(cp, plan_xy, plan_n)
+    band = uncertainty_cuda.make_band_plan_bounds(cp, cp.rows, cp.cols, xr, yr,
+                                                  (cp.sigma_x, cp.sigma_y, cp.sigma_theta))
+    rng = np.random.default_rng(23)
+    starts = np.tile(np.asarray(w["start"], np.float64), (FR_B, 1))
+    starts[:, 0] += rng.uniform(0.0, 60.0, FR_B)
+    starts[:, 1] += noise.sigma_y * rng.normal(size=FR_B)
+    starts[:, 3] += noise.sigma_theta * rng.normal(size=FR_B)
+    x0s = torch.tensor(starts, **f32)
+    draws = torch.tensor(rng.normal(size=(FR_CYCLES, FR_B, 3)), **f32)
+    fp = frenet.FrenetParams(**cfg["frenet"])
+    step = runner.make_plan_step("frenet_propagation", p, noise, plan_xy, plan_n, ob,
+                                 frenet_params=fp)
+
+    def closed_loop():
+        return plant.closed_loop_full_stack_batched(
+            p, cp, noise, gmap, ggeom, plan_xy, plan_n, x0s, None, FR_CYCLES, obstacles=ob,
+            obs_xyyaw=sat[0], obs_size=sat[1], obs_mask=sat[2], band_plan=band,
+            noise_draws=draws, plan_step_batched=step)
+
+    out, feasible, lattices = {}, {}, {}
+    try:
+        solver.CAPTURED.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        captures = graphs.CAPTURES
+        for mode in ("graphed", "replayed", "eager"):
+            with loop_mode("eager" if mode == "eager" else "graphed"), \
+                    recording(frenet, "run_steps", []) as plans, \
+                    recording(frenet, "plan_steps", []) as lattice_calls:
+                if mode == "replayed":
+                    with no_host_sync([]):
+                        out[mode] = (*closed_loop(), list(plans))
+                else:
+                    with profiling.tracing():
+                        out[mode] = (*closed_loop(), list(plans))
+                    feasible[mode] = profiling.counters()["frenet.FEASIBLE"]
+                torch.cuda.synchronize()
+                lattices[mode] = len(lattice_calls)
+            if mode == "graphed":
+                peak = torch.cuda.max_memory_allocated(dev)
+                made, held = graphs.CAPTURES - captures, len(solver.CAPTURED)
+                pools = [e.graphs[0].pool_bytes for e in solver.CAPTURED.values()]
+            elif mode == "replayed":
+                again = graphs.CAPTURES - captures - made
+    finally:
+        solver.CAPTURED.clear()
+    require(tree_equal(out["graphed"], out["eager"]) and tree_equal(out["replayed"], out["eager"]),
+            "frenet: the graphed closed loop differs from the eager one")
+    require(made == 3 and held == 3 and again == 0,
+            f"frenet: {made} captures ({held} held), then {again}; expected the world, the "
+            "lattice and the advance once")
+    require(lattices["replayed"] == 0 and lattices["eager"] == FR_CYCLES,
+            f"frenet: the lattice's Python ran {lattices['replayed']} times in a call of replays "
+            f"(an eager kernel in the cycle), {lattices['eager']} times eagerly")
+    require(feasible["graphed"] == feasible["eager"] > 0,
+            f"frenet: feasible pairs graphed {feasible['graphed']}, eager {feasible['eager']}")
+    share = 100.0 * feasible["eager"] / (FR_B * fp.n_candidates * FR_CYCLES)
+    print(f"[23 frenet campaign] {FR_CONFIG.name} at B={FR_B} x {FR_CYCLES} cycles, K="
+          f"{fp.n_candidates}, N={p.horizon}: graphed = replayed = eager bit for bit (every "
+          f"record, every plan) | {made} captures (world, lattice, advance), then none; the "
+          f"call of replays ran the lattice's Python {lattices['replayed']} times and read "
+          f"nothing from the card | feasible pairs {feasible['graphed']} both ways ({share:.2f}% "
+          f"of the lattice) | peak memory {peak / 1e9:.2f} GB over the first call (captures "
+          f"included), the graphs' pools {' / '.join(f'{b / 1e9:.2f}' for b in pools)} GB on "
+          f"{card}", flush=True)
+    print(f"[23 done] phase 23 took {time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
+    return dict(B=FR_B, cycles=FR_CYCLES, captures=made, feasible=feasible["graphed"],
+                feasible_pct=share, peak_bytes=peak, pool_bytes=pools)
+
+
 COST_REPS = 20    # back-to-back calls of the derivatives kernel, timed
 COST_MAP_B = 1024  # the two-phase solve with one uncertainty map per scenario
 
@@ -4110,6 +4234,10 @@ def main() -> None:
     kernels["cost_derivs"] = dict(cc["cost_kernel"], **cost_profile,
                                   launches=cc["cost_launches"],
                                   path="campaign.ccnmpc_b8192's deployment, phase 22")
+
+    # 23. the Frenet lattice campaign of the benchmark's deployment, graphed
+    # against eager
+    frenet_campaign(card, dev)
 
     kernels["lm"]["launches"] = main_launches["lm"]
     # K2's own path: ccnmpc's two-phase solves in `compare --full-stack`

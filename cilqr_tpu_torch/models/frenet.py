@@ -20,23 +20,46 @@ does), fetched by an index gather.  The reference line is the CILQR local
 plan (global-plan window + degree-5 polyfit + densified sample table), so
 both planners track the identical path.  Plain PyTorch: no TPU kernel
 stands behind this module.
+
+The closed loops call ``run_steps``: one cycle as a stage of
+``solver.run``, on the card one CUDA graph per parameters, mode and shapes,
+replayed (elsewhere, and inside ``route.plain()``, the same call eagerly).
+So ``plan_steps`` reads nothing from the host and makes no tensor from
+host data: it is given the curvature bound (``curvature_bound``, made once
+outside the step).  Span (``utils.profiling``): each ``run_steps`` call,
+``frenet.plan``, holding the stage's ``run.*`` spans.  Counters (entered in
+``profiling.HOST_COUNTERS``, read by ``profiling.counters()``): ``PLANS``,
+the ``run_steps`` calls, ``CANDIDATES``, the (lane, candidate) pairs they
+evaluated, on the host; ``FEASIBLE``, the pairs that were feasible, summed
+on the card and read while tracing (``profiling.DeviceCounter``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import sys
 from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
 
-from cilqr_tpu_torch.models import dynamics
+from cilqr_tpu_torch.models import dynamics, solver
 from cilqr_tpu_torch.models import reference_path as rp
 from cilqr_tpu_torch.ops import gridmap
+from cilqr_tpu_torch.utils import profiling
 from cilqr_tpu_torch.utils.params import SolverParams
 
 MODES = ("origin", "expansion", "propagation")
+
+PLANS = 0       # ``run_steps`` calls (host counter)
+CANDIDATES = 0  # (lane, candidate) pairs those calls evaluated (host counter)
+profiling.HOST_COUNTERS.extend((sys.modules[__name__], n) for n in ("PLANS", "CANDIDATES"))
+#: feasible (lane, candidate) pairs of the traced calls: ``plan_steps`` sums
+#: its feasible mask on the card (``_FEASIBLE``; inside the graph), read
+#: while tracing (``profiling.device_counters``)
+FEASIBLE = 0
+_FEASIBLE = profiling.DeviceCounter(sys.modules[__name__], "FEASIBLE")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -242,9 +265,17 @@ def _lane_maps(unc_map, B: int):
     return values, geom, oxy, oyaw
 
 
+def curvature_bound(p: SolverParams, dtype, device) -> torch.Tensor:
+    """The lattice's curvature bound tan(steer_angle_max) / wheelbase, the
+    angle rounded to ``dtype`` first: a tensor made from host data, so made
+    outside a captured step."""
+    return torch.tan(torch.tensor(p.steer_angle_max, dtype=dtype, device=device)) / p.wheelbase
+
+
 def plan_steps(p: SolverParams, fp: FrenetParams, plan_xy: torch.Tensor, plan_n,
                egos: torch.Tensor, obstacles=None, unc_map=None,
-               sigmas: Optional[torch.Tensor] = None) -> FrenetResult:
+               sigmas: Optional[torch.Tensor] = None, *,
+               kappa_max: torch.Tensor) -> FrenetResult:
     """One Frenet lattice planning cycle per lane at egos (B, 4) [x, y, v,
     theta]: ``plan_step`` of the JAX package, vmapped.
 
@@ -253,6 +284,8 @@ def plan_steps(p: SolverParams, fp: FrenetParams, plan_xy: torch.Tensor, plan_n,
     (B, H, W)) or shared (values (H, W)); read in propagation mode only.
     sigmas: (3,) [sigma_x, sigma_y, sigma_theta] localization noise, which
     expansion mode needs when there are obstacles.
+    kappa_max: ``curvature_bound`` in egos' dtype.  The feasible (lane,
+    candidate) pairs are added to ``FEASIBLE``'s total on egos' device.
     """
     dtype, dev = egos.dtype, egos.device
     B, N = egos.shape[0], p.horizon
@@ -325,7 +358,6 @@ def plan_steps(p: SolverParams, fp: FrenetParams, plan_xy: torch.Tensor, plan_n,
     # curvature from yaw finite differences over arclength
     dyaw = torch.diff(unwrap(gyaw), dim=-1)
     darc = torch.clamp(torch.diff(s_t, dim=-1), min=1e-3)
-    kappa_max = torch.tan(torch.tensor(p.steer_angle_max, dtype=dtype, device=dev)) / p.wheelbase
     feasible &= ((dyaw / darc).abs() <= kappa_max * 1.5).all(dim=-1)
 
     # obstacles, inflated by mode
@@ -380,6 +412,7 @@ def plan_steps(p: SolverParams, fp: FrenetParams, plan_xy: torch.Tensor, plan_n,
         J = J + fp.w_unc * (u / 100.0).mean(dim=-1)
 
     # select
+    _FEASIBLE.add(feasible)
     any_ok = feasible.any(dim=-1)                          # (B,)
     J_masked = torch.where(feasible, J, torch.full_like(J, math.inf))
     best = torch.argmin(torch.where(any_ok[:, None], J_masked, J), dim=-1)
@@ -396,3 +429,35 @@ def plan_steps(p: SolverParams, fp: FrenetParams, plan_xy: torch.Tensor, plan_n,
         # the winner's cost is the min (a one-hot dot would give 0 * inf)
         J=torch.where(any_ok, J_masked.amin(dim=-1), J.amin(dim=-1)),
         lamb=any_ok.to(dtype))
+
+
+def _stage(p: SolverParams, egos: torch.Tensor, fp: FrenetParams, plan_xy: torch.Tensor, plan_n,
+           obstacles, unc_map, sigmas, kappa_max) -> FrenetResult:
+    """``plan_steps`` as a ``solver.run`` stage: the per-lane egos first."""
+    return plan_steps(p, fp, plan_xy, plan_n, egos, obstacles, unc_map, sigmas,
+                      kappa_max=kappa_max)
+
+
+def stage(p: SolverParams, fp: FrenetParams, plan_xy: torch.Tensor, plan_n, egos: torch.Tensor,
+          obstacles, unc_map, sigmas: Optional[torch.Tensor],
+          kappa_max: torch.Tensor) -> solver.Stage:
+    """The ``solver.run`` stage of ``plan_steps`` (same arguments, the
+    curvature bound given): its tensors are copied into a capture, ``fp``
+    (the mode with it) keys it."""
+    return solver.Stage(_stage, (egos, fp, plan_xy, plan_n, obstacles, unc_map, sigmas, kappa_max))
+
+
+def run_steps(p: SolverParams, fp: FrenetParams, plan_xy: torch.Tensor, plan_n,
+              egos: torch.Tensor, obstacles, unc_map, sigmas: Optional[torch.Tensor],
+              kappa_max: torch.Tensor) -> FrenetResult:
+    """``plan_steps`` (same arguments, the curvature bound given: no copy
+    from the host) as one stage of ``solver.run``: on the card one CUDA
+    graph, captured once per parameters, ``fp`` (the mode with it) and the
+    tensors' shapes, and replayed; the eager call's bits.  Span
+    ``frenet.plan``; counts ``PLANS`` and ``CANDIDATES``."""
+    global PLANS, CANDIDATES
+    PLANS += 1
+    CANDIDATES += egos.shape[0] * fp.n_candidates
+    with profiling.span("frenet.plan"):
+        return solver.run(p, stage(p, fp, plan_xy, plan_n, egos, obstacles, unc_map, sigmas,
+                                   kappa_max))

@@ -76,13 +76,10 @@ graphs.COUNTERS.extend([(sys.modules[__name__], n) for n in (
     "LAUNCHES", "ITER_LAUNCHES", "LANE_LAUNCHES", "STEP_LAUNCHES")])
 #: lane-steps the step kernel ran in the traced calls (a lane still running
 #: counts once per step): the list passes sum their counts on each card
-#: (``_TOTALS``), zeroed in stream order as each traced entry call begins; the
-#: host adds what a card counted since its last read while tracing
-#: (``profiling.device_counters``), after the host has waited for the card
+#: (``_LANES``), read while tracing (``profiling.device_counters``), after
+#: the host has waited for the card
 LANES_RUN = 0
-profiling.HOST_COUNTERS.append((sys.modules[__name__], "LANES_RUN"))
-_TOTALS: dict = {}  # device -> int64 (1,): the lanes its list passes counted
-_READ: dict = {}    # device -> that sum at its last read
+_LANES = profiling.DeviceCounter(sys.modules[__name__], "LANES_RUN")
 
 GROUP_SIZES = (1, 8, 32)           # lanes per scenario the kernels are built for
 MAX_SHARED_BYTES = 232448           # what one block may opt in to on an H100
@@ -762,40 +759,6 @@ def fused_iteration(p: SolverParams, world: WorldPrep, plans, X, U, lamb, uext):
     return _launch_iteration(p, world, plans, X, U, lamb, uext)
 
 
-def _lanes_total(device: torch.device) -> torch.Tensor:
-    """``device``'s int64 sum of the lanes its list passes counted, made at
-    its first use, outside any capture (a graph holds its address)."""
-    total = _TOTALS.get(device)
-    if total is None:
-        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
-            raise RuntimeError("the lane total is made before a capture (in its warm-up)")
-        total = _TOTALS[device] = torch.zeros(1, dtype=torch.int64, device=device)
-    return total
-
-
-def _forget_lanes() -> None:
-    """Zeroes each card's lane total in stream order (no host read), so
-    that a traced call counts its own lanes alone."""
-    for device, total in _TOTALS.items():
-        if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
-            continue
-        total.zero_()
-        _READ[device] = 0
-
-
-def _read_lanes() -> None:
-    """Adds what each card's list passes counted since the last read to
-    ``LANES_RUN`` (a host read per card)."""
-    global LANES_RUN
-    for device, total in _TOTALS.items():
-        n = int(total)
-        LANES_RUN += n - _READ.get(device, 0)
-        _READ[device] = n
-
-
-profiling.DEVICE_COUNTERS.append((_forget_lanes, _read_lanes))
-
-
 @torch.library.custom_op(
     "cilqr_torch::lm_step", mutates_args=("X", "U", "lamb", "J_old", "it", "done", "total"),
     device_types="cpu",
@@ -919,7 +882,7 @@ def _launch_step(p: SolverParams, world: WorldPrep, plans, sampler, geo, lamb_in
     torch.ops.cilqr_torch.lm_step(riccati_cuda.params_arg(p), prep.fit, prep.table, maps, geo,
                                   world.obs, world.has_obs, G, list(plans), obstacles,
                                   _unc_map_args(m), X, U, lamb, J_old, it, done,
-                                  _lanes_total(dev))
+                                  _LANES.total(dev))
     return X, U, lamb, J_old, it, done
 
 

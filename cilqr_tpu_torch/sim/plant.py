@@ -395,11 +395,16 @@ def closed_loop_full_stack_batched(p: SolverParams, cp: CostmapParams, noise: No
 
     ``percept`` runs the camera -> Kalman filter -> ``semantic_lidar_map``
     channel per scenario.  ``plan_step_batched(noisy_states, U_warm, umaps)
-    -> batched SolveResult-like`` swaps in another batched planner.
+    -> batched SolveResult-like`` swaps in another batched planner; the
+    cycle then reads from the card only what the planner reads
+    (``frenet.run_steps`` reads nothing: a cycle is three graph replays on
+    the card, the world, the planner, the advance).
     ``band_plan``, ``global_res``, ``use_kernels`` and ``costmap_sigmas``
     go to ``build_local_costmap_batched``.  ``noise_draws`` (T, B, 3) /
     ``camera_draws`` (T, B, 4): see the module docstring.  Spans
-    (``utils.profiling``): the call, each cycle, the records' stack.
+    (``utils.profiling``): the call, each cycle, the records' stack; with a
+    swapped planner, before the stack, the host's wait for the card while
+    it reads the counters kept there (``profiling.device_counters``).
 
     Returns (final states (B, 4), dict of (T, B, ...) records)."""
     B = x0s.shape[0]
@@ -443,5 +448,10 @@ def closed_loop_full_stack_batched(p: SolverParams, cp: CostmapParams, noise: No
             recs.append(_full_record(rec, res))
             U_warm = res.U.to(dtype)
             states = solver.run(p, solver.Stage(_advance, (states, U_warm)))
+    if plan_step_batched is not None:
+        # the swapped planner's counters kept on the card, read while tracing
+        # (the cycles read nothing: the host waits for the card here alone)
+        with profiling.span("full_stack.counters", wait=True):
+            profiling.device_counters()
     with profiling.span("full_stack.records"):
         return states, _stack_records(recs)

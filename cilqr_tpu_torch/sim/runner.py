@@ -113,8 +113,9 @@ def make_plan_step(algorithm: str, p: SolverParams, noise: NoiseParams, plan: to
         discards the map by definition;
       * `ccnmpc`: ``ccnmpc.run_steps`` with the noise's covariance W (the
         two-phase solve with K2 on per-lane tightened obstacles);
-      * `frenet_*`: ``frenet.plan_steps`` in the name's mode, the noise's
-        sigmas for expansion, the map for propagation;
+      * `frenet_*`: ``frenet.run_steps`` (``plan_steps`` as one graph on the
+        card) in the name's mode, the noise's sigmas for expansion, the map
+        for propagation, the curvature bound made once here;
       * `nrb_rrt`: ``nrb_rrt.plan_steps`` with the noise's sigmas.
 
     ``umaps`` (the per-cycle costmap, else ``unc_map``) is read by `cilqr`
@@ -146,10 +147,12 @@ def make_plan_step(algorithm: str, p: SolverParams, noise: NoiseParams, plan: to
     fp = frenet_params if frenet_params is not None else frenet.FrenetParams()
     if fp.mode != mode:
         fp = dataclasses.replace(fp, mode=mode)
+    kappa = frenet.curvature_bound(p, plan.dtype, plan.device)
     if mode == "propagation":
-        return lambda e, u, umaps=None: frenet.plan_steps(p, fp, plan, n, e, obstacles,
-                                                          unc_map=pick(umaps), sigmas=sig)
-    return lambda e, u, umaps=None: frenet.plan_steps(p, fp, plan, n, e, obstacles, sigmas=sig)
+        return lambda e, u, umaps=None: frenet.run_steps(p, fp, plan, n, e, obstacles,
+                                                         pick(umaps), sig, kappa)
+    return lambda e, u, umaps=None: frenet.run_steps(p, fp, plan, n, e, obstacles, None, sig,
+                                                     kappa)
 
 
 def nrb_params_for_scenario(p: SolverParams, scenario, base=None):

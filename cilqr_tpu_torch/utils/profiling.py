@@ -50,11 +50,12 @@ _HOST_TID, _DEVICE_TID = 0x5A4E0, 0x5A4E1  # the spans' rows in a Chrome trace
 #: host counters (module, attribute) that ``counters()`` reads besides the
 #: launch counters: the modules that keep them enter them on import
 HOST_COUNTERS: list = []
-#: counters kept on a card, as (start, read) pairs of functions: ``start()``
-#: runs as each traced entry call begins and drops, without a host read, what
-#: the card counted before (untraced work); ``read()`` adds what it counted
-#: since to a host counter of ``HOST_COUNTERS`` (a host read: run by
-#: ``device_counters()``, only while tracing)
+#: counters kept on a card (``DeviceCounter``), as (start, read) pairs of
+#: functions: ``start()`` runs as each traced entry call begins and drops,
+#: without a host read, what the card counted before (untraced work);
+#: ``read()`` adds what it counted since to a host counter of
+#: ``HOST_COUNTERS`` (a host read: run by ``device_counters()``, only while
+#: tracing)
 DEVICE_COUNTERS: list = []
 
 
@@ -268,6 +269,59 @@ def device_counters() -> None:
     if _profiler._is_profiler_enabled or _TRACING:
         for _, read in DEVICE_COUNTERS:
             read()
+
+
+class DeviceCounter:
+    """A count kept in an int64 on each card, summed there (inside a graph
+    too) and read by the host only while tracing into the host counter
+    ``module.name``.  The constructor enters that counter in
+    ``HOST_COUNTERS`` and its (``start``, ``read``) pair in
+    ``DEVICE_COUNTERS``."""
+
+    def __init__(self, module, name: str):
+        self.module, self.name = module, name
+        self.totals: dict = {}   # device -> int64 (1,): what was counted on it
+        self.read_at: dict = {}  # device -> that sum at its last read
+        HOST_COUNTERS.append((module, name))
+        DEVICE_COUNTERS.append((self.start, self.read))
+
+    def total(self, device: torch.device) -> torch.Tensor:
+        """``device``'s sum, made at its first use, outside any capture (a
+        graph holds its address): a kernel adds to it in place."""
+        total = self.totals.get(device)
+        if total is None:
+            if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+                raise RuntimeError(f"{self.name}'s total is made before a capture "
+                                   "(in its warm-up)")
+            total = self.totals[device] = torch.zeros(1, dtype=torch.int64, device=device)
+        return total
+
+    def add(self, t: torch.Tensor) -> None:
+        """Adds ``t``'s sum to the total on its device, in stream order (a
+        warm-up's work is thrown away: it counts none)."""
+        from cilqr_tpu_torch.utils import graphs  # which imports this module
+
+        total = self.total(t.device)
+        if not graphs.warming_up():
+            total.add_(t.sum())
+
+    def start(self) -> None:
+        """Zeroes each card's total in stream order (no host read), so that
+        a traced call counts its own work alone."""
+        for device, total in self.totals.items():
+            if device.type == "cuda" and torch.cuda.is_current_stream_capturing():
+                continue
+            total.zero_()
+            self.read_at[device] = 0
+
+    def read(self) -> None:
+        """Adds what each card counted since the last read to the host
+        counter (a host read per card)."""
+        for device, total in self.totals.items():
+            n = int(total)
+            setattr(self.module, self.name,
+                    getattr(self.module, self.name) + n - self.read_at.get(device, 0))
+            self.read_at[device] = n
 
 
 def reset() -> None:

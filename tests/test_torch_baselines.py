@@ -135,6 +135,11 @@ def obstacles(centers, sizes, yaws, p_j):
     return jo, interop.obstacles_from_numpy(jo, dtype=torch.float64, device=DEV)
 
 
+def kappa64(p):
+    """The lattice's curvature bound in float64 (``plan_steps`` is given it)."""
+    return tfr.curvature_bound(p, torch.float64, DEV)
+
+
 def frenet_both(lane_setup, fp_kw, ego, ob=(None, None), um=(None, None), sig=None):
     """(port result at B=1, JAX result) of one Frenet cycle."""
     (p_j, jplan, jn), (p, tplan, tn) = lane_setup
@@ -142,7 +147,7 @@ def frenet_both(lane_setup, fp_kw, ego, ob=(None, None), um=(None, None), sig=No
         p_j, jfr.FrenetParams(**fp_kw), jplan, jn, e, ob[0], um[0],
         None if sig is None else jnp.asarray(sig)))(jnp.asarray(ego))
     got = tfr.plan_steps(p, tfr.FrenetParams(**fp_kw), tplan, tn, t64(ego)[None], ob[1], um[1],
-                         None if sig is None else t64(sig))
+                         None if sig is None else t64(sig), kappa_max=kappa64(p))
     same_result(got, want)
     return got, want
 
@@ -271,7 +276,8 @@ def test_frenet_expansion_requires_sigmas(lane_setup):
     jo, to = obstacles([[115.0, -306.0]], [[4.8, 2.0]], [0.0], p_j)
     ego = np.array([100.0, -306.74, 5.0, 0.0])
     with pytest.raises(ValueError, match="sigmas"):
-        tfr.plan_steps(p, tfr.FrenetParams(mode="expansion"), tplan, tn, t64(ego)[None], to)
+        tfr.plan_steps(p, tfr.FrenetParams(mode="expansion"), tplan, tn, t64(ego)[None], to,
+                       kappa_max=kappa64(p))
     with pytest.raises(ValueError, match="sigmas"):
         jfr.plan_step(p_j, jfr.FrenetParams(mode="expansion"), jplan, jn, jnp.asarray(ego), jo)
 
@@ -308,7 +314,8 @@ def test_frenet_matches_jax_per_lane(lane_setup, mode):
     want = jax.jit(jax.vmap(lambda e: jfr.plan_step(
         p_j, jfr.FrenetParams(mode=mode), jplan, jn, e, jo, jum, jnp.asarray(sig))))(
         jnp.asarray(egos))
-    got = tfr.plan_steps(p, tfr.FrenetParams(mode=mode), tplan, tn, t64(egos), to, tum, t64(sig))
+    got = tfr.plan_steps(p, tfr.FrenetParams(mode=mode), tplan, tn, t64(egos), to, tum, t64(sig),
+                         kappa_max=kappa64(p))
     same_result(got, want, lanes=True)
     lamb = got.lamb.numpy()
     assert lamb.sum() >= 20 and (lamb == 0.0).sum() >= 3   # planned lanes and braking lanes
@@ -320,7 +327,8 @@ def test_frenet_matches_jax_per_lane(lane_setup, mode):
                                                                tum.geom.resolution.expand(40),
                                                                tum.geom.length.expand(40, 2)),
                                                 tum.origin_xy.expand(40, 2),
-                                                tum.origin_yaw.expand(40)), t64(sig))
+                                                tum.origin_yaw.expand(40)), t64(sig),
+                            kappa_max=kappa64(p))
     for g, w in zip(shared, got):
         assert torch.equal(g, w)
 

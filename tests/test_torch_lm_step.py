@@ -349,16 +349,16 @@ def test_counters_are_entered_and_read_only_while_tracing(monkeypatch):
     entered = {(m.__name__.rsplit(".", 1)[-1], n) for m, n in graphs.COUNTERS}
     assert {("lm_cuda", "LANE_LAUNCHES"), ("lm_cuda", "STEP_LAUNCHES")} <= entered
     assert (lm_cuda, "LANES_RUN") in [(m, n) for m, n in profiling.HOST_COUNTERS]
-    assert (lm_cuda._forget_lanes, lm_cuda._read_lanes) in profiling.DEVICE_COUNTERS
+    assert (lm_cuda._LANES.start, lm_cuda._LANES.read) in profiling.DEVICE_COUNTERS
     calls = []
     monkeypatch.setattr(profiling, "DEVICE_COUNTERS", [
         (lambda: calls.append("start"), lambda: calls.append("read")),
-        (lm_cuda._forget_lanes, lm_cuda._read_lanes)])
+        (lm_cuda._LANES.start, lm_cuda._LANES.read)])
     profiling.device_counters()
     assert not calls
     total = torch.tensor([7])
-    monkeypatch.setattr(lm_cuda, "_TOTALS", {torch.device("cpu"): total})
-    monkeypatch.setattr(lm_cuda, "_READ", {torch.device("cpu"): 3})
+    monkeypatch.setattr(lm_cuda._LANES, "totals", {torch.device("cpu"): total})
+    monkeypatch.setattr(lm_cuda._LANES, "read_at", {torch.device("cpu"): 3})
     monkeypatch.setattr(lm_cuda, "LANES_RUN", 0)
     with profiling.tracing():
         with profiling.span("entry.test"):  # untraced counts dropped as the call begins
