@@ -122,7 +122,14 @@ went through its kernels:
                lattice, the advance), then a second graphed call of replays
                alone: no host read (sync debug mode "error"), the lattice's
                Python never run; ``frenet.FEASIBLE`` equal both ways; the
-               peak memory and the graphs' pools.  No timings.
+               lattice kernel (``frenet_cuda``) once a cycle each way; the
+               peak memory and the graphs' pools.  Then the lattice kernel
+               on the eager cycles' inputs held to its plain version
+               (``hold_lattice``: the feasible counts within the band of
+               the bounds moved by 1e-5, the winner, its cost and
+               trajectory), on the first cycle in each mode with one map
+               per lane and one shared, and timed alone at the cell's shape
+               beside its bound and the plain version's time.
 
 Every phase prints a line (the profiles one per batch size); any failure
 raises, so the exit code is nonzero.  The last line is one JSON object:
@@ -150,6 +157,7 @@ from typing import NamedTuple
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_map
 
 # The bound of a kernel (utils/roofline.py): the larger of its bytes (each input
 # read once, each output written once) over the H100's memory rate and its
@@ -754,24 +762,28 @@ def exp_sweep_argv() -> list:
 
 
 EXP_LANE_CYCLES = 5    # cycles of (b) and (c) held to the loop on the plain versions
-# the sweep's `cilqr` and `frenet_propagation` are held on their first, cold
-# cycle (their warm cycles are held in compare's): their references
-# propagate each costmap over the sweep's widest window on the plain
-# versions (`cilqr`'s float64 oracle build ~15 s per cycle, K4's plain
-# version ~14 s)
-EXP_SWEEP_SLOW_HELD = ("cilqr", "frenet_propagation")
+# the sweep's `cilqr` is held on its first, cold cycle (its warm cycles are
+# held in compare's): its references propagate each costmap over the sweep's
+# widest window on the plain versions (the float64 oracle build ~15 s per
+# cycle)
+EXP_SWEEP_SLOW_HELD = ("cilqr",)
 EXP_SWEEP_SLOW_HELD_CYCLES = 1
 EXP_RUN_HELD_EVERY = 2  # every 2nd of `run`'s K1 calls held to its plain version
 EXP_PROFILE_CYCLES = 3
 # the kernels each algorithm's planner launches (K4 and K5 come with the
 # full-stack costmap build); the others launch none
 EXP_PLANNER_KERNELS = {"cilqr": {"step": "lm_step_kernel"}, "cilqr_base": {"K1": "lm_opt_kernel"},
-                       "ccnmpc": {"K2": "riccati_kernel"}}
+                       "ccnmpc": {"K2": "riccati_kernel"},
+                       **{a: {"lattice": "frenet_lattice_kernel"} for a in (
+                           "frenet_origin", "frenet_expansion", "frenet_propagation")}}
 EXP_BUILD_KERNELS = {"K4": "propagate_kernel", "K5": "sample_kernel"}
 # planners that read no kernel's output but K4's map, which equals its plain
 # version on every cell at these shapes (phase 12): their loops on the kernels
-# and on the plain versions must agree bit for bit
-EXP_EXACT = ("frenet_origin", "frenet_expansion", "frenet_propagation", "nrb_rrt")
+# and on the plain versions must agree bit for bit.  (The Frenet modes'
+# lattice kernel sums the map's mean and unwrap's corrections in its own
+# order: each cycle's lattice is held to its plain version on the same
+# inputs, ``hold_lattice``.)
+EXP_EXACT = ("nrb_rrt",)
 K5_TOWN_B = 1024
 
 
@@ -860,11 +872,13 @@ def expect_launches(label: str, algo: str, got: dict, cycles_built: int, lm_step
     ``lm_steps`` times and K3 never (`cilqr`), K1 once per cycle
     of its shared-world solves (`cilqr_base`), K2 and the two-phase step's
     derivatives kernel ``k2`` times each (`ccnmpc`: once per LM iteration of
-    each two-phase solve), nothing else."""
+    each two-phase solve), the lattice kernel once per cycle (``cycles_k1``,
+    the Frenet modes), nothing else."""
     want = {"costmap": cycles_built, "sample": cycles_built, "uncertainty": cycles_built,
             "lm_iter": 0, "lm_step": lm_steps if algo == "cilqr" else 0,
             "lm": cycles_k1 if algo == "cilqr_base" else 0,
-            "riccati": k2 if algo == "ccnmpc" else 0, "cost": k2 if algo == "ccnmpc" else 0}
+            "riccati": k2 if algo == "ccnmpc" else 0, "cost": k2 if algo == "ccnmpc" else 0,
+            "frenet": cycles_k1 if algo.startswith("frenet") else 0}
     require(got == want, f"{label} {algo}: launches {got}, expected {want}")
     if algo == "ccnmpc":
         require(k2 > 0, f"{label} ccnmpc launched no K2")
@@ -961,6 +975,81 @@ def hold_loop(label: str, run, x0s: torch.Tensor, draws: torch.Tensor, counts) -
                            f"through {cycles} cycles ({time.perf_counter() - t0:.1f} s)")
 
 
+LATTICE_TOL = 1e-5       # a rule's bound moved by this share, both ways, bands the plain count
+LATTICE_RANK_REL = 1e-4  # another winner's cost within this of the plain one (the cell's rank_rel)
+LATTICE_X_TOL = 1e-4     # the same winner's trajectory (relative, to at least 1)
+
+
+def lattice_band(p, fp, args, scale: float) -> torch.Tensor:
+    """The plain lattice's per-lane feasible count on ``args`` (its
+    arguments after (p, fp)) with every rule's bound moved by ``scale`` (> 1
+    looser): the acceleration, speed and curvature bounds, the map's
+    threshold, and each obstacle's ellipse (q < 1 becomes q < 1 / scale).
+    The reversing rule's bound stays."""
+    from cilqr_tpu_torch.models import frenet
+
+    start, ref, axes, kappa, obs, umap = args
+    p2 = dataclasses.replace(p, acc_max=p.acc_max * scale, acc_min=p.acc_min * scale,
+                             speed_max=p.speed_max * scale)
+    fp2 = dataclasses.replace(fp, unc_threshold=fp.unc_threshold * scale)
+    if obs:
+        obs = [obs[0] / math.sqrt(scale), obs[1] / math.sqrt(scale), *obs[2:]]
+    return frenet.lattice_plain(p2, fp2, start, ref, axes, kappa * scale, obs, umap)[4]
+
+
+def hold_lattice(label: str, p, fp, calls: list) -> dict:
+    """Each lattice call's arguments after (p, fp) in ``calls``: the kernel
+    (``frenet_cuda.lattice``) against its plain version on the same inputs
+    (``route.plain()``), lane by lane: the feasible count between the plain
+    version's with every rule's bound tightened and loosened by
+    ``LATTICE_TOL`` (so equal but for candidates that near a bound); whether
+    any candidate is feasible equal unless that band reaches 0; the winner
+    the same, or its cost within ``LATTICE_RANK_REL`` of the plain version's
+    least (feasible) cost; the same winner's cost within ``LATTICE_TOL`` and
+    its trajectory within ``LATTICE_X_TOL`` (relative, to at least 1).
+    Returns the counts of what differed."""
+    from cilqr_tpu_torch.models import frenet
+    from cilqr_tpu_torch.ops import frenet_cuda
+
+    st = dict(calls=len(calls), lanes=0, count_differs=0, band_lanes=0, straddle=0,
+              winner_differs=0, J_rel_same=0.0, J_rel_other=0.0, X_rel_same=0.0)
+    for args in calls:
+        X, best, J, ok, n = frenet_cuda.lattice(p, fp, *args)
+        with route.plain():
+            Xp, bp, Jp, okp, np_ = frenet.lattice_plain(p, fp, *args)
+            lo = lattice_band(p, fp, args, 1.0 - LATTICE_TOL)
+            hi = lattice_band(p, fp, args, 1.0 + LATTICE_TOL)
+        require(bool(((lo <= n) & (n <= hi)).all()),
+                f"{label}: a lane's feasible count {n[(n < lo) | (n > hi)][:4].tolist()} outside "
+                f"the plain version's band [{lo[(n < lo) | (n > hi)][:4].tolist()}, "
+                f"{hi[(n < lo) | (n > hi)][:4].tolist()}]")
+        straddle = (lo == 0) & (hi > 0)
+        require(bool(((ok == okp) | straddle).all()),
+                f"{label}: any feasible differs on {int(((ok != okp) & ~straddle).sum())} lanes")
+        same = best == bp
+        rel = (J.double() - Jp.double()).abs() / Jp.double().abs().clamp(min=1.0)
+        both = ok == okp
+        require(bool((same | (rel <= LATTICE_RANK_REL) | ~both).all()),
+                f"{label}: another winner costs more than {LATTICE_RANK_REL} relative over the "
+                f"plain version's on {int((~same & (rel > LATTICE_RANK_REL) & both).sum())} lanes")
+        xrel = ((X.double() - Xp.double()).abs() / Xp.double().abs().clamp(min=1.0)).flatten(1)
+        xrel = xrel.amax(1)
+        most = lambda t: float(t.max()) if t.numel() else 0.0
+        require(bool((rel[same] <= LATTICE_TOL).all()),
+                f"{label}: the same winner's cost off by {most(rel[same]):.3e} relative")
+        require(bool((xrel[same] <= LATTICE_X_TOL).all()),
+                f"{label}: the same winner's trajectory off by {most(xrel[same]):.3e}")
+        st["lanes"] += int(n.numel())
+        st["count_differs"] += int((n != np_).sum())
+        st["band_lanes"] += int((lo != hi).sum())
+        st["straddle"] += int(straddle.sum())
+        st["winner_differs"] += int((~same).sum())
+        st["J_rel_same"] = max(st["J_rel_same"], most(rel[same]))
+        st["J_rel_other"] = max(st["J_rel_other"], most(rel[~same]))
+        st["X_rel_same"] = max(st["X_rel_same"], most(xrel[same]))
+    return st
+
+
 def as_double(x):
     """x with every floating tensor in it (alone or in named tuples) in
     float64."""
@@ -1006,18 +1095,20 @@ def experiment_layer(card: str, counts, dev: torch.device) -> tuple:
     single-map form and K1 at B=1 per cycle), (b) `compare --full-stack` on
     two scenarios and the CLI's seven algorithms (per cycle K5 and K4; K3
     per LM iteration for `cilqr`, K1 for `cilqr_base`, K2 per LM iteration
-    of each two-phase solve for `ccnmpc`; the Frenet lattice and NRB-RRT
-    launch no kernel of their own), (c) `sweep` over two sigmas and six
-    algorithms (`cilqr` and `frenet_propagation` on the full stack with K5
-    and K4; the others on `closed_loop_batched`).  Launch counts as those
-    routes say, per algorithm, records finite, the first cycles of every
-    algorithm of (b) and (c) held to the same loops on the plain versions,
+    of each two-phase solve for `ccnmpc`; the lattice kernel once per cycle
+    for the Frenet modes; NRB-RRT launches no kernel of its own), (c) `sweep`
+    over two sigmas and six algorithms (`cilqr` and `frenet_propagation` on
+    the full stack with K5 and K4; the others on `closed_loop_batched`).
+    Launch counts as those routes say, per algorithm, records finite, the
+    first cycles of every algorithm of (b) and (c) held to the same loops on
+    the plain versions (the Frenet modes: each cycle's lattice held to its
+    plain version on the cycle's inputs, ``hold_lattice``),
     K5 exact on the synthetic town at poses along and off the `long` route,
     the time of each command and algorithm, and a profile of 3 cycles of
     each.  Returns (the launch counts of each command, per command and
     algorithm its seconds, launches and vehicle-cycles/s)."""
     from cilqr_tpu_torch import CostmapParams, NoiseParams, SolverParams
-    from cilqr_tpu_torch.models import ccnmpc, nrb_rrt, reference_path as rp, solver_batched
+    from cilqr_tpu_torch.models import ccnmpc, frenet, nrb_rrt, reference_path as rp, solver_batched
     from cilqr_tpu_torch.ops import costmap as costmap_mod, sample_cuda
     from cilqr_tpu_torch.sim import plant, runner, scenarios, sweep
 
@@ -1043,7 +1134,7 @@ def experiment_layer(card: str, counts, dev: torch.device) -> tuple:
         launches["run"] = read_counts()
         require(launches["run"] == {"costmap": run_cycles + 1, "sample": 0,
                                     "uncertainty": run_cycles + 1, "lm_iter": 0, "lm_step": 0,
-                                    "lm": run_cycles + 1, "riccati": 0, "cost": 0},
+                                    "lm": run_cycles + 1, "riccati": 0, "cost": 0, "frenet": 0},
                 f"run --full-stack launches {launches['run']}, expected the costmap layers "
                 f"kernel, K4 and K1 {run_cycles + 1} times")
         rec = runs[0]
@@ -1249,6 +1340,29 @@ def experiment_layer(card: str, counts, dev: torch.device) -> tuple:
             draws = block[:held]
             head = (f"[15 lanes] {label} (gauntlet) {algo}, {runs_} lanes, first {held} cycles "
                     "vs the loop on the plain versions")
+            if algo.startswith("frenet"):
+                t0 = time.perf_counter()
+                zero_counts()
+                cloned = lambda out, args, kw: tree_map(
+                    lambda t: t.clone() if isinstance(t, torch.Tensor) else t, args)
+                with recording(frenet, "run_steps", [], keep=cloned) as calls:
+                    loop(algo)(x0s, draws, torch.float32, True)
+                torch.cuda.synchronize()
+                got_launches = read_counts()
+                require(len(calls) == held and got_launches["frenet"] == held,
+                        f"{label} {algo}: {len(calls)} plans, launches {got_launches}")
+                p_, fp_ = calls[0][:2]
+                st = hold_lattice(f"{label} {algo}", p_, fp_, [frenet.lattice_inputs(
+                    p_, fp_, rp.get_local_plan(p_, a[2], a[3], a[4]), a[4], a[5], a[6], a[7],
+                    kappa_max=a[8]) for a in calls])
+                print(f"[15 lanes] {label} (gauntlet) {algo}, {runs_} lanes, first {held} "
+                      f"cycles: launches {got_launches} || each cycle's lattice kernel vs its "
+                      f"plain version on the cycle's inputs: {st['count_differs']} of "
+                      f"{st['lanes']} lanes' feasible counts differ ({st['band_lanes']} near a "
+                      f"bound), {st['winner_differs']} winners differ, the same winner's cost "
+                      f"within {st['J_rel_same']:.2e} relative and X within "
+                      f"{st['X_rel_same']:.2e} ({time.perf_counter() - t0:.1f} s)", flush=True)
+                continue
             if algo in EXP_EXACT:
                 t0 = time.perf_counter()
                 zero_counts()
@@ -1274,8 +1388,7 @@ def experiment_layer(card: str, counts, dev: torch.device) -> tuple:
                         nrb_rrt.GRAPHS = True
                     eager = ", and to the loop run eagerly (no CUDA graph)"
                 print(f"{head}: launches {got_launches} || every cycle's X, U, iterations, J and "
-                      f"lamb equal bit for bit (the planner reads no kernel's output"
-                      f"{' but K4' if algo == 'frenet_propagation' else ''}){eager} "
+                      f"lamb equal bit for bit (the planner reads no kernel's output){eager} "
                       f"({time.perf_counter() - t0:.1f} s)", flush=True)
                 continue
             got_launches, _, line = hold_loop(f"{label} {algo}", loop(algo), x0s, draws,
@@ -1487,7 +1600,7 @@ def scale_out(card: str, counts, dev: torch.device) -> dict:
             b = MC_B // shards
             k3 = sum(int(res.iterations[i * b:(i + 1) * b].max()) for i in range(shards))
             require(c == {"costmap": 0, "sample": 0, "uncertainty": shards, "lm_iter": 0,
-                          "lm_step": k3, "lm": 0, "riccati": 0, "cost": 0},
+                          "lm_step": k3, "lm": 0, "riccati": 0, "cost": 0, "frenet": 0},
                     f"sharded MC on {shards} shards launched {c}, expected K4 {shards}, the step "
                     f"kernel {k3}")
             require(same_bits(res, mref), f"sharded MC on {shards} shards differs from the "
@@ -1528,7 +1641,7 @@ def scale_out(card: str, counts, dev: torch.device) -> dict:
                  for v in rec["iterations"][:, i * b:(i + 1) * b].amax(dim=1))
         require(c == {"costmap": SO_FS_SHARDS * FS_CYCLES, "sample": SO_FS_SHARDS * FS_CYCLES,
                       "uncertainty": SO_FS_SHARDS * FS_CYCLES, "lm_iter": 0, "lm_step": k3,
-                      "lm": 0, "riccati": 0, "cost": 0},
+                      "lm": 0, "riccati": 0, "cost": 0, "frenet": 0},
                 f"sharded full stack launched {c}, expected the costmap layers kernel, K5 and "
                 f"K4 {SO_FS_SHARDS * FS_CYCLES}, the step kernel {k3}")
         require(bool(torch.isfinite(xf).all()) and tuple(rec["J"].shape) == (FS_CYCLES, FS_B),
@@ -1702,7 +1815,7 @@ def bench_sections(calls: list, B: int) -> dict:
     from cilqr_tpu_torch import benchmark
 
     zero = {"costmap": 0, "sample": 0, "uncertainty": 0, "lm_iter": 0, "lm_step": 0, "lm": 0,
-            "riccati": 0, "cost": 0}
+            "riccati": 0, "cost": 0, "frenet": 0}
     sections = {}
     for name, got, kept in calls:
         if name == "run_steps_batched":
@@ -2643,7 +2756,7 @@ def ccnmpc_campaign(card: str, counts, dev: torch.device) -> dict:
                 two_phase_with_maps=mapped)
 
 
-def frenet_campaign(card: str, dev: torch.device) -> dict:
+def frenet_campaign(card: str, counts, dev: torch.device) -> dict:
     """Phase 23: ``closed_loop_full_stack_batched`` with the Frenet plan step
     in propagation mode on the benchmark's deployment (FR_CONFIG: N=40, the
     lattice of 180 candidates, the compare world's obstacle and Town02-class
@@ -2663,6 +2776,7 @@ def frenet_campaign(card: str, dev: torch.device) -> dict:
     from cilqr_tpu_torch.sim import plant, runner, sweep
     from cilqr_tpu_torch.utils import graphs, profiling
 
+    zero_counts, read_counts = counts
     t_phase = time.perf_counter()
     cfg = json.loads(FR_CONFIG.read_text())
     w = cfg["world"]
@@ -2702,16 +2816,18 @@ def frenet_campaign(card: str, dev: torch.device) -> dict:
             obs_xyyaw=sat[0], obs_size=sat[1], obs_mask=sat[2], band_plan=band,
             noise_draws=draws, plan_step_batched=step)
 
-    out, feasible, lattices = {}, {}, {}
+    out, feasible, lattices, launches = {}, {}, {}, {}
     try:
         solver.CAPTURED.clear()
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats(dev)
         captures = graphs.CAPTURES
         for mode in ("graphed", "replayed", "eager"):
+            zero_counts()
             with loop_mode("eager" if mode == "eager" else "graphed"), \
                     recording(frenet, "run_steps", []) as plans, \
-                    recording(frenet, "plan_steps", []) as lattice_calls:
+                    recording(frenet, "plan_steps", [],
+                              keep=lambda out, args, kw: (args, kw)) as lattice_calls:
                 if mode == "replayed":
                     with no_host_sync([]):
                         out[mode] = (*closed_loop(), list(plans))
@@ -2721,6 +2837,7 @@ def frenet_campaign(card: str, dev: torch.device) -> dict:
                     feasible[mode] = profiling.counters()["frenet.FEASIBLE"]
                 torch.cuda.synchronize()
                 lattices[mode] = len(lattice_calls)
+            launches[mode] = read_counts()["frenet"]
             if mode == "graphed":
                 peak = torch.cuda.max_memory_allocated(dev)
                 made, held = graphs.CAPTURES - captures, len(solver.CAPTURED)
@@ -2739,6 +2856,8 @@ def frenet_campaign(card: str, dev: torch.device) -> dict:
             f"(an eager kernel in the cycle), {lattices['eager']} times eagerly")
     require(feasible["graphed"] == feasible["eager"] > 0,
             f"frenet: feasible pairs graphed {feasible['graphed']}, eager {feasible['eager']}")
+    require(all(n == FR_CYCLES for n in launches.values()),
+            f"frenet: lattice kernel launches {launches}, expected one a cycle each way")
     share = 100.0 * feasible["eager"] / (FR_B * fp.n_candidates * FR_CYCLES)
     print(f"[23 frenet campaign] {FR_CONFIG.name} at B={FR_B} x {FR_CYCLES} cycles, K="
           f"{fp.n_candidates}, N={p.horizon}: graphed = replayed = eager bit for bit (every "
@@ -2748,9 +2867,74 @@ def frenet_campaign(card: str, dev: torch.device) -> dict:
           f"of the lattice) | peak memory {peak / 1e9:.2f} GB over the first call (captures "
           f"included), the graphs' pools {' / '.join(f'{b / 1e9:.2f}' for b in pools)} GB on "
           f"{card}", flush=True)
+    kernel = lattice_kernel(card, p, fp, lattice_calls)
     print(f"[23 done] phase 23 took {time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
     return dict(B=FR_B, cycles=FR_CYCLES, captures=made, feasible=feasible["graphed"],
-                feasible_pct=share, peak_bytes=peak, pool_bytes=pools)
+                feasible_pct=share, peak_bytes=peak, pool_bytes=pools, launches=launches,
+                lattice_kernel=kernel)
+
+
+def lattice_kernel(card: str, p, fp, calls: list) -> dict:
+    """The lattice kernel on the inputs of the campaign's eager cycles
+    (``calls``: ``plan_steps``' arguments): held to its plain version by
+    ``hold_lattice`` on every cycle (propagation mode, one map per lane, as
+    the cell), and on the first cycle in each mode with one map per lane and
+    one shared (the first lane's); then at the cell's shape alone: its ms by
+    events around a CUDA graph of its op's calls, its resources, its bound,
+    the plain version's ms."""
+    from cilqr_tpu_torch.models import frenet, reference_path as rp
+    from cilqr_tpu_torch.models.uncertainty import UncertaintyMap
+    from cilqr_tpu_torch.ops import frenet_cuda
+    from cilqr_tpu_torch.ops.gridmap import GridGeom
+    from cilqr_tpu_torch.utils import roofline
+
+    def inputs(fp_, args, kw, unc_map):
+        _, _, xy, n, egos, obstacles, _, sigmas = args
+        plan = rp.get_local_plan(p, xy, n, egos)
+        return frenet.lattice_inputs(p, fp_, plan, egos, obstacles, unc_map, sigmas,
+                                     kappa_max=kw["kappa_max"])
+
+    t0 = time.perf_counter()
+    cell = hold_lattice("frenet lattice, the campaign's cycles", p, fp,
+                        [inputs(fp, a, kw, a[6]) for a, kw in calls])
+    a0, kw0 = calls[0]
+    um = a0[6]
+    shared = UncertaintyMap(um.values[0], GridGeom(um.geom.center[0], um.geom.resolution[0],
+                                                   um.geom.length[0]),
+                            um.origin_xy[0], um.origin_yaw[0])
+    modes = {}
+    for mode in frenet.MODES:
+        for form, m in (("per lane", um), ("shared", shared)):
+            fp_ = dataclasses.replace(fp, mode=mode)
+            modes[f"{mode}, {form}"] = hold_lattice(f"frenet lattice, {mode}, {form} map", p, fp_,
+                                                    [inputs(fp_, a0, kw0, m)])
+    held_s = time.perf_counter() - t0
+    args = inputs(fp, a0, kw0, um)
+    start, ref, axes, _, obs, umap = args
+    shape = tuple(a.shape[0] for a in axes)
+    B, K, S, N = start.shape[0], math.prod(shape), ref[0].shape[1], p.horizon
+    live = int(obs[6].sum())
+    res = frenet_cuda.kernel_resources(shape, S, N, obs[0].shape[0])
+    bound = roofline.frenet_bound(B, shape, N, S, live, tuple(umap[0].shape[-2:]))
+    op_ms = graph_ms(lambda: frenet_cuda.lattice(p, fp, *args), 10)
+    with route.plain():
+        plain_ms, _ = timed(lambda: frenet.lattice_plain(p, fp, *args), 2)
+    others = " | ".join(f"{k}: {v['count_differs']} lanes' counts, {v['winner_differs']} winners "
+                        f"differ" for k, v in modes.items())
+    print(f"[23 lattice kernel] B={B}, K={K}, N={N}, S={S}, {live} live obstacle slot(s) of "
+          f"{obs[0].shape[0]}, one map per lane: {res['threads']} threads, {res['registers']} "
+          f"registers, {res['local_bytes']} B local, {res['shared_bytes']} B shared per block, "
+          f"{res['blocks_per_sm']} blocks/SM | the op {op_ms:.3f} ms by events (a graph of its "
+          f"calls), bound {bound['bound_ms']:.3f} ms ({bound['bound_by']}), the plain version "
+          f"{plain_ms:.3f} ms | held on the campaign's {cell['calls']} cycles x {B} lanes: "
+          f"{cell['count_differs']} lanes' feasible counts differ ({cell['band_lanes']} lanes "
+          f"have a candidate within {LATTICE_TOL} of a bound), {cell['winner_differs']} winners "
+          f"differ (cost within {cell['J_rel_other']:.2e} relative), the same winner's cost "
+          f"within {cell['J_rel_same']:.2e}, X within {cell['X_rel_same']:.2e} | first cycle: "
+          f"{others} ({held_s:.1f} s) on {card}", flush=True)
+    return dict(name="frenet_lattice_kernel", shape=f"B={B}, K={K}, N={N}", **res,
+                ms=op_ms, bound_ms=bound["bound_ms"], bound_by=bound["bound_by"],
+                plain_ms=plain_ms, held=cell, modes=modes)
 
 
 COST_REPS = 20    # back-to-back calls of the derivatives kernel, timed
@@ -2974,8 +3158,8 @@ def main() -> None:
     from cilqr_tpu_torch.models import costs, dynamics, solver, solver_batched
     from cilqr_tpu_torch.models.reference_path import get_local_plan
     from cilqr_tpu_torch.ops import costmap as costmap_mod
-    from cilqr_tpu_torch.ops import (cost_cuda, costmap_cuda, gridmap, lm_cuda, riccati_cuda,
-                                     sample_cuda, uncertainty_cuda)
+    from cilqr_tpu_torch.ops import (cost_cuda, costmap_cuda, frenet_cuda, gridmap, lm_cuda,
+                                     riccati_cuda, sample_cuda, uncertainty_cuda)
     from cilqr_tpu_torch.parallel import monte_carlo as mc
     from cilqr_tpu_torch.sim import perception, plant
     from cilqr_tpu_torch.sim.example_scenario import example_scenario
@@ -3942,14 +4126,14 @@ def main() -> None:
         lm_cuda.LAUNCHES = lm_cuda.ITER_LAUNCHES = costmap_cuda.LAUNCHES = 0
         lm_cuda.STEP_LAUNCHES = lm_cuda.LANE_LAUNCHES = 0
         riccati_cuda.LAUNCHES = uncertainty_cuda.LAUNCHES = sample_cuda.LAUNCHES = 0
-        cost_cuda.LAUNCHES = 0
+        cost_cuda.LAUNCHES = frenet_cuda.LAUNCHES = 0
 
     def read_counts():
         return {"costmap": costmap_cuda.LAUNCHES, "sample": sample_cuda.LAUNCHES,
                 "uncertainty": uncertainty_cuda.LAUNCHES,
                 "lm_iter": lm_cuda.ITER_LAUNCHES, "lm_step": lm_cuda.STEP_LAUNCHES,
                 "lm": lm_cuda.LAUNCHES, "riccati": riccati_cuda.LAUNCHES,
-                "cost": cost_cuda.LAUNCHES}
+                "cost": cost_cuda.LAUNCHES, "frenet": frenet_cuda.LAUNCHES}
 
     fs_lines = []
     for label, gm in (("all-zero map", gmap_zero), ("random map", gmap)):
@@ -3962,7 +4146,7 @@ def main() -> None:
         it_max = [int(v) for v in rec["iterations"].amax(dim=1)]
         require(fs_launches == {"costmap": FS_CYCLES, "sample": FS_CYCLES,
                                 "uncertainty": FS_CYCLES, "lm_iter": 0, "lm_step": sum(it_max),
-                                "lm": 0, "riccati": 0, "cost": 0},
+                                "lm": 0, "riccati": 0, "cost": 0, "frenet": 0},
                 f"full-stack launches {fs_launches} on the {label}, expected the layers kernel, "
                 f"K5 and K4 once per cycle, the step kernel {it_max} per cycle, K1, K2 and K3 "
                 f"never")
@@ -4021,7 +4205,7 @@ def main() -> None:
         sub_launches, got_c, line = hold_loop(f"full-stack, {label}", captured(gm), x0s[:L],
                                               fs_draws[:cycles, :L], (zero_counts, read_counts))
         require(sub_launches == {"costmap": cycles, "sample": cycles, "uncertainty": cycles,
-                                 "lm": 0, "riccati": 0, "cost": 0, "lm_iter": 0,
+                                 "lm": 0, "riccati": 0, "cost": 0, "frenet": 0, "lm_iter": 0,
                                  "lm_step": sum(int(g[2].max()) for g in got_c)},
                 f"the {L}-lane run launched {sub_launches}")
         print(f"[13 lanes] {label}, first {L} lanes vs the loop on the plain versions: {line}",
@@ -4047,7 +4231,7 @@ def main() -> None:
     torch.cuda.synchronize()
     cl_launches = read_counts()
     require(cl_launches == {"costmap": 0, "sample": 0, "uncertainty": 0, "lm_iter": 0,
-                            "lm_step": 0, "lm": CL_CYCLES, "riccati": 0, "cost": 0},
+                            "lm_step": 0, "lm": CL_CYCLES, "riccati": 0, "cost": 0, "frenet": 0},
             f"closed_loop_batched launches {cl_launches}")
     require(bool(torch.isfinite(xf_cl).all()) and bool(torch.isfinite(rec_cl["J"]).all())
             and 1 <= int(rec_cl["iterations"].min())
@@ -4236,8 +4420,10 @@ def main() -> None:
                                   path="campaign.ccnmpc_b8192's deployment, phase 22")
 
     # 23. the Frenet lattice campaign of the benchmark's deployment, graphed
-    # against eager
-    frenet_campaign(card, dev)
+    # against eager, and the lattice kernel on its cycles' inputs
+    fr = frenet_campaign(card, counts, dev)
+    kernels["frenet"] = dict(fr["lattice_kernel"], launches=fr["launches"],
+                             path="campaign.frenet_prop_b8192's deployment, phase 23")
 
     kernels["lm"]["launches"] = main_launches["lm"]
     # K2's own path: ccnmpc's two-phase solves in `compare --full-stack`
@@ -4270,7 +4456,8 @@ def main() -> None:
     print(json.dumps({"kernels": [kernels[k] for k in ("lm", "riccati", "lm_iter", "lm_step",
                                                        "uncertainty",
                                                        "sample", "costmap", "opchain",
-                                                       "lm_continue", "cost_derivs")]}))
+                                                       "lm_continue", "cost_derivs",
+                                                       "frenet")]}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

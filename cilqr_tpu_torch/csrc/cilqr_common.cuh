@@ -1,5 +1,7 @@
-// Device functions shared by the Riccati kernel (riccati.cu) and the LM
-// kernel (lm.cu): one backward Riccati step and one closed-loop rollout step.
+// Device functions shared by the Riccati kernel (riccati.cu), the LM kernels
+// (lm.cu) and the Frenet lattice kernel (frenet.cu): one backward Riccati
+// step, one closed-loop rollout step, the explicitly rounded operations and
+// the bilinear sample of a lane's own map.
 //
 // Layout of every per-step array: scenario-minor, [step][component][B], so
 // the 32 threads of a warp (32 neighbouring scenarios) read 32 neighbouring
@@ -16,6 +18,71 @@ __device__ __forceinline__ size_t at(int step, int comp, int ncomp, int B, int b
 
 __device__ __forceinline__ float clampf(float x, float lo, float hi) {
   return fminf(fmaxf(x, lo), hi);  // jnp.clip order: min(max(x, lo), hi)
+}
+
+// Explicitly rounded operations: nvcc may not contract them into an FMA, so a
+// sequence of them rounds as PyTorch's elementwise passes round, one by one.
+__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
+
+// Floats of a lane's map geometry row (lm_cuda.prep_lane_maps): [origin_x,
+// origin_y, cos yaw, sin yaw, first_x, first_y, res, lo_x, hi_x, lo_y, hi_y,
+// -1/res, 0, 0, 0, 0].
+constexpr int kGeoRow = 16;
+
+// The bilinear sample of one map (row-major [H][W]) at the global point
+// (x0, x1), from the map's geometry row `geo`, every operation explicitly
+// rounded in the order of the plain version as PyTorch runs it on the card:
+// the map frame (uncertainty._to_map_frame; models/frenet's local frame), the
+// cell index (gridmap.sample_bilinear_with_grad_batched, which divides by the
+// resolution) and the interpolation (gridmap._bilinear_tail), so the frame,
+// the `inside` test (gridmap.in_bounds) and the cell come out as there, ties
+// at cell edges included.  Also the global-frame gradient of val / 100
+// (uncertainty_sample_batched's, the index derivatives times -1/res; its
+// division by 100 a product with float(1 / 100), which is what PyTorch's
+// CUDA division by a Python scalar computes); `cell` (when given) receives
+// the corner cell i0 * W + j0.
+struct MapSample {
+  float val, gx, gy;
+  bool inside;
+};
+
+__device__ __forceinline__ MapSample lane_map_sample(const float* geo, const float* map, int H,
+                                                     int W, float x0, float x1,
+                                                     int* cell = nullptr) {
+  const float ox = geo[0], oy = geo[1], cy = geo[2], sy = geo[3];
+  const float fx0 = geo[4], fy0 = geo[5], res = geo[6], inv = geo[11];
+  const float d0 = sub(x0, ox);
+  const float d1 = sub(x1, oy);
+  const float lx = add(mul(cy, d0), mul(sy, d1));
+  const float ly = add(mul(-sy, d0), mul(cy, d1));
+  MapSample m;
+  m.inside = (lx >= geo[7]) && (lx <= geo[8]) && (ly >= geo[9]) && (ly <= geo[10]);
+  const float fi = clampf(__fdiv_rn(sub(fx0, lx), res), 0.0f, (float)(H - 1));
+  const float fj = clampf(__fdiv_rn(sub(fy0, ly), res), 0.0f, (float)(W - 1));
+  const float i0 = clampf(floorf(fi), 0.0f, (float)(H - 2));
+  const float j0 = clampf(floorf(fj), 0.0f, (float)(W - 2));
+  const float ti = sub(fi, i0);
+  const float tj = sub(fj, j0);
+  const int base = (int)i0 * W + (int)j0;
+  if (cell) *cell = base;
+  const float v00 = map[base];
+  const float v01 = map[base + 1];
+  const float v10 = map[base + W];
+  const float v11 = map[base + W + 1];
+  const float ri = sub(1.0f, ti), rj = sub(1.0f, tj);
+  const float v0 = add(mul(v00, rj), mul(v01, tj));
+  const float v1 = add(mul(v10, rj), mul(v11, tj));
+  m.val = add(mul(v0, ri), mul(v1, ti));
+  const float dv_di = sub(v1, v0);
+  const float dv_dj = add(mul(sub(v01, v00), ri), mul(sub(v11, v10), ti));
+  const float hundredth = 1.0f / 100.0f;
+  const float gci = mul(mul(dv_di, inv), hundredth);
+  const float gcj = mul(mul(dv_dj, inv), hundredth);
+  m.gx = sub(mul(cy, gci), mul(sy, gcj));
+  m.gy = add(mul(sy, gci), mul(cy, gcj));
+  return m;
 }
 
 // Constants of the Model.cpp:17-30 step.

@@ -23,10 +23,6 @@ namespace cilqr {
 
 constexpr int kMaxCoef = 16;
 
-__device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
-__device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
-__device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
-
 // Per-scenario fit parameters (reference_path.LocalPlan.samp_frame).
 struct Fit {
   float cs[kMaxCoef];

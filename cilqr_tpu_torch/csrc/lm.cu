@@ -132,7 +132,6 @@ struct Ctx {
 // (when cfg.has_unc), K3's external planes, or the lane's own map (the step
 // kernel), sampled with explicitly rounded operations.
 constexpr int kUncShared = 0, kUncExt = 1, kUncLane = 2;
-constexpr int kGeoRow = 16;  // floats of a lane's geometry row (lm_cuda.prep_lane_maps)
 
 // The group's lanes and this lane's place in it.
 template <int G>
@@ -155,17 +154,14 @@ __device__ __forceinline__ void group_sync(const Ctx& cx) {
 
 // Bilinear costmap sample + global-frame gradient of c = val/100
 // (models/uncertainty.py semantics): (e, gx, gy), e = 0 outside the map.
-// kRounded (the step kernel, one map per lane): every operation explicitly
-// rounded, in the order of the plain version as PyTorch runs it on the card
-// (uncertainty_sample_batched: _to_map_frame, sample_bilinear_with_grad_batched,
-// _barrier_sample), from the lane's geometry row [origin_x, origin_y, cos
-// yaw, sin yaw, first_x, first_y, res, lo_x, hi_x, lo_y, hi_y, -1/res]
-// computed by PyTorch as the plain version computes them: the cell index
-// divides by the resolution as the plain version does, and the two divisions
-// by 100 are products with float(1 / 100), which is what PyTorch's CUDA
-// division by a Python scalar computes.  So the frame, the `inside` test and
-// the cell come out as in the plain version, ties at cell edges included.
-// `cell` (when given) receives i0 * W + j0.  Else (K1) the arithmetic of the
+// kRounded (the step kernel, one map per lane): the lane's map and its
+// gradient sampled by lane_map_sample (cilqr_common.cuh: every operation
+// explicitly rounded, in the order of the plain version as PyTorch runs it
+// on the card, from the lane's geometry row computed by PyTorch as the plain
+// version computes it), then the barrier (uncertainty_sample_batched's
+// _barrier_sample), whose division by 100 is a product with float(1 / 100),
+// which is what PyTorch's CUDA division by a Python scalar computes.  `cell`
+// (when given) receives i0 * W + j0.  Else (K1) the arithmetic of the
 // shared-map sampler, from K1's scalars (s[6] = 1/res), may contract.
 template <bool kRounded>
 __device__ void unc_sample(const Ctx& cx, float x0, float x1, float& e, float& gx, float& gy,
@@ -173,37 +169,10 @@ __device__ void unc_sample(const Ctx& cx, float x0, float x1, float& e, float& g
   const LMConfig& c = cx.c;
   const float* s = cx.scl;
   if constexpr (kRounded) {
-    const float ox = s[0], oy = s[1], cy = s[2], sy = s[3];
-    const float fx0 = s[4], fy0 = s[5], res = s[6], inv = s[11];
-    const float d0 = sub(x0, ox);
-    const float d1 = sub(x1, oy);
-    const float lx = add(mul(cy, d0), mul(sy, d1));
-    const float ly = add(mul(-sy, d0), mul(cy, d1));
-    const bool inside = (lx >= s[7]) && (lx <= s[8]) && (ly >= s[9]) && (ly <= s[10]);
-    const float fi = clampf(__fdiv_rn(sub(fx0, lx), res), 0.0f, (float)(c.H - 1));
-    const float fj = clampf(__fdiv_rn(sub(fy0, ly), res), 0.0f, (float)(c.W - 1));
-    const float i0 = clampf(floorf(fi), 0.0f, (float)(c.H - 2));
-    const float j0 = clampf(floorf(fj), 0.0f, (float)(c.W - 2));
-    const float ti = sub(fi, i0);
-    const float tj = sub(fj, j0);
-    const int base = (int)i0 * c.W + (int)j0;
-    if (cell) *cell = base;
-    const float v00 = cx.map[base];
-    const float v01 = cx.map[base + 1];
-    const float v10 = cx.map[base + c.W];
-    const float v11 = cx.map[base + c.W + 1];
-    const float ri = sub(1.0f, ti), rj = sub(1.0f, tj);
-    const float v0 = add(mul(v00, rj), mul(v01, tj));
-    const float v1 = add(mul(v10, rj), mul(v11, tj));
-    const float val = add(mul(v0, ri), mul(v1, ti));
-    const float dv_di = sub(v1, v0);
-    const float dv_dj = add(mul(sub(v01, v00), ri), mul(sub(v11, v10), ti));
-    const float hundredth = 1.0f / 100.0f;
-    const float gci = mul(mul(dv_di, inv), hundredth);
-    const float gcj = mul(mul(dv_dj, inv), hundredth);
-    gx = sub(mul(cy, gci), mul(sy, gcj));
-    gy = add(mul(sy, gci), mul(cy, gcj));
-    e = inside ? mul(c.q1u, expf(mul(c.q2u, mul(val, hundredth)))) : 0.0f;
+    const MapSample m = lane_map_sample(s, cx.map, c.H, c.W, x0, x1, cell);
+    gx = m.gx;
+    gy = m.gy;
+    e = m.inside ? mul(c.q1u, expf(mul(c.q2u, mul(m.val, 1.0f / 100.0f)))) : 0.0f;
     return;
   }
   const float ox = s[0], oy = s[1], cyw = s[2], syw = s[3];

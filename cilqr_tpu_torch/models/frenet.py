@@ -18,8 +18,14 @@ candidates are masked (+inf cost) and the first candidate of least cost
 wins (``torch.argmin`` takes the first index on ties, as ``jnp.argmin``
 does), fetched by an index gather.  The reference line is the CILQR local
 plan (global-plan window + degree-5 polyfit + densified sample table), so
-both planners track the identical path.  Plain PyTorch: no TPU kernel
-stands behind this module.
+both planners track the identical path.  No TPU kernel stands behind
+this module (the JAX package's lattice is plain XLA); on the card the
+candidates' evaluation and the selection are one CUDA kernel
+(``ops/frenet_cuda.lattice`` → op ``cilqr_torch::frenet_lattice`` →
+``csrc/frenet.cu``), whose plain version is ``lattice_plain``: a block per
+lane and a thread per candidate, so no (B, K, N+1) tensor is formed there.
+The reference line, the lane's start terms, the grid, the obstacle slots'
+terms, the brake and the controls stay in PyTorch.
 
 The closed loops call ``run_steps``: one cycle as a stage of
 ``solver.run``, on the card one CUDA graph per parameters, mode and shapes,
@@ -31,7 +37,8 @@ outside the step).  Span (``utils.profiling``): each ``run_steps`` call,
 ``profiling.HOST_COUNTERS``, read by ``profiling.counters()``): ``PLANS``,
 the ``run_steps`` calls, ``CANDIDATES``, the (lane, candidate) pairs they
 evaluated, on the host; ``FEASIBLE``, the pairs that were feasible, summed
-on the card and read while tracing (``profiling.DeviceCounter``).
+on the card from the lattice's per-lane counts and read while tracing
+(``profiling.DeviceCounter``).
 """
 
 from __future__ import annotations
@@ -46,7 +53,7 @@ import torch
 
 from cilqr_tpu_torch.models import dynamics, solver
 from cilqr_tpu_torch.models import reference_path as rp
-from cilqr_tpu_torch.ops import gridmap
+from cilqr_tpu_torch.ops import frenet_cuda, gridmap
 from cilqr_tpu_torch.utils import profiling
 from cilqr_tpu_torch.utils.params import SolverParams
 
@@ -55,9 +62,9 @@ MODES = ("origin", "expansion", "propagation")
 PLANS = 0       # ``run_steps`` calls (host counter)
 CANDIDATES = 0  # (lane, candidate) pairs those calls evaluated (host counter)
 profiling.HOST_COUNTERS.extend((sys.modules[__name__], n) for n in ("PLANS", "CANDIDATES"))
-#: feasible (lane, candidate) pairs of the traced calls: ``plan_steps`` sums
-#: its feasible mask on the card (``_FEASIBLE``; inside the graph), read
-#: while tracing (``profiling.device_counters``)
+#: feasible (lane, candidate) pairs of the traced calls: ``plan_steps`` adds
+#: the lattice's per-lane feasible counts on the card (``_FEASIBLE``; inside
+#: the graph), read while tracing (``profiling.device_counters``)
 FEASIBLE = 0
 _FEASIBLE = profiling.DeviceCounter(sys.modules[__name__], "FEASIBLE")
 
@@ -272,39 +279,57 @@ def curvature_bound(p: SolverParams, dtype, device) -> torch.Tensor:
     return torch.tan(torch.tensor(p.steer_angle_max, dtype=dtype, device=device)) / p.wheelbase
 
 
-def plan_steps(p: SolverParams, fp: FrenetParams, plan_xy: torch.Tensor, plan_n,
-               egos: torch.Tensor, obstacles=None, unc_map=None,
-               sigmas: Optional[torch.Tensor] = None, *,
-               kappa_max: torch.Tensor) -> FrenetResult:
-    """One Frenet lattice planning cycle per lane at egos (B, 4) [x, y, v,
-    theta]: ``plan_step`` of the JAX package, vmapped.
+def obstacle_terms(p: SolverParams, fp: FrenetParams, obstacles, sigmas: Optional[torch.Tensor],
+                   dtype, dev) -> list:
+    """The obstacle slots' terms the lattice's tests read, each (M, N+1)
+    over the horizon: the half-axes a and b (inflated by mode), the
+    heading's cosine and sine, the centre x and y; then the slots' live
+    flags (M,) bool.  Tracks shorter than the horizon hold their last pose."""
+    N = p.horizon
+    if fp.mode == "expansion":
+        if sigmas is None:
+            raise ValueError("expansion mode needs sigmas=(sx, sy, stheta)")
+        infl = fp.expansion_chi * torch.maximum(sigmas[0], sigmas[1]).to(dtype)
+    else:
+        infl = torch.zeros((), dtype=dtype, device=dev)
+    opos = obstacles.pos[:, :N + 1]                    # (M, N', 4)
+    odim = obstacles.dims[:, :N + 1]
+    # tracks are per solver horizon: hold the last pose past their end
+    Nt = opos.shape[1]
+    if Nt < N + 1:
+        opos = torch.cat([opos, opos[:, -1:].expand(-1, N + 1 - Nt, 4)], dim=1)
+        odim = torch.cat([odim, odim[:, -1:].expand(-1, N + 1 - Nt, 2)], dim=1)
+    a = odim[..., 0] / 2.0 + fp.collision_margin + p.ego_rad + infl
+    b = odim[..., 1] / 2.0 + fp.collision_margin + p.ego_rad + infl
+    return [a, b, torch.cos(opos[..., 3]), torch.sin(opos[..., 3]), opos[..., 0], opos[..., 1],
+            obstacles.mask > 0]
 
-    obstacles: shared ``models.obstacles.Obstacles`` (padded; mask-aware).
-    unc_map: ``models.uncertainty.UncertaintyMap``, one per lane (values
-    (B, H, W)) or shared (values (H, W)); read in propagation mode only.
-    sigmas: (3,) [sigma_x, sigma_y, sigma_theta] localization noise, which
-    expansion mode needs when there are obstacles.
-    kappa_max: ``curvature_bound`` in egos' dtype.  The feasible (lane,
-    candidate) pairs are added to ``FEASIBLE``'s total on egos' device.
-    """
-    dtype, dev = egos.dtype, egos.device
-    B, N = egos.shape[0], p.horizon
-    plan = rp.get_local_plan(p, plan_xy, plan_n, egos)
-    ref = _ref_line(plan)
 
-    s0, d0, th_ref0 = _project(ref, egos[:, :2])          # (B,)
-    v0 = egos[:, 2]
-    dth = egos[:, 3] - th_ref0
-    s_dot0 = (v0 * torch.cos(dth))[:, None, None]
-    d_dot0 = (v0 * torch.sin(dth))[:, None, None]
-    s0, d0 = s0[:, None, None], d0[:, None, None]
+def lattice_plain(p: SolverParams, fp: FrenetParams, start: torch.Tensor, ref, axes,
+                  kappa_max: torch.Tensor, obstacles, unc_map):
+    """The plain version of the lattice kernel (``ops/frenet_cuda``): every
+    candidate of the lattice over the horizon as (B, K, N+1) tensors,
+    infeasible ones masked (+inf cost), the first of least cost taken
+    (``torch.argmin`` takes the first index on ties, as ``jnp.argmin``
+    does), fetched by an index gather; where none is feasible, the first of
+    least cost of all.
 
+    start (B, 4): [s0, d0, s_dot0, d_dot0]; ref: the reference line's (s, x,
+    y, tx, ty), each (B, S); axes: the lattice's end offsets (n_lat,),
+    durations (n_T,) and end speeds (n_v,), K = n_lat * n_T * n_v candidates
+    d major, then T, then v; kappa_max: the curvature bound (0-dim); obstacles:
+    ``obstacle_terms``' list, or empty; unc_map: [values, centre,
+    resolution, length, origin xy, origin yaw] of one map per lane or one
+    shared, read in propagation mode only, or empty.  Returns (X (B, N+1,
+    4) of each lane's chosen candidate, its index (B,) int32, its cost (B,),
+    whether any candidate was feasible (B,) bool, the feasible count (B,)
+    int32)."""
+    dtype, dev = start.dtype, start.device
+    B, N = start.shape[0], p.horizon
+    ref = _RefLine(*ref)
+    s0, d0, s_dot0, d_dot0 = (c[:, None, None] for c in start.unbind(-1))
     # the candidate lattice (K,), d major, then T, then v
-    d_f = _linspace(-fp.d_max, fp.d_max, fp.n_lat, dtype, dev)
-    T_f = _linspace(fp.T_min, fp.T_max, fp.n_T, dtype, dev)
-    v_f = _linspace(fp.v_frac_min * p.desired_speed, fp.v_frac_max * p.desired_speed, fp.n_v,
-                    dtype, dev)
-    D, T, V = (g.reshape(-1) for g in torch.meshgrid(d_f, T_f, v_f, indexing="ij"))
+    D, T, V = (g.reshape(-1) for g in torch.meshgrid(*axes, indexing="ij"))
     Tc, Vc = T[:, None], V[:, None]                        # (K, 1)
 
     # lateral quintic (d0, d_dot0, 0) -> (D, 0, 0) over T; longitudinal
@@ -360,27 +385,10 @@ def plan_steps(p: SolverParams, fp: FrenetParams, plan_xy: torch.Tensor, plan_n,
     darc = torch.clamp(torch.diff(s_t, dim=-1), min=1e-3)
     feasible &= ((dyaw / darc).abs() <= kappa_max * 1.5).all(dim=-1)
 
-    # obstacles, inflated by mode
-    if obstacles is not None:
-        if fp.mode == "expansion":
-            if sigmas is None:
-                raise ValueError("expansion mode needs sigmas=(sx, sy, stheta)")
-            infl = fp.expansion_chi * torch.maximum(sigmas[0], sigmas[1]).to(dtype)
-        else:
-            infl = torch.zeros((), dtype=dtype, device=dev)
-        opos = obstacles.pos[:, :N + 1]                    # (M, N', 4)
-        odim = obstacles.dims[:, :N + 1]
-        # tracks are per solver horizon: hold the last pose past their end
-        Nt = opos.shape[1]
-        if Nt < N + 1:
-            opos = torch.cat([opos, opos[:, -1:].expand(-1, N + 1 - Nt, 4)], dim=1)
-            odim = torch.cat([odim, odim[:, -1:].expand(-1, N + 1 - Nt, 2)], dim=1)
-        a = (odim[..., 0] / 2.0 + fp.collision_margin + p.ego_rad + infl)[:, None]  # (M, 1, N+1)
-        b = (odim[..., 1] / 2.0 + fp.collision_margin + p.ego_rad + infl)[:, None]
-        co = torch.cos(opos[..., 3])[:, None]
-        so = torch.sin(opos[..., 3])[:, None]
-        ox, oy = opos[:, None, :, 0], opos[:, None, :, 1]
-        live = (obstacles.mask > 0)[:, None, None]
+    # obstacles, inflated by mode (``obstacle_terms``)
+    if obstacles:
+        a, b, co, so, ox, oy = (o[:, None] for o in obstacles[:6])  # (M, 1, N+1)
+        live = obstacles[6][:, None, None]
         cyaw, syaw = torch.cos(gyaw), torch.sin(gyaw)
 
         def hit_for(sign: float, reach: float):
@@ -397,8 +405,10 @@ def plan_steps(p: SolverParams, fp: FrenetParams, plan_xy: torch.Tensor, plan_n,
         feasible &= ~hits.any(dim=-1).any(dim=1)
 
     # the uncertainty costmap (propagation mode)
-    if fp.mode == "propagation" and unc_map is not None:
-        values, geom, oxy, oyaw = _lane_maps(unc_map, B)
+    if unc_map:
+        values, center, res, length, oxy, oyaw = unc_map
+        values, geom, oxy, oyaw = _lane_maps(
+            (values, gridmap.GridGeom(center, res, length), oxy, oyaw), B)
         dxy = X[..., :2] - oxy[:, None, None, :]
         cy = torch.cos(oyaw)[:, None, None]
         sy = torch.sin(oyaw)[:, None, None]
@@ -412,23 +422,76 @@ def plan_steps(p: SolverParams, fp: FrenetParams, plan_xy: torch.Tensor, plan_n,
         J = J + fp.w_unc * (u / 100.0).mean(dim=-1)
 
     # select
-    _FEASIBLE.add(feasible)
     any_ok = feasible.any(dim=-1)                          # (B,)
     J_masked = torch.where(feasible, J, torch.full_like(J, math.inf))
     best = torch.argmin(torch.where(any_ok[:, None], J_masked, J), dim=-1)
     Xb = X[torch.arange(B, device=dev), best]              # (B, N+1, 4)
+    # the winner's cost is the min (a one-hot dot would give 0 * inf)
+    J_best = torch.where(any_ok, J_masked.amin(dim=-1), J.amin(dim=-1))
+    return Xb, best.to(torch.int32), J_best, any_ok, feasible.sum(dim=-1, dtype=torch.int32)
+
+
+def lattice_inputs(p: SolverParams, fp: FrenetParams, plan: rp.LocalPlan, egos: torch.Tensor,
+                   obstacles=None, unc_map=None, sigmas: Optional[torch.Tensor] = None, *,
+                   kappa_max: torch.Tensor) -> tuple:
+    """The lattice's arguments after (p, fp) (``lattice_plain``,
+    ``frenet_cuda.lattice``) for egos (B, 4) on their local plans: the
+    lanes' start terms (B, 4), the reference line's five (B, S) tensors,
+    the lattice's axes (end offsets, durations, end speeds), the curvature
+    bound, the obstacle slots' terms (or none) and, in propagation mode,
+    the map's tensors (or none)."""
+    dtype, dev = egos.dtype, egos.device
+    ref = _ref_line(plan)
+    s0, d0, th_ref0 = _project(ref, egos[:, :2])          # (B,)
+    v0 = egos[:, 2]
+    dth = egos[:, 3] - th_ref0
+    start = torch.stack([s0, d0, v0 * torch.cos(dth), v0 * torch.sin(dth)], dim=-1)
+
+    # the lattice's axes: K = n_lat * n_T * n_v candidates, d major, then T, then v
+    d_f = _linspace(-fp.d_max, fp.d_max, fp.n_lat, dtype, dev)
+    T_f = _linspace(fp.T_min, fp.T_max, fp.n_T, dtype, dev)
+    v_f = _linspace(fp.v_frac_min * p.desired_speed, fp.v_frac_max * p.desired_speed, fp.n_v,
+                    dtype, dev)
+    obs = [] if obstacles is None else obstacle_terms(p, fp, obstacles, sigmas, dtype, dev)
+    umap = []
+    if fp.mode == "propagation" and unc_map is not None:
+        values, geom, oxy, oyaw = unc_map
+        umap = [values, geom.center, geom.resolution, geom.length, oxy, oyaw]
+    return start, list(ref), [d_f, T_f, v_f], kappa_max, obs, umap
+
+
+def plan_steps(p: SolverParams, fp: FrenetParams, plan_xy: torch.Tensor, plan_n,
+               egos: torch.Tensor, obstacles=None, unc_map=None,
+               sigmas: Optional[torch.Tensor] = None, *,
+               kappa_max: torch.Tensor) -> FrenetResult:
+    """One Frenet lattice planning cycle per lane at egos (B, 4) [x, y, v,
+    theta]: ``plan_step`` of the JAX package, vmapped.
+
+    obstacles: shared ``models.obstacles.Obstacles`` (padded; mask-aware).
+    unc_map: ``models.uncertainty.UncertaintyMap``, one per lane (values
+    (B, H, W)) or shared (values (H, W)); read in propagation mode only.
+    sigmas: (3,) [sigma_x, sigma_y, sigma_theta] localization noise, which
+    expansion mode needs when there are obstacles.
+    kappa_max: ``curvature_bound`` in egos' dtype.  The candidates are
+    evaluated and chosen by ``frenet_cuda.lattice`` (on the card the kernel,
+    float32 only; elsewhere and inside ``route.plain()`` ``lattice_plain``).
+    The feasible (lane, candidate) pairs are added to ``FEASIBLE``'s total
+    on egos' device.
+    """
+    plan = rp.get_local_plan(p, plan_xy, plan_n, egos)
+    X, best, J, any_ok, count = frenet_cuda.lattice(
+        p, fp, *lattice_inputs(p, fp, plan, egos, obstacles, unc_map, sigmas,
+                               kappa_max=kappa_max))
+    _FEASIBLE.add(count)
 
     # Emergency-brake fallback: when NO candidate is collision-free the
     # planner brakes at the actuation limit along the current heading (the
     # result still carries lamb == 0)
-    Xb = torch.where(any_ok[:, None, None], Xb, brake_trajectory(p, egos))
+    Xb = torch.where(any_ok[:, None, None], X, brake_trajectory(p, egos))
     # the recorded controls never claim infeasible actuation
     U = brake_controls(p, Xb)
-    return FrenetResult(
-        X=Xb, U=U, ref_x=plan.x_wpts, ref_y=plan.y_fit, iterations=best.to(torch.int32),
-        # the winner's cost is the min (a one-hot dot would give 0 * inf)
-        J=torch.where(any_ok, J_masked.amin(dim=-1), J.amin(dim=-1)),
-        lamb=any_ok.to(dtype))
+    return FrenetResult(X=Xb, U=U, ref_x=plan.x_wpts, ref_y=plan.y_fit, iterations=best, J=J,
+                        lamb=any_ok.to(egos.dtype))
 
 
 def _stage(p: SolverParams, egos: torch.Tensor, fp: FrenetParams, plan_xy: torch.Tensor, plan_n,

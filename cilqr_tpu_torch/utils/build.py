@@ -129,6 +129,12 @@ def load_library() -> ctypes.CDLL:
     lib.cilqr_cost_resources.restype = i
     lib.cilqr_cost_config_size.argtypes = []
     lib.cilqr_cost_config_size.restype = i
+    lib.cilqr_frenet_lattice.argtypes = [p] * 20 + [p]
+    lib.cilqr_frenet_lattice.restype = i
+    lib.cilqr_frenet_resources.argtypes = [i] * 6 + [p]
+    lib.cilqr_frenet_resources.restype = i
+    lib.cilqr_frenet_config_size.argtypes = []
+    lib.cilqr_frenet_config_size.restype = i
     lib.cilqr_opchain.argtypes = [i, i, ctypes.c_longlong, p, p, p]
     lib.cilqr_opchain.restype = i
     lib.cilqr_lm_continue.argtypes = [p, i, p, i, p, p]

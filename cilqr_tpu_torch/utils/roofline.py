@@ -58,6 +58,50 @@ def lm_step_ops(S: int, M: int, unc_ops: int) -> int:
     return cost_step_ops(S, M, unc_ops) + RICCATI_STEP_OPS + ROLLOUT_STEP_OPS
 
 
+# The Frenet lattice's float operations (csrc/frenet.cu), counted as above
+# from the plain version's arithmetic, each where the function needs it
+# once.  The longitudinal quartic depends on a candidate's (T, V) alone, so
+# its work is counted once per lane and profile (n_T * n_v of them): the
+# coefficients and the longitudinal jerk cost 42; at each of its points the
+# quartic and its two rules 36, the knot interval 8 and four interpolations
+# 24 on one knot search, the tangent's normalisation and heading 8.  Per
+# candidate point: the lateral quintic 16, the global point, speed and yaw
+# 11, the speed rule 2, the unwrap's test and sum 4, the curvature rule 7;
+# with obstacles the heading's cosine and sine and the two circle centres
+# 13, then two ellipse tests per live slot 32; the map's sample 43, its
+# threshold and sum 5.  Per candidate: the quintic's coefficients 28, the
+# lateral jerk cost 28, the cost's sum and map term 6, the verdict, count
+# and selection 6.
+FRENET_PROFILE_OPS = 42
+FRENET_PROFILE_POINT_OPS = 76
+FRENET_POINT_OPS = 40
+FRENET_OBSTACLE_OPS = 13
+FRENET_SLOT_OPS = 32
+FRENET_MAP_OPS = 48
+FRENET_CANDIDATE_OPS = 68
+
+
+def frenet_bound(B: int, axes: tuple, N: int, S: int, live: int, map_hw=None) -> dict:
+    """The lattice kernel's bound at B lanes of the lattice's axes (n_lat,
+    n_T, n_v) over N+1 points, S reference samples, ``live`` live obstacle
+    slots and one (H, W) map per lane (None: no map).  Every operation is
+    explicitly rounded, so none fuses into an FMA: each takes an issue slot
+    of its own, and they run at half the FMA-counted peak (FP32_OPS_PER_S /
+    2, one operation per float32 lane and clock).  Bytes: the lanes' start
+    terms, reference lines and maps read once, the winners' trajectories
+    and the per-lane outputs written once."""
+    n_lat, n_T, n_v = axes
+    profiles, K, n1 = n_T * n_v, n_lat * n_T * n_v, N + 1
+    search = 2 * (math.ceil(math.log2(S)) + 1)
+    point = (FRENET_POINT_OPS + (FRENET_OBSTACLE_OPS + FRENET_SLOT_OPS * live if live else 0)
+             + (FRENET_MAP_OPS if map_hw else 0))
+    n_ops = B * (profiles * (FRENET_PROFILE_OPS + n1 * (FRENET_PROFILE_POINT_OPS + search))
+                 + K * (n1 * point + FRENET_CANDIDATE_OPS))
+    map_bytes = 0 if not map_hw else 4 * map_hw[0] * map_hw[1] * B
+    n_bytes = B * (16 + 4 * 5 * S + 16 * n1 + 13) + map_bytes + 4 * 6 * n1 * live
+    return bound(n_bytes, 2 * n_ops)
+
+
 class IterationCost(NamedTuple):
     """One LM iteration of one scenario: its operations and bytes, the
     bound in seconds and what binds it ("bytes" or "operations")."""

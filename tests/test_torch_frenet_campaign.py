@@ -273,9 +273,9 @@ def test_spans_of_the_staged_loop(replays):
 
 def test_feasible_count_is_the_masks_sum(monkeypatch):
     """``FEASIBLE`` over a traced call (the loop run eagerly, as on the CPU:
-    the total is a CPU tensor) equals the sum of the lattice's feasible
-    masks, read once, at the host's wait after the cycles; a warm-up
-    (``graphs.building``) counts nothing."""
+    the total is a CPU tensor) equals the sum of the lattice's per-lane
+    feasible counts, read once, at the host's wait after the cycles; a
+    warm-up (``graphs.building``) counts nothing."""
     from cilqr_tpu_torch.utils import graphs
 
     w = small(4, 62)

@@ -328,6 +328,14 @@ def route_case(name: str) -> tuple:
         plain_args = (p, world_, plans, sampler, lamb_inv, *state)
         args = plain_args[:4] + (lm_cuda.prep_lane_maps(sampler.unc_map),) + plain_args[4:]
         return lm_cuda._launch_step, [(args, lm_cuda, "fused_step_plain", plain_args, {})]
+    if name == "frenet_cuda._launch":
+        from cilqr_tpu_torch.models import frenet
+        from cilqr_tpu_torch.ops import frenet_cuda
+        from tests.test_torch_frenet_kernel import case
+
+        p_fr, fp, args = case("propagation", False, B=3)
+        return frenet_cuda._launch, [((p_fr, fp) + tuple(args), frenet, "lattice_plain",
+                                      (p_fr, fp) + tuple(args), {})]
     assert name == "cost_cuda._launch"
     prepared = tuple(lm_cuda.prep_iteration(plans))[:2]
     return cost_cuda._launch, [((p, plans, X, w["U"], ob, planes, prepared), costs,
@@ -338,12 +346,13 @@ def route_case(name: str) -> tuple:
 ROUTE_CASES = ("lm_cuda._launch", "lm_cuda._launch_iteration", "riccati_cuda._launch",
                "uncertainty_cuda._launch", "uncertainty_cuda._launch_fused",
                "sample_cuda._launch", "sample_cuda._launch_vehicle_map",
-               "costmap_cuda._launch", "cost_cuda._launch", "lm_cuda._launch_step")
+               "costmap_cuda._launch", "cost_cuda._launch", "lm_cuda._launch_step",
+               "frenet_cuda._launch")
 
 
 @pytest.mark.parametrize("name", ROUTE_CASES)
 def test_the_route_sends_each_launch_function_to_its_plain_version(name, monkeypatch):
-    """Inside ``route.plain()`` each of the ten launch functions returns
+    """Inside ``route.plain()`` each of the eleven launch functions returns
     exactly what its plain version returns on the same inputs, calls it
     once itself and reaches no op of the port; outside, it takes the kernel's
     route (it refuses CPU tensors, or reaches its op, whose CPU
