@@ -194,6 +194,7 @@ CC_CONFIG = pathlib.Path(__file__).resolve().parent / "benchmarks" / "configs" /
 FR_B = 8192         # the Frenet campaign (phase 23): the benchmark cell's batch and deployment
 FR_CYCLES = 3
 FR_CONFIG = CC_CONFIG.parent / "frenet_propagation_town02_n40.json"
+NRB_CONFIG = CC_CONFIG.parent / "nrb_rrt_success1_n40.json"  # the NRB-RRT campaign (phase 24)
 K6_CHECK_ROUNDS = 8
 PEAK_TFLOPS = FP32_OPS_PER_S / 1e12
 NO_LIBRARY_CALL = None  # where no single PyTorch call computes a kernel's function
@@ -1108,7 +1109,7 @@ def experiment_layer(card: str, counts, dev: torch.device) -> tuple:
     each.  Returns (the launch counts of each command, per command and
     algorithm its seconds, launches and vehicle-cycles/s)."""
     from cilqr_tpu_torch import CostmapParams, NoiseParams, SolverParams
-    from cilqr_tpu_torch.models import ccnmpc, frenet, nrb_rrt, reference_path as rp, solver_batched
+    from cilqr_tpu_torch.models import ccnmpc, frenet, reference_path as rp, solver, solver_batched
     from cilqr_tpu_torch.ops import costmap as costmap_mod, sample_cuda
     from cilqr_tpu_torch.sim import plant, runner, scenarios, sweep
 
@@ -1380,12 +1381,12 @@ def experiment_layer(card: str, counts, dev: torch.device) -> tuple:
                 eager = ""
                 if algo == "nrb_rrt":
                     # the planner replays a CUDA graph: the loop run eagerly
-                    nrb_rrt.GRAPHS = False
+                    solver.GRAPHS = False
                     try:
                         require(same(got, loop(algo)(x0s, draws, torch.float32, True)),
                                 f"{label} nrb_rrt: the graph's results differ from the eager run")
                     finally:
-                        nrb_rrt.GRAPHS = True
+                        solver.GRAPHS = True
                     eager = ", and to the loop run eagerly (no CUDA graph)"
                 print(f"{head}: launches {got_launches} || every cycle's X, U, iterations, J and "
                       f"lamb equal bit for bit (the planner reads no kernel's output){eager} "
@@ -2954,6 +2955,109 @@ class CCWorld(NamedTuple):
     draws: torch.Tensor  # (CC_CYCLES, CC_B, 3) the plant's noise
 
 
+def nrb_campaign(card: str, counts, dev: torch.device) -> dict:
+    """Phase 24: ``closed_loop_batched`` with the NRB-RRT plan step on the
+    benchmark's deployment (NRB_CONFIG: the 96-iteration tree on CC_CONFIG's
+    solver, noise and world, phase 22's starts and draws: CC_B x CC_CYCLES),
+    graphed and traced (``profiling.tracing``: each cycle's
+    ``nrb.plan`` span holds one ``run.replay``, the planner's graph of the
+    plan fit, the draws, the tree, the tape, its rollout and the brake),
+    then again graphed, timed, then with ``solver.GRAPHS = False``, traced.
+    Every record and every plan equal bit for bit, ``nrb_rrt.GROWN`` and
+    ``FOUND`` equal; no kernel of the port launches (the planner is plain
+    PyTorch).  Prints ms a cycle (the whole cycle on the host clock, the
+    planner's replay on the card's) and the planner graph's nodes.  Returns
+    the numbers."""
+    from cilqr_tpu_torch.models import nrb_rrt, solver
+    from cilqr_tpu_torch.sim import plant, runner
+    from cilqr_tpu_torch.utils import graphs, profiling
+
+    zero_counts, read_counts = counts
+    t_phase = time.perf_counter()
+    cfg, cc_cfg = json.loads(NRB_CONFIG.read_text()), json.loads(CC_CONFIG.read_text())
+    require(all(cfg[k] == cc_cfg[k] for k in ("solver", "noise", "world")),
+            "nrb: the NRB-RRT deployment's solver, noise or world differs from CCNMPC's")
+    p, noise, _, plan_xy, plan_n, ob, sat, x0s, draws = cc_deployment(dev)
+    np_ = nrb_rrt.NRBParams(**cfg["nrb"])
+    B, cycles = x0s.shape[0], draws.shape[0]
+    step = runner.make_plan_step("nrb_rrt", p, noise, plan_xy, plan_n, ob, nrb_params=np_)
+
+    def closed_loop():
+        return plant.closed_loop_batched(p, noise, plan_xy, plan_n, x0s, None, cycles,
+                                         obs_xyyaw=sat[0], obs_size=sat[1], obs_mask=sat[2],
+                                         noise_draws=draws, plan_step_batched=step)
+
+    out, counted, launches, replay_ms = {}, {}, {}, []
+    try:
+        solver.CAPTURED.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        captures = graphs.CAPTURES
+        for mode in ("graphed", "timed", "eager"):
+            zero_counts()
+            with loop_mode("eager" if mode == "eager" else "graphed"), \
+                    recording(nrb_rrt, "run_steps", []) as plans:
+                if mode == "timed":
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out[mode] = (*closed_loop(), list(plans))
+                    torch.cuda.synchronize()
+                    cycle_ms = 1e3 * (time.perf_counter() - t0) / cycles
+                else:
+                    with profiling.tracing():
+                        out[mode] = (*closed_loop(), list(plans))
+                    torch.cuda.synchronize()
+                    found = profiling.spans()
+                    counted[mode] = {k: profiling.counters()[f"nrb_rrt.{k}"]
+                                     for k in ("PLANS", "DRAWS", "GROWN", "FOUND")}
+                    if mode == "graphed":
+                        ids = {s.id for s in found if s.name == "nrb.plan"}
+                        replays = [s for s in found if s.name == "run.replay" and s.parent in ids]
+                        require(len(ids) == cycles and len(replays) == cycles,
+                                f"nrb: {len(ids)} nrb.plan spans holding {len(replays)} "
+                                f"run.replay spans, expected {cycles} each")
+                        replay_ms = [(s.device_end_ns - s.device_start_ns) * 1e-6
+                                     for s in replays]
+            launches[mode] = read_counts()
+            if mode == "graphed":
+                peak = torch.cuda.max_memory_allocated(dev)
+                made, held = graphs.CAPTURES - captures, len(solver.CAPTURED)
+                planner = [e for e in solver.CAPTURED.values() if e.graphs[0].out is not None
+                           and isinstance(e.graphs[0].out, nrb_rrt.NRBResult)]
+                require(len(planner) == 1, f"nrb: {len(planner)} planner graphs held")
+                nodes = captured_nodes(planner[0].graphs[0])
+                pool = planner[0].graphs[0].pool_bytes
+            elif mode == "timed":
+                again = graphs.CAPTURES - captures - made
+    finally:
+        solver.CAPTURED.clear()
+    require(tree_equal(out["graphed"], out["eager"]) and tree_equal(out["timed"], out["eager"]),
+            "nrb: the graphed closed loop differs from the eager one")
+    require(made == 3 and held == 3 and again == 0,
+            f"nrb: {made} captures ({held} held), then {again}; expected the noise stage, the "
+            "planner and the advance once")
+    require(all(v == 0 for m in launches.values() for v in m.values()),
+            f"nrb: a kernel of the port launched: {launches}")
+    require(counted["graphed"] == counted["eager"] and counted["eager"]["GROWN"] > 0,
+            f"nrb: counters graphed {counted['graphed']}, eager {counted['eager']}")
+    c = counted["eager"]
+    grown_pct = 100.0 * c["GROWN"] / c["DRAWS"]
+    found_pct = 100.0 * c["FOUND"] / (B * cycles)
+    print(f"[24 nrb campaign] {NRB_CONFIG.name} at B={B} x {cycles} cycles, "
+          f"{np_.n_iters} iterations, N={p.horizon}: graphed = timed = eager bit for bit (every "
+          f"record, every plan) | {made} captures (noise, planner, advance), then none | no "
+          f"kernel of the port launched | counters {c} both ways: grown {grown_pct:.3f}% of the "
+          f"draws, found {found_pct:.3f}% of the lane-cycles | ms a cycle (host clock, replays "
+          f"only) {cycle_ms:.3f}; the planner's replay on the card (traced) "
+          f"{', '.join(f'{v:.3f}' for v in replay_ms)} ms | the planner's graph: {nodes[0]} "
+          f"nodes, {nodes[1]} kernel nodes, pool {pool / 1e9:.3f} GB | peak memory "
+          f"{peak / 1e9:.2f} GB over the first call (captures included) on {card}", flush=True)
+    print(f"[24 done] phase 24 took {time.perf_counter() - t_phase:.1f} s on {card}", flush=True)
+    return dict(B=B, cycles=cycles, captures=made, counters=c, grown_pct=grown_pct,
+                found_pct=found_pct, cycle_ms=cycle_ms, replay_ms=replay_ms, nodes=nodes,
+                pool_bytes=pool, peak_bytes=peak)
+
+
 def cc_deployment(dev: torch.device) -> CCWorld:
     """CC_CONFIG's deployment (N=40, the three success1 obstacles, delta
     0.05, two SQP rounds) at CC_B starts along the lane, with its noise."""
@@ -4424,6 +4528,10 @@ def main() -> None:
     fr = frenet_campaign(card, counts, dev)
     kernels["frenet"] = dict(fr["lattice_kernel"], launches=fr["launches"],
                              path="campaign.frenet_prop_b8192's deployment, phase 23")
+
+    # 24. the NRB-RRT campaign of the benchmark's deployment: the planner's
+    # stage graph against eager (no kernel of the port runs in it)
+    nrb_campaign(card, counts, dev)
 
     kernels["lm"]["launches"] = main_launches["lm"]
     # K2's own path: ccnmpc's two-phase solves in `compare --full-stack`

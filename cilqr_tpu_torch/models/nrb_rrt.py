@@ -24,30 +24,49 @@ The tree lives in (B, max_nodes, ...) tensors; each growth iteration is a
 masked argmin for the nearest node, all primitives integrated together, the
 risk check, and a scatter of the new node; then a parent-pointer walk
 extracts the control tape.  Plain PyTorch: no TPU kernel stands behind
-this module.  A call is ~24,000 small kernels at the CLI's batch sizes, so
-on the card everything after the local plan runs as a CUDA graph, captured
-once per batch shape and parameters and replayed with the call's inputs
-(the same kernels on the same inputs: the same bits as the eager run).
+this module.
+
+The closed loops call ``run_steps``: one cycle (the plan fit, the draws, the
+tree, the tape, its rollout and the brake) as a stage of ``solver.run``, on
+the card one CUDA graph of ~24,000 small kernels per parameters and shapes,
+replayed (elsewhere, and with ``solver.GRAPHS`` off or inside
+``route.plain()``, the same call eagerly: the same kernels on the same
+inputs, the same bits).  So ``plan_steps`` makes no tensor from host data
+inside the stage: its constants (``constants``: the key, the sampling
+bounds, the primitives) are made once outside.  Span
+(``utils.profiling``): each ``run_steps`` call, ``nrb.plan``, holding the
+stage's ``run.*`` spans.  Counters (entered in ``profiling.HOST_COUNTERS``, read by
+``profiling.counters()``): ``PLANS``, the ``run_steps`` calls, and
+``DRAWS``, the growth iterations they attempted (lanes x ``n_iters``), on
+the host; ``GROWN``, the iterations that added a risk-admissible node, and
+``FOUND``, the lanes that found a plan (not the brake), summed on the card
+in stream order and read while tracing (``profiling.DeviceCounter``).
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import sys
 from typing import NamedTuple, Optional
 
 import torch
 
-from cilqr_tpu_torch.models import dynamics, frenet
-from cilqr_tpu_torch.models import obstacles as obs_mod
+from cilqr_tpu_torch.models import dynamics, frenet, solver
 from cilqr_tpu_torch.models import reference_path as rp
-from cilqr_tpu_torch.utils import graphs, prng
+from cilqr_tpu_torch.utils import profiling, prng
 from cilqr_tpu_torch.utils.params import SolverParams
 
-#: run the planner as a CUDA graph on the card (False: eagerly, as on the CPU)
-GRAPHS = True
-#: the captures by parameters, dtype, device and shapes (``graphs.GraphCache``)
-CAPTURED = graphs.GraphCache(kept=8)
+PLANS = 0  # ``run_steps`` calls (host counter)
+DRAWS = 0  # growth iterations those calls attempted: lanes x n_iters (host counter)
+profiling.HOST_COUNTERS.extend((sys.modules[__name__], n) for n in ("PLANS", "DRAWS"))
+#: growth iterations that added a risk-admissible node, and lanes that found
+#: a plan, of the traced calls: ``plan_steps`` adds them on the card
+#: (inside the graph), read while tracing (``profiling.device_counters``)
+GROWN = 0
+FOUND = 0
+_GROWN = profiling.DeviceCounter(sys.modules[__name__], "GROWN")
+_FOUND = profiling.DeviceCounter(sys.modules[__name__], "FOUND")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -102,9 +121,10 @@ class NRBResult(NamedTuple):
     lamb: torch.Tensor        # (B,) 1.0 if a risk-admissible path was found
 
 
-class _Consts(NamedTuple):
-    """A call's constants, made before a graph is captured (a tensor built
-    from host values is a copy from the host, which a capture may not hold)."""
+class Consts(NamedTuple):
+    """A call's constants (``constants``), made before a graph is captured (a
+    tensor built from host values is a copy from the host, which a capture
+    may not hold)."""
 
     key: torch.Tensor     # (2,) key(seed)
     lo: torch.Tensor      # (3,) the uniforms' bounds: goal flag, lateral offset, speed
@@ -115,20 +135,21 @@ class _Consts(NamedTuple):
     prims: torch.Tensor   # (C, 2) the steering primitives [acceleration, yaw-rate scale]
 
 
-def _consts(p: SolverParams, np_: NRBParams, dtype, dev) -> _Consts:
+def constants(p: SolverParams, np_: NRBParams, dtype, dev) -> Consts:
+    """The constants of ``plan_steps`` in ``dtype`` on ``dev``."""
     f = lambda v: torch.tensor(v, dtype=dtype, device=dev)
     lat_lo = -np_.lat_max if np_.lat_lo is None else np_.lat_lo
     lat_hi = np_.lat_max if np_.lat_hi is None else np_.lat_hi
     yr = frenet._linspace(-1.0, 1.0, np_.n_yawrate, dtype, dev)
     ac = frenet._linspace(p.acc_min / 2.0, p.acc_max, np_.n_acc, dtype, dev)
     YR, AC = torch.meshgrid(yr, ac, indexing="ij")
-    return _Consts(prng.key(np_.seed, dev), f([0.0, lat_lo, 0.0]),
-                   f([1.0, lat_hi, p.desired_speed * 1.2]), f([1.0, -1.0]),
-                   f([p.ego_front, p.ego_rear]), f([p.acc_min, 0.0]),
-                   torch.stack([AC.reshape(-1), YR.reshape(-1)], dim=-1))
+    return Consts(prng.key(np_.seed, dev), f([0.0, lat_lo, 0.0]),
+                  f([1.0, lat_hi, p.desired_speed * 1.2]), f([1.0, -1.0]),
+                  f([p.ego_front, p.ego_rear]), f([p.acc_min, 0.0]),
+                  torch.stack([AC.reshape(-1), YR.reshape(-1)], dim=-1))
 
 
-def _risk_ok(p: SolverParams, np_: NRBParams, c: _Consts, states: torch.Tensor,
+def _risk_ok(p: SolverParams, np_: NRBParams, c: Consts, states: torch.Tensor,
              t_idx: torch.Tensor, obstacles, sigma0: torch.Tensor) -> torch.Tensor:
     """DR chance-constraint check of states (..., 4) at horizon steps t_idx
     (...): each obstacle ellipse (half-axes dims/2 + ego disc + margin) is
@@ -162,7 +183,7 @@ def _risk_ok(p: SolverParams, np_: NRBParams, c: _Consts, states: torch.Tensor,
     return ~((q < 1.0) & live).flatten(0, 1).any(dim=0)
 
 
-def _draws(p: SolverParams, np_: NRBParams, c: _Consts, egos: torch.Tensor, W: int):
+def _draws(p: SolverParams, np_: NRBParams, c: Consts, egos: torch.Tensor, W: int):
     """Every growth iteration's draws for every lane, as JAX's plan_step
     makes them: the key fold_in(fold_in(key(seed), b0 ^ b2), b1 ^ b3) of
     the ego's float32 bit patterns b, then per iteration i fold_in(key, i)
@@ -195,52 +216,55 @@ def _steer(p: SolverParams, x: torch.Tensor, u_scale: torch.Tensor) -> torch.Ten
 
 def plan_steps(p: SolverParams, np_: NRBParams, plan_xy: torch.Tensor, plan_n,
                egos: torch.Tensor, obstacles=None, unc_map=None,
-               sigmas: Optional[torch.Tensor] = None) -> NRBResult:
+               sigmas: Optional[torch.Tensor] = None, *,
+               consts: Optional[Consts] = None) -> NRBResult:
     """One risk-bounded RRT planning cycle per lane at egos (B, 4):
-    ``plan_step`` of the JAX package, vmapped.  ``unc_map`` is unused (the
-    DR bound is NRB-RRT's own uncertainty machinery); ``sigmas`` (3,) feeds
-    sigma_pos = sqrt(sx^2 + sy^2), 0 without it (a geometric RRT)."""
+    ``plan_step`` of the JAX package, vmapped, eagerly.  ``unc_map`` is
+    unused (the DR bound is NRB-RRT's own uncertainty machinery); ``sigmas``
+    (3,) feeds sigma_pos = sqrt(sx^2 + sy^2), 0 without it (a geometric
+    RRT).  ``consts``: ``constants(p, np_, ...)`` in egos' dtype and device,
+    made here when not given.  The grown nodes (``GROWN``) and the lanes
+    with a plan (``FOUND``) are added to their totals on egos' device."""
     dtype, dev = egos.dtype, egos.device
+    c = constants(p, np_, dtype, dev) if consts is None else consts
     plan = rp.get_local_plan(p, plan_xy, plan_n, egos)
     if sigmas is None:
         sigmas = torch.zeros(3, dtype=dtype, device=dev)
-    args = [egos, plan.x_wpts, plan.y_fit, sigmas] + ([] if obstacles is None else list(obstacles))
-    c = _consts(p, np_, dtype, dev)
-
-    def tree(egos, wx, wy, sigmas, *ob):
-        return _tree(p, np_, c, egos, wx, wy, sigmas, obs_mod.Obstacles(*ob) if ob else None)
-
-    if egos.is_cuda and GRAPHS:
-        key = (p, np_, dtype, dev) + tuple((a.shape, a.dtype) for a in args)
-        X, U, it, J, lamb = _replay(key, tree, args)
-    else:
-        X, U, it, J, lamb = tree(*args)
+    X, U, it, J, lamb = _tree(p, np_, c, egos, plan.x_wpts, plan.y_fit, sigmas, obstacles)
+    _GROWN.add(it.to(torch.int64) - 1)
+    _FOUND.add(lamb > 0)
     return NRBResult(X, U, plan.x_wpts, plan.y_fit, it, J, lamb)
 
 
-def _replay(key, fn, args: list) -> tuple:
-    """fn(*args) as a CUDA graph: captured at the first call of ``key``
-    (after one warm-up run on a side stream), then replayed on each call's
-    inputs copied into the captured ones.  Returns copies of the outputs
-    (the graph overwrites its own on the next replay)."""
-    def make(inputs):
-        dev = inputs[0].device
-        with graphs.side_stream(dev):
-            fn(*inputs)
-        out = []
-        graph = graphs.capture(lambda: out.extend(fn(*inputs)), dev)
-        return (graph,), out, fn
-
-    g = CAPTURED.load(key, args, make)
-    g.graphs[0].replay()
-    return tuple(o.clone() for o in g.out)
+def _stage(p: SolverParams, egos: torch.Tensor, np_: NRBParams, plan_xy: torch.Tensor, plan_n,
+           obstacles, sigmas, c: Consts) -> NRBResult:
+    """``plan_steps`` as a ``solver.run`` stage: the per-lane egos first."""
+    return plan_steps(p, np_, plan_xy, plan_n, egos, obstacles, None, sigmas, consts=c)
 
 
-def _tree(p: SolverParams, np_: NRBParams, c: _Consts, egos: torch.Tensor, wx: torch.Tensor,
+def run_steps(p: SolverParams, np_: NRBParams, plan_xy: torch.Tensor, plan_n,
+              egos: torch.Tensor, obstacles, sigmas: torch.Tensor, c: Consts) -> NRBResult:
+    """``plan_steps`` (the constants ``c`` given: no copy from the host) as
+    one stage of ``solver.run``: on the card one CUDA graph, captured once
+    per parameters, ``np_`` and the tensors' shapes, and replayed; the eager
+    call's bits.  Span ``nrb.plan``; counts ``PLANS`` and ``DRAWS``; while
+    tracing, reads the card's counters after the stage (a wait)."""
+    global PLANS, DRAWS
+    with profiling.span("nrb.plan"):
+        PLANS += 1
+        DRAWS += egos.shape[0] * np_.n_iters
+        out = solver.run(p, solver.Stage(_stage, (egos, np_, plan_xy, plan_n, obstacles, sigmas,
+                                                  c)))
+        with profiling.span("nrb.counters", wait=True):
+            profiling.device_counters()
+    return out
+
+
+def _tree(p: SolverParams, np_: NRBParams, c: Consts, egos: torch.Tensor, wx: torch.Tensor,
           wy: torch.Tensor, sigmas: torch.Tensor, obstacles) -> tuple:
     """Everything after the local plan (waypoints wx, wy (B, W)): the
     draws, the tree, the tape and the brake fallback.  Returns (X, U,
-    iterations, J, lamb)."""
+    iterations (the nodes, the root among them), J, lamb)."""
     dtype, dev = egos.dtype, egos.device
     B, N = egos.shape[0], p.horizon
     m, Nn = np_.steer_steps, np_.max_nodes
@@ -269,7 +293,7 @@ def _tree(p: SolverParams, np_: NRBParams, c: _Consts, egos: torch.Tensor, wx: t
     cost = torch.zeros((B, Nn), dtype=dtype, device=dev)
     time = torch.zeros((B, Nn), dtype=torch.int64, device=dev)  # horizon step of the node
     valid = torch.zeros((B, Nn), dtype=torch.bool, device=dev)
-    valid[:, 0] = True
+    valid[:, 0].fill_(True)
     inf = torch.full((B, Nn), math.inf, dtype=dtype, device=dev)
     steps = torch.arange(1, m + 1, device=dev)
 
@@ -317,7 +341,7 @@ def _tree(p: SolverParams, np_: NRBParams, c: _Consts, egos: torch.Tensor, wx: t
     d_goal = torch.sqrt(((states[..., :2] - goal[:, None]) ** 2).sum(dim=-1))
     score = cost + np_.goal_weight * d_goal
     grown = valid.clone()
-    grown[:, 0] = False
+    grown[:, 0].fill_(False)
     best = torch.argmin(torch.where(grown, score, inf), dim=-1)
     found = grown.any(dim=-1)
 

@@ -49,8 +49,10 @@ STREAMS = 4
 #: ``jax.lax.while_loop`` evaluates it); False: the host reads the done mask
 #: after each step replay
 DEVICE_LOOP = True
-#: the captures by parameters, device and shapes (``graphs.GraphCache``)
-CAPTURED = graphs.GraphCache(kept=8)
+#: the captures by parameters, device and shapes (``graphs.GraphCache``);
+#: 16, so that a ``compare`` call's LM loops outlive its other planners'
+#: stages (the NRB-RRT planner's among them)
+CAPTURED = graphs.GraphCache(kept=16)
 
 
 class Iteration(NamedTuple):

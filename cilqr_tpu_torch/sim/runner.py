@@ -116,7 +116,8 @@ def make_plan_step(algorithm: str, p: SolverParams, noise: NoiseParams, plan: to
       * `frenet_*`: ``frenet.run_steps`` (``plan_steps`` as one graph on the
         card) in the name's mode, the noise's sigmas for expansion, the map
         for propagation, the curvature bound made once here;
-      * `nrb_rrt`: ``nrb_rrt.plan_steps`` with the noise's sigmas.
+      * `nrb_rrt`: ``nrb_rrt.run_steps`` (``plan_steps`` as one graph on the
+        card) with the noise's sigmas, its constants made once here.
 
     ``umaps`` (the per-cycle costmap, else ``unc_map``) is read by `cilqr`
     and `frenet_propagation` only.
@@ -141,8 +142,9 @@ def make_plan_step(algorithm: str, p: SolverParams, noise: NoiseParams, plan: to
                        device=plan.device)
     if algorithm == "nrb_rrt":
         nrbp = nrb_params if nrb_params is not None else nrb_rrt.NRBParams()
-        return lambda e, u, umaps=None: nrb_rrt.plan_steps(p, nrbp, plan, n, e, obstacles,
-                                                           sigmas=sig)
+        consts = nrb_rrt.constants(p, nrbp, plan.dtype, plan.device)
+        return lambda e, u, umaps=None: nrb_rrt.run_steps(p, nrbp, plan, n, e, obstacles, sig,
+                                                          consts)
     mode = algorithm.split("_", 1)[1]
     fp = frenet_params if frenet_params is not None else frenet.FrenetParams()
     if fp.mode != mode:

@@ -5,9 +5,9 @@ as a CUDA graph the same kernels run on the same inputs (the same bits)
 with one launch from the host.  ``models.solver`` (its LM loops: the plain
 iteration, the hybrid one with its own step (the step kernel), the two-phase one
 with K2; and the stages around them, ``solver.run`` / ``solver.solve``: the
-mega solve with K1, the closed loops' cycles with K4 and K5) and
-``models.nrb_rrt`` (the planner) capture their work this way,
-each in a ``GraphCache`` of its own.  A capture fails on any host-to-device
+mega solve with K1, the closed loops' cycles with K4 and K5, the Frenet
+lattice and the NRB-RRT planner) capture their work this way, in its
+``GraphCache``.  A capture fails on any host-to-device
 copy or host synchronisation inside it, so the constants a captured
 function reads are made in its warm-up, before the capture.  Warm-up and
 capture run on the inputs' device, whichever device is current: a sharded

@@ -6,9 +6,19 @@ iterations), each also held against JAX's ``plan_step`` on the same float64
 inputs: per lane the node count and lamb equal, X, U and J within 1e-9 of
 max(1, max |want|).  The draws come from ``utils.prng``, JAX's threefry bit
 for bit, so the trees grow alike.
+
+Then the planner as the closed loops run it (``run_steps``: one
+``solver.run`` stage, its captures replaced by eager replays under a
+four-stream planner, as on the CPU in ``test_torch_graph_ops``) against the
+eager ``plan_steps``, bit for bit; its counters and span; and the
+benchmark's plain reference (``benchmarks/reference/nrb_rrt.py``): its
+threefry against ``jax.random``, and its float32 trees against the port's
+on the benchmark's success1 deployment.
 """
 
 import dataclasses
+import json
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -18,13 +28,20 @@ import torch
 
 from cilqr_tpu.models import nrb_rrt as jnrb, obstacles as jobs, reference_path as jrp
 from cilqr_tpu.sim import plant as jplant, runner as jrunner, scenarios as jsc
+from benchmarks import world as world_mod
+from benchmarks.reference import cilqr as ref, nrb_rrt as ref_nrb
 from cilqr_tpu.utils.params import NoiseParams, SolverParams
-from cilqr_tpu_torch.models import nrb_rrt as tnrb, reference_path as trp
+from cilqr_tpu_torch.models import nrb_rrt as tnrb, obstacles as tobs, reference_path as trp, solver
 from cilqr_tpu_torch.sim import plant as tplant, runner as trunner, scenarios as tsc
-from cilqr_tpu_torch.utils import interop
+from cilqr_tpu_torch.utils import graphs, interop, profiling
+from cilqr_tpu_torch.utils import params as tparams
+from tests import test_torch_graph_ops as ops
+from tests.test_torch_graph_ops import replays  # noqa: F401  (the fixture)
 
 DEV = "cpu"  # the port allocates on the card unless told otherwise
 REL = 1e-9
+ROOT = Path(__file__).resolve().parents[1]
+CONFIG = json.loads((ROOT / "benchmarks" / "configs" / "nrb_rrt_success1_n40.json").read_text())
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -226,12 +243,12 @@ def test_plan_matches_jax_per_lane(global_plan):
 @pytest.mark.cuda
 @pytest.mark.skipif("not torch.cuda.is_available()", reason="needs a CUDA device")
 def test_graph_replay_equals_eager_on_card():
-    """On the card the planner after the local plan runs as a CUDA graph:
-    the first call of a batch shape captures it, later calls replay it on
-    their own inputs.  Every call equals the eager run bit for bit (float32,
-    the gauntlet's obstacles and band, horizon 40), a second shape captures
-    its own graph, and a returned result is not overwritten by the next
-    replay."""
+    """On the card ``run_steps`` runs the planner, its local plan included,
+    as a CUDA graph: the first call of a batch shape captures it, later
+    calls replay it on their own inputs.  Every call equals the eager run
+    bit for bit (float32, the gauntlet's obstacles and band, horizon 40), a
+    second shape captures its own graph, and a returned result is not
+    overwritten by the next replay."""
     dev = torch.device("cuda")
     p = interop.solver_params_from_reference(SolverParams())
     sc = tsc.make_gauntlet()
@@ -245,16 +262,18 @@ def test_graph_replay_equals_eager_on_card():
         return torch.tensor(np.array(sc.start) + rng.normal(0, [3.0, 0.3, 1.0, 0.05], (B, 4)),
                             dtype=torch.float32, device=dev)
 
+    c = tnrb.constants(p, np_, torch.float32, dev)
+
     def eager(e):
-        tnrb.GRAPHS = False
+        solver.GRAPHS = False
         try:
-            return tnrb.plan_steps(p, np_, plan, n, e, ob, sigmas=sig)
+            return tnrb.run_steps(p, np_, plan, n, e, ob, sig, c)
         finally:
-            tnrb.GRAPHS = True
+            solver.GRAPHS = True
 
     first = None
     for e in (egos(10), egos(10), egos(50), egos(10)):
-        got = tnrb.plan_steps(p, np_, plan, n, e, ob, sigmas=sig)
+        got = tnrb.run_steps(p, np_, plan, n, e, ob, sig, c)
         want = eager(e)
         for g, w in zip(got, want):
             assert torch.equal(g, w)
@@ -285,3 +304,173 @@ def test_tree_follows_the_ego_bits(global_plan):
     c = both(w, np_, ego.astype(np.float64) + [1e-12, 0.0, 0.0, 0.0], sig)
     assert float((a.U - b.U).abs().max()) > 0.5
     assert torch.equal(a.U, c.U) and torch.equal(a.X[..., 1:, 2:], c.X[..., 1:, 2:])
+
+
+# ------------------------------------- the planner as the closed loops run it
+def success1(B: int, seed: int, n_iters: int):
+    """The benchmark's deployment (``nrb_rrt_success1_n40``: N=40, the three
+    success1 obstacles, the noise's sigmas) in float32 with ``n_iters``
+    growth iterations, and B noisy starts along its lane."""
+    w = CONFIG["world"]
+    p = dataclasses.replace(tparams.SolverParams(), **CONFIG["solver"])
+    np_ = dataclasses.replace(tnrb.NRBParams(**CONFIG["nrb"]), n_iters=n_iters)
+    route, obs = world_mod.route(w), world_mod.obstacles(w)
+    plan, n = trp.pad_global_plan(p, route, torch.float32, DEV)
+    ob = tobs.make_static_obstacles(p, obs[:, :2], obs[:, 3:5], obs[:, 2], dtype=torch.float32,
+                                    device=DEV)
+    sig = torch.tensor([CONFIG["noise"][k] for k in ("sigma_x", "sigma_y", "sigma_theta")])
+    rng = np.random.default_rng(seed)
+    egos = np.tile(np.asarray(w["start"], np.float64), (B, 1))
+    egos[:, 0] += rng.uniform(0.0, w["start_spread_m"], B)
+    egos += rng.normal(0.0, [0.16, 0.16, 0.3, 0.017], (B, 4))
+    return dict(p=p, np_=np_, plan=plan, n=n, ob=ob, sig=sig, route=route, obs=obs,
+                egos=torch.tensor(egos, dtype=torch.float32),
+                c=tnrb.constants(p, np_, torch.float32, DEV))
+
+
+def staged(w, egos):
+    return tnrb.run_steps(w["p"], w["np_"], w["plan"], w["n"], egos, w["ob"], w["sig"], w["c"])
+
+
+def test_run_steps_equals_plan_steps(replays):
+    """``run_steps`` staged (the plan fit, draws, tree, tape, rollout and
+    brake of a cycle in one stage, held free of host copies and reads) equals
+    the eager ``plan_steps`` bit for bit on every field; a second call on new
+    egos replays the one capture."""
+    w = success1(6, 40, 16)
+    for k in range(2):
+        egos = w["egos"] + 0.3 * k
+        got = staged(w, egos)
+        want = tnrb.plan_steps(w["p"], w["np_"], w["plan"], w["n"], egos, w["ob"], None, w["sig"])
+        assert ops.same(tuple(got), tuple(want)), k
+    assert ops.PlannedReplays.captures == 1 and len(ops.PlannedReplays.planners) == 2
+    assert 0 < float(got.lamb.sum()) < 6
+
+
+def test_spans_of_the_staged_planner(replays):
+    """Under tracing, staged: one ``nrb.plan`` span a call, holding the
+    stage's copy in, replay and copy out, then the host's wait for the
+    card's counters; ``PLANS`` and ``DRAWS`` = B x n_iters counted on the
+    host."""
+    w = success1(6, 41, 12)
+    with profiling.tracing():
+        for k in range(2):
+            staged(w, w["egos"] + 0.2 * k)
+    found = profiling.spans()
+    plans = [s for s in found if s.name == "nrb.plan"]
+    assert len(plans) == 2 and all(s.parent is None for s in plans)
+    for s in plans:
+        assert [c.name for c in found if c.parent == s.id] == [
+            "run.copy_in", "run.replay", "run.copy_out", "nrb.counters"]
+    assert all(s.wait for s in found if s.name == "nrb.counters")
+    c = profiling.counters()
+    assert c["nrb_rrt.PLANS"] == 2 and c["nrb_rrt.DRAWS"] == 2 * 6 * 12
+
+
+def test_counters_count_the_grown_nodes():
+    """``DRAWS`` = B x n_iters a call, ``GROWN`` the nodes grown (the root
+    left out) and ``FOUND`` the lanes with a plan, summed on the tensors'
+    device (here the CPU, the loop eager) and read at the host's wait after
+    each call; a warm-up (``graphs.building``) counts nothing."""
+    w = success1(8, 44, 12)
+    with profiling.tracing():
+        outs = [staged(w, w["egos"] + 0.2 * k) for k in range(3)]
+    c = profiling.counters()
+    assert c["nrb_rrt.DRAWS"] == 3 * 8 * 12
+    assert c["nrb_rrt.GROWN"] == sum(int((o.iterations.long() - 1).sum()) for o in outs) > 0
+    assert c["nrb_rrt.FOUND"] == sum(int(o.lamb.sum()) for o in outs) > 0
+    total = int(tnrb._GROWN.totals[torch.device(DEV)])
+    with graphs.building():
+        staged(w, w["egos"])
+    assert int(tnrb._GROWN.totals[torch.device(DEV)]) == total
+    assert (tnrb._FOUND.start, tnrb._FOUND.read) in profiling.DEVICE_COUNTERS
+
+
+def test_runner_routes_to_the_stage(replays):
+    """``make_plan_step("nrb_rrt")`` plans through ``run_steps`` (its
+    constants made once), the closed loop's result equal to the eager one."""
+    w = success1(4, 42, 8)
+    noise = NoiseParams(**CONFIG["noise"])
+    step = trunner.make_plan_step("nrb_rrt", w["p"], noise, w["plan"], w["n"], w["ob"],
+                                  nrb_params=w["np_"])
+    PLANS = tnrb.PLANS
+    got = step(w["egos"], None)
+    assert tnrb.PLANS == PLANS + 1 and ops.PlannedReplays.captures == 1
+    want = tnrb.plan_steps(w["p"], w["np_"], w["plan"], w["n"], w["egos"], w["ob"], None,
+                           w["sig"])
+    assert ops.same(tuple(got), tuple(want))
+
+
+# ---------------------------------------------- the benchmark's reference
+def test_reference_threefry_matches_jax():
+    """The reference's own threefry (key, fold_in, split, 32-bit bits,
+    float32 uniforms, int32 randint) against ``jax.random`` with x64 off, as
+    a float32 lane draws; then its whole block of draws for 16 poses against
+    JAX's loop body."""
+    with jax.enable_x64(False):
+        for seed in (0, 5, 2**31 - 1):
+            k = jax.random.key(seed)
+            t = ref_nrb.key(seed, DEV)
+            np.testing.assert_array_equal(t.numpy(), np.asarray(jax.random.key_data(k)))
+            for d in (0, 1, 95, 2**31 - 1, -1, -2**31):
+                np.testing.assert_array_equal(
+                    ref_nrb.fold_in(t, torch.tensor(d)).numpy(),
+                    np.asarray(jax.random.key_data(jax.random.fold_in(k, jnp.int32(d)))))
+        ks = jax.random.split(jax.random.key(13), 600)
+        ts = torch.tensor(np.asarray(jax.random.key_data(ks)).astype(np.int64))
+        np.testing.assert_array_equal(ref_nrb.split(ts, 4).numpy(), np.asarray(
+            jax.random.key_data(jax.vmap(lambda k: jax.random.split(k, 4))(ks))))
+        np.testing.assert_array_equal(ref_nrb.bits32(ts).numpy(), np.asarray(
+            jax.vmap(lambda k: jax.random.bits(k, (), jnp.uint32))(ks)).astype(np.int64))
+        for lo, hi in ((0.0, 1.0), (-3.0, 3.0), (0.0, 6.000000000000001), (-1.25, 3.0)):
+            want = np.asarray(jax.vmap(lambda k: jax.random.uniform(k, (), jnp.float32, lo, hi))(ks))
+            np.testing.assert_array_equal(ref_nrb.uniform32(ts, lo, hi).numpy().view(np.int32),
+                                          want.view(np.int32))
+        for n in (1, 7, 20, 33):
+            np.testing.assert_array_equal(
+                ref_nrb.randint32(ts, n).numpy(),
+                np.asarray(jax.vmap(lambda k: jax.random.randint(k, (), 0, n))(ks)))
+
+        tree = ref_nrb.Tree.from_config(dict(CONFIG["nrb"], n_iters=10))
+        poses = np.asarray(CONFIG["world"]["start"], np.float32) + np.random.default_rng(
+            4).normal(0, [20.0, 1.0, 2.0, 0.3], (16, 4)).astype(np.float32)
+        W = 20
+
+        def lane(ego):
+            b = jax.lax.bitcast_convert_type(ego, jnp.int32)
+            key = jax.random.fold_in(jax.random.fold_in(jax.random.key(tree.seed), b[0] ^ b[2]),
+                                     b[1] ^ b[3])
+
+            def one(i):
+                k_goal, k_s, k_lat, k_v = jax.random.split(jax.random.fold_in(key, i), 4)
+                return (jax.random.randint(k_s, (), 0, W),
+                        jax.random.uniform(k_lat, (), jnp.float32, -tree.lat_max, tree.lat_max),
+                        jax.random.uniform(k_goal, (), jnp.float32) < tree.goal_bias,
+                        jax.random.uniform(k_v, (), jnp.float32, 0.0, 5.0 * 1.2))
+
+            return jax.vmap(one)(jnp.arange(tree.n_iters))
+
+        want = [np.asarray(a) for a in jax.vmap(lane)(jnp.asarray(poses))]
+    got = ref_nrb.draws(tree, torch.tensor(poses), W, (-tree.lat_max, tree.lat_max), 5.0 * 1.2)
+    for g, w_ in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w_)
+
+
+def test_reference_matches_the_port_in_float32():
+    """64 seeded lanes of the success1 deployment, 24 growth iterations: the
+    reference in float32 against the port in float32, per lane ``found`` and
+    the nodes grown equal and X, U within 1e-5; some lanes brake, some
+    plan."""
+    w = success1(64, 43, 24)
+    got = tnrb.plan_steps(w["p"], w["np_"], w["plan"], w["n"], w["egos"], w["ob"], None,
+                          w["sig"])
+    f32 = dict(dtype=torch.float32)
+    r = ref_nrb.cycle(ref.Params.from_config(CONFIG["solver"]),
+                      ref_nrb.Tree.from_config(dict(CONFIG["nrb"], n_iters=24)),
+                      torch.tensor(w["route"], **f32), torch.tensor(w["obs"], **f32), w["egos"],
+                      w["sig"])
+    assert torch.equal(got.lamb > 0, r.found)
+    assert torch.equal(got.iterations.long() - 1, r.grown)
+    assert float((got.X - r.X).abs().max()) <= 1e-5
+    assert float((got.U - r.U).abs().max()) <= 1e-5
+    assert 0 < int(r.found.sum()) < 64

@@ -123,7 +123,7 @@ def test_nrb_draws_match_jax(x64, tdt, jdt, bits):
                 return jax.vmap(one)(jnp.arange(np_.n_iters))
 
             want = [np.asarray(w) for w in jax.vmap(lane)(e)]
-        c = tnrb._consts(p, np_, tdt, "cpu")
+        c = tnrb.constants(p, np_, tdt, "cpu")
         got = [g.numpy() for g in tnrb._draws(p, np_, c, torch.tensor(egos, dtype=tdt), W)]
         for g, w in zip(got, want):
             assert g.shape == w.shape == (24, np_.n_iters)
